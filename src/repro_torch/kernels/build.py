@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each ``csrc/*.cu`` source is compiled on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
+a plain C interface under ``build/repro_torch_kernels/`` at the repository
+root.  The library name carries a hash of the sources and flags, so an
+edited source never loads a stale build.  All sources compile in parallel
+(one ``nvcc`` each).  Nothing here runs at import time: the CPU tests
+import every module on machines with no ``nvcc`` and no GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: kernel name -> (source file, C entry point, argtypes)
+KERNELS = {
+    "fused_mlp_score": ("fused_mlp_score.cu", "repro_fused_mlp_score",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_mlp_score_rows": ("fused_mlp_score_rows.cu",
+                             "repro_fused_mlp_score_rows",
+                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per kernel: the compiler's ``-Xptxas -v`` report of the last build
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel whose library is missing, all in parallel.
+
+    Returns the wall seconds spent; raises ``RuntimeError`` with the
+    compiler's output if any build fails."""
+    t0 = time.perf_counter()
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name, (src, _, _) in KERNELS.items():
+            path = _lib_path(name)
+            if path.exists():
+                continue
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (path, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (path, tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOG[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: "
+                               + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    path = _lib_path(name)
+    if not path.exists():
+        build_all()
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(path))
+            _, entry, argtypes = KERNELS[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C launcher; raise on a non-zero
+    ``cudaGetLastError()`` (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    lib = library(name)
+    rc = getattr(lib, KERNELS[name][1])(*args)
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
