@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's prediction path on the card at the full width of the
-paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four op
-kinds) and checks every phase; any failure exits non-zero.
+Drives the port's two paths on the card and checks every phase; any
+failure exits non-zero.  The prediction path runs at the full width of
+the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
+op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
+published configs (every layer, every width, bf16).
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit.
-2. Build: both CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Build: all four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, in parallel.
 3. Kernels against their plain PyTorch versions on the card at the path's
    shapes (K=4, L=9, H=1024): one kind, all kinds mixed, a lone row,
    bucket padding.  Tolerance: max |kernel - plain| <= 1e-4 * max(1,
@@ -21,11 +24,38 @@ kinds) and checks every phase; any failure exits non-zero.
    on the CPU with the plain scorer (rtol 1e-4), and an MLP-free predictor
    on the card against every golden value (rel 1e-6).
 5. Each kernel timed on the inputs the path gave it, beside its plain
-   version and its bound, printed as one JSON line.
-6. Last line: {"ok": true, "device": {...}}.
+   version and its bound.
+6. Flash attention and the SSD scan against their plain versions on the
+   card: flash in bf16 and fp32, causal or not, window 0 or 256, GQA rep
+   1, 2 and 4, D 64 and 128, lengths off the 64-row tiles (bf16 output
+   within 8e-3 * max(1, max |plain|), about two bf16 ulps; fp32 within
+   1e-4 * that); SSD at N 64 and 128, P 64, L off the chunk, y and final
+   state within 1e-4 * max(1, max |plain|) (fp32 sums in another order).
+7. Serving Qwen3-0.6B (28 layers, d_model 1024, 16 / 8 heads of 128,
+   vocab 151936): ``ServingEngine(batch=4, max_seq=4112)`` answers 8
+   requests of 384-4096 prompt tokens and 16 new tokens each; flash
+   launches = prefills x 28.  The same model with plain attention,
+   teacher-forced on the same tokens (each prompt's prefill at the
+   engine's shapes, then one decode step per generated token), must
+   agree.  In bf16, as served: prefill logits within the stated bf16
+   tolerance, and every served token wherever the plain top-2 gap
+   exceeds it.  That tolerance is max(LOGIT_TOL * max |logit|, twice the
+   bf16 noise floor), the floor being the plain bf16 path's distance
+   from the same model in fp32 on the first request, from which the bf16
+   kernel path may lie no farther than twice the floor.  In fp32, kernel
+   path against plain path at every position: logits within
+   FP32_LOGIT_TOL * max |logit|, and equal greedy choices wherever the
+   top-2 gap exceeds that.
+8. Serving Mamba2-130M (24 layers, d_model 768, d_state 128, 24 heads of
+   64, vocab 50280) the same way; SSD launches = prefills x 24.
+9. The two new kernels timed on the largest inputs their path gave them,
+   beside the plain version, the bound and (flash) SDPA.
+10. A line with the card's name and power limit, a ``{"kernels": [...]}``
+    line with all four kernels, and last {"ok": true, "device": {...}}.
 
-Weights are random (He init from a numpy seed) and feature statistics
-come from the port's own ``build_dataset``: nothing is downloaded.
+Weights are random (He init from a numpy seed for the MLPs, a seeded
+``torch.Generator`` on the card for the LMs) and feature statistics come
+from the port's own ``build_dataset``: nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -43,8 +73,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside
-#: the tensor cores, and HBM3 bandwidth.  The kernels run fp32 FFMA.
+#: the tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.  The
+#: kernels run fp32 FFMA; a bound counts the fastest way the card has.
 FP32_PEAK_FLOPS = 67e12
+BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SEED = 0
 N_SYNTHETIC = 29
@@ -54,6 +86,20 @@ DROPPED = ("P4000", "RTX2070", "cpu-host", "tpu-v2", "trainium1")
 ORIGINS = ("T4", "V100", "P100", "tpu-v4", "tpu-v5e", "RTX2080Ti")
 KINDS = ("bmm", "conv2d", "linear", "recurrent")
 ALIKE_KINDS = ("add", "mul", "tanh", "exp", "reduce_sum", "transpose")
+#: the LM serving runs: prompt lengths from 384 to 4096, five of them off
+#: the kernels' 64-row tiles, 16 new tokens each, 4 slots
+LM_PROMPT_LENS = (4096, 384, 1000, 2047, 640, 3333, 1500, 777)
+LM_MAX_NEW = 16
+LM_BATCH = 4
+LM_MAX_SEQ = 4112
+#: prefill logits of the kernel path against the plain path in bf16: at
+#: least 1/32 of the largest logit (4-8 bf16 ulps of it), and at least
+#: twice the plain bf16 path's own distance from the same model in fp32
+#: (bf16 rounds every layer's output, and a random deep model amplifies
+#: those roundings: for Mamba2-130M the distance is near 1 logit)
+LOGIT_TOL = 2.0 ** -5
+#: the same comparison in fp32: sums in another order through every layer
+FP32_LOGIT_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -393,6 +439,414 @@ def breakdown(torch, batched, fms, planner, traces, dests) -> None:
         log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+#: b, h, kv, sq, skv, d, causal, window
+FLASH_CASES = [
+    (1, 16, 8, 1000, 1000, 128, True, 0),
+    (2, 8, 8, 300, 300, 64, True, 256),
+    (1, 16, 4, 777, 777, 128, True, 256),
+    (1, 8, 2, 200, 450, 64, False, 0),
+    (1, 16, 8, 513, 513, 128, False, 256),
+]
+#: b, h, l, p, n, chunk
+SSD_CASES = [
+    (1, 24, 1000, 64, 128, 64),
+    (2, 8, 333, 64, 64, 64),
+]
+
+
+def _max_err(torch, got, want, rel):
+    """max |got - want| and the tolerance rel * max(1, max |want|)."""
+    torch.cuda.synchronize()
+    want = want.float()
+    err = float((got.float() - want).abs().max().item())
+    return err, rel * max(1.0, float(want.abs().max().item()))
+
+
+def lm_kernel_checks(torch, fa, sk, device) -> dict:
+    """Phase 6: both kernels against their plain versions; the worst
+    |err| of each."""
+    worst = {"flash_attention": 0.0, "ssd": 0.0}
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    for b, h, kv, sq, skv, d, causal, window in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn(b, n, s_, d).to(dtype)
+                       for n, s_ in ((h, sq), (kv, skv), (kv, skv)))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal, window)
+            err, tol = _max_err(torch, got, want,
+                                8e-3 if dtype == torch.bfloat16 else 1e-4)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            log(f"  flash {str(dtype)[6:]} B{b} H{h}/KV{kv} Sq{sq} Skv{skv} "
+                f"D{d} causal={causal} window={window}: max |err| "
+                f"{err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                fail("flash_attention disagrees with its plain version")
+    for b, h, l, p, n, chunk in SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(b, h, l, p).to(dtype)
+            dt = 0.01 + 0.19 * torch.rand((b, h, l), generator=gen,
+                                          device=device)
+            a = -(0.5 + 3.5 * torch.rand((h,), generator=gen, device=device))
+            bm = randn(b, 1, l, n).to(dtype).expand(b, h, l, n)
+            cm = randn(b, 1, l, n).to(dtype).expand(b, h, l, n)
+            y, st = sk.ssd(x, dt, a, bm, cm, chunk=chunk)
+            want_y, want_st = sk.ssd_plain(x, dt, a, bm, cm)
+            for got, want, what in ((y, want_y, "y"), (st, want_st, "state")):
+                err, tol = _max_err(torch, got, want, 1e-4)
+                worst["ssd"] = max(worst["ssd"], err)
+                log(f"  ssd {str(dtype)[6:]} B{b} H{h} L{l} P{p} N{n} "
+                    f"chunk {chunk} {what}: max |err| {err:.3e} "
+                    f"(tol {tol:.3e})")
+                if not err <= tol:
+                    fail(f"ssd {what} disagrees with its plain version")
+    return worst
+
+
+def device_profile(torch, fn, top: int = 6) -> None:
+    """Run ``fn`` once under ``torch.profiler``; print wall, device-busy
+    time and the device ops that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, e.key, e.count))
+    if not rows:
+        log(f"    wall {wall_ms:.1f} ms; the profiler recorded no device "
+            f"time")
+        return
+    busy_ms = sum(r[0] for r in rows)
+    log(f"    wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+    for ms, key, count in sorted(rows, reverse=True)[:top]:
+        log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def _fp32_copy(tfm, params):
+    """The same model with every bf16 tensor widened to fp32."""
+    up = lambda t: t.float() if t.dtype == params["embed"].dtype else t
+    top = {k: up(t) for k, t in params.named_parameters(recurse=False)}
+    return tfm.LMParams(top, [{k: up(t) for k, t in layer.items()}
+                              for layer in params.layers])
+
+
+def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
+    """Phases 7-8: serve ``LM_PROMPT_LENS`` through ``ServingEngine`` with
+    ``cfg`` on ``device``, with every kernel count set to 0 just before
+    and read just after; then hold the answers against the same model on
+    its kernel's plain version, teacher-forced.  Returns the path's
+    launches of ``kname`` and the largest inputs it was given."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServingEngine
+    arch = cfg.name
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f} M parameters in "
+        f"{cfg.param_dtype}, made on {device} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 21)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, n,
+                                               dtype=np.int32),
+                    max_new_tokens=LM_MAX_NEW)
+            for i, n in enumerate(LM_PROMPT_LENS)]
+    engine = ServingEngine(cfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ,
+                           device=device)
+
+    rec = {"prefill": [], "decode_ms": [], "args": None}
+    orig = {"prefill": tfm.prefill, "decode_step": tfm.decode_step,
+            "kernel": getattr(kmod, kname)}
+
+    def prefill(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, state = orig["prefill"](*args)
+        torch.cuda.synchronize()
+        rec["prefill"].append(((time.perf_counter() - t) * 1e3,
+                               logits[0, -1].float()))
+        return logits, state
+
+    def decode_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig["decode_step"](*args)
+        torch.cuda.synchronize()
+        rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def kernel(*args, **kwargs):   # keeps the largest inputs (axis 2)
+        if rec["args"] is None or \
+                args[0].shape[2] >= rec["args"][0][0].shape[2]:
+            rec["args"] = (args, kwargs)
+        return orig["kernel"](*args, **kwargs)
+
+    tfm.prefill, tfm.decode_step = prefill, decode_step
+    setattr(kmod, kname, kernel)
+    try:
+        for mod in kernel_mods:
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in kernel_mods
+                    for k, v in mod.LAUNCHES.items()}
+    finally:
+        tfm.prefill, tfm.decode_step = orig["prefill"], orig["decode_step"]
+        setattr(kmod, kname, orig["kernel"])
+
+    n_pre = len(rec["prefill"])
+    toks = sum(len(r.output) for r in done)
+    pre_ms = [ms for ms, _ in rec["prefill"]]
+    log(f"  served {len(done)}/{len(reqs)} requests, {toks} tokens in "
+        f"{wall:.2f} s ({toks / wall:.1f} tok/s); {n_pre} prefills, "
+        f"{len(rec['decode_ms'])} decode ticks")
+    log("  prefill ms per prompt: " + ", ".join(
+        f"{n}: {ms:.1f}" for n, ms in zip(LM_PROMPT_LENS, pre_ms)))
+    dec = np.asarray(rec["decode_ms"])
+    log(f"  decode ms per tick (batch {LM_BATCH}, cache {LM_MAX_SEQ}): "
+        f"median {np.median(dec):.2f}, min {dec.min():.2f}, "
+        f"max {dec.max():.2f}")
+    log(f"  launches on the path: {launches}")
+    if len(done) != len(reqs) or n_pre != len(reqs):
+        fail(f"{arch}: served {len(done)} of {len(reqs)} requests with "
+             f"{n_pre} prefills")
+    if launches[kname] != n_pre * cfg.n_layers:
+        fail(f"{arch}: {kname} launched {launches[kname]} times, want "
+             f"{n_pre} prefills x {cfg.n_layers} layers")
+    for other, n in launches.items():
+        if other != kname and n:
+            fail(f"{arch}: {other} launched {n} times on this path")
+
+    # the kernel against its plain version on the largest inputs the
+    # path gave it (these launches are not the path's)
+    plain = getattr(kmod, f"{kname}_plain")
+    args, kwargs = rec["args"]
+    saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
+    got = orig["kernel"](*args, **kwargs)
+    want = plain(*args, **{k: v for k, v in kwargs.items() if k != "chunk"})
+    for k, mod in enumerate(kernel_mods):
+        mod.LAUNCHES.update(saved[k])
+    rel = 8e-3 if kname == "flash_attention" and \
+        args[0].dtype == torch.bfloat16 else 1e-4
+    path_err = 0.0
+    for g, w in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
+        err, tol = _max_err(torch, g, w, rel)
+        path_err = max(path_err, err)
+        if not err <= tol:
+            fail(f"{kname} on the path's inputs: |err| {err:.3e} > {tol:.3e}")
+    log(f"  {kname} on the path's largest inputs "
+        f"({'x'.join(str(n) for n in args[0].shape)}): max |kernel - plain| "
+        f"{path_err:.3e}")
+    del got, want
+
+    # the same model on the plain version, teacher-forced on the same
+    # tokens: each prompt's prefill (the engine's shapes), then one decode
+    # step per generated token; in bf16 as served, and in fp32 through the
+    # kernel and through the plain version
+    def plain_call(*args, **kwargs):
+        kwargs.pop("chunk", None)          # the plain scan has no chunk
+        return plain(*args, **kwargs)
+
+    def teacher_forced(impl, model, model_cfg, req, out):
+        """Logits (len(out), V) fp32: the prompt's last position, then
+        after each generated token but the last."""
+        setattr(kmod, kname, impl)
+        saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
+        try:
+            prompt = torch.as_tensor(req.prompt[None, :], device=device)
+            logits, state = orig["prefill"](model, model_cfg, prompt,
+                                            LM_MAX_SEQ)
+            rows = [logits[0, -1].float()]
+            for tok in out[:-1]:
+                tok = torch.full((1, 1), int(tok), device=device)
+                logits, state = orig["decode_step"](model, model_cfg, tok,
+                                                    state)
+                rows.append(logits[0, -1].float())
+            return torch.stack(rows)
+        finally:
+            setattr(kmod, kname, orig["kernel"])
+            for k, mod in enumerate(kernel_mods):
+                mod.LAUNCHES.update(saved[k])
+
+    def decisions(rows, out, tol):
+        """(compared, skipped): ``out`` must be the argmax of ``rows``
+        wherever the top-2 gap exceeds ``tol``."""
+        top = torch.topk(rows, 2, dim=-1)
+        gaps = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        best = top.indices[:, 0].cpu().numpy()
+        clear = gaps > tol
+        if (best[clear] != np.asarray(out)[clear]).any():
+            fail(f"{arch}: greedy tokens disagree where the top-2 gap "
+                 f"exceeds {tol:.3e}")
+        return int(clear.sum()), int((~clear).sum())
+
+    p32 = _fp32_copy(tfm, params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    by_uid = {r.uid: r for r in done}
+    t0 = time.perf_counter()
+    worst = {"bf16": 0.0, "fp32": 0.0}
+    counts = {"bf16": [0, 0], "fp32": [0, 0]}
+    for i, req in enumerate(reqs):
+        out = by_uid[i].output
+        got = rec["prefill"][i][1]
+        if not torch.isfinite(got).all():
+            fail(f"{arch}: non-finite prefill logits for request {i}")
+        rows = teacher_forced(plain_call, params, cfg, req, out)
+        truth = teacher_forced(plain_call, p32, cfg32, req, out)
+        kernel32 = teacher_forced(orig["kernel"], p32, cfg32, req, out)
+        scale = max(1.0, float(truth.abs().max().item()))
+        if i == 0:
+            # the bf16 noise floor: the plain bf16 path's distance from the
+            # same model in fp32; the bf16 kernel path may lie no farther
+            # than twice that, and the stated bf16 tolerance is twice it
+            floor = float((rows[0] - truth[0]).abs().max().item())
+            far = float((got - truth[0]).abs().max().item())
+            tol = max(LOGIT_TOL * scale, 2 * floor)
+            log(f"  request 0 ({len(req.prompt)} tokens), prefill logits "
+                f"(scale {scale:.3f}): from the fp32 model the bf16 "
+                f"plain path lies {floor:.4f} (the noise floor) and the bf16 "
+                f"kernel path {far:.4f} (limit {2 * floor:.4f})")
+            if not far <= 2 * floor:
+                fail(f"{arch}: the bf16 kernel path lies {far:.4f} from the "
+                     f"fp32 model, over twice the plain path's {floor:.4f}")
+        err = float((got - rows[0]).abs().max().item())
+        err32 = float((kernel32 - truth).abs().max().item())
+        tol32 = FP32_LOGIT_TOL * scale
+        worst["bf16"] = max(worst["bf16"], err)
+        worst["fp32"] = max(worst["fp32"], err32 / scale)
+        if not err <= tol:
+            fail(f"{arch}: request {i} prefill logits differ from the plain "
+                 f"path by {err:.3e} > {tol:.3e} (bf16)")
+        if not err32 <= tol32:
+            fail(f"{arch}: request {i} logits differ from the plain path by "
+                 f"{err32:.3e} > {tol32:.3e} (fp32)")
+        for key, c in (("bf16", decisions(rows, out, tol)),
+                       ("fp32", decisions(
+                           truth, kernel32.argmax(-1).cpu().numpy(), tol32))):
+            counts[key][0] += c[0]
+            counts[key][1] += c[1]
+        del rows, truth, kernel32
+    del p32
+    log(f"  teacher-forced on all {len(reqs)} requests "
+        f"({time.perf_counter() - t0:.1f} s): bf16 prefill logits max "
+        f"|kernel - plain| {worst['bf16']:.4f} (tol {tol:.4f}), served "
+        f"tokens equal the plain path's greedy choice at {counts['bf16'][0]} "
+        f"positions ({counts['bf16'][1]} within the tolerance skipped); fp32 "
+        f"logits max |kernel - plain| {worst['fp32']:.2e} of the scale "
+        f"(tol {FP32_LOGIT_TOL:g}), greedy choices equal at "
+        f"{counts['fp32'][0]} positions ({counts['fp32'][1]} skipped)")
+
+    saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
+    longest = torch.as_tensor(reqs[0].prompt[None, :], device=device)
+    log(f"  breakdown of one prefill of {longest.shape[1]} tokens under "
+        f"the profiler:")
+    device_profile(torch, lambda: tfm.prefill(params, cfg, longest,
+                                              LM_MAX_SEQ))
+    token = torch.as_tensor(engine.last_token, device=device)
+    log(f"  breakdown of one decode tick (batch {LM_BATCH}, cache "
+        f"{LM_MAX_SEQ}):")
+    device_profile(torch, lambda: tfm.decode_step(params, cfg, token,
+                                                  engine.state))
+    for k, mod in enumerate(kernel_mods):
+        mod.LAUNCHES.update(saved[k])
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"launches": launches[kname], "args": rec["args"],
+            "max_abs_err": path_err}
+
+
+def flash_bound(args) -> tuple:
+    """(bound_ms, bound_by) of one flash call: 4 D FLOPs per allowed
+    (query, key) pair per head (q.k and p.v) over the bf16 tensor-core
+    peak (fp32 inputs: the fp32 peak), against q, k, v read once and o
+    written once over HBM bandwidth."""
+    (q, k, v), kw = args[0][:3], args[1]
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    causal, window = kw.get("causal", True), int(kw.get("window", 0))
+    i = np.arange(sq)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq)
+    pairs = float(np.maximum(0, hi - lo + 1).sum())
+    flops = 4.0 * b * h * d * pairs
+    peak = FP32_PEAK_FLOPS if q.dtype.itemsize == 4 else BF16_PEAK_FLOPS
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_flops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_flops, "operations") if t_flops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def ssd_bound(args) -> tuple:
+    """(bound_ms, bound_by) of one SSD call at the kernel's chunk Q: per
+    (b, h) and chunk of r rows, 2 r(r+1)/2 (N + P) FLOPs for the causal
+    scores and their product with x, and 4 r N P for the state's read and
+    update, over the fp32 peak; against x, dt, a, b, c (each stored
+    element once: b and c are shared by the heads) read once and y and the
+    state written once."""
+    (x, dt, a, bm, cm), kw = args[0][:5], args[1]
+    b, h, l, p = x.shape
+    n = bm.shape[-1]
+    q = int(kw.get("chunk", 64))
+    rows = np.full(l // q, q, np.float64)
+    if l % q:
+        rows = np.append(rows, l % q)
+    flops = b * h * float((rows * (rows + 1) * (n + p) + 4 * rows * n * p)
+                          .sum())
+    heads = 1 if bm.stride(1) == 0 else h
+    nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
+              + 2 * b * heads * l * n * bm.element_size()
+              + b * h * l * p * 4 + b * h * n * p * 4)
+    t_flops = flops / FP32_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_flops, "operations") if t_flops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def sdpa_ms(torch, args):
+    """Time of PyTorch's fused attention on the same inputs (yardstick
+    only: the port never calls it), and its max |diff| from the plain
+    version."""
+    import torch.nn.functional as F
+    (q, k, v), kw = args[0][:3], args[1]
+    causal = kw.get("causal", True)
+    if int(kw.get("window", 0)):
+        return None, None       # SDPA has no sliding window
+    try:
+        call = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+        out = call()
+    except TypeError:           # a torch without enable_gqa
+        rep = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(rep, dim=1)
+        vr = v.repeat_interleave(rep, dim=1)
+        call = lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                      is_causal=causal)
+        out = call()
+    return time_ms(torch, call), out
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -528,7 +982,69 @@ def main() -> int:
 
     breakdown(torch, batched, fms, planner, traces, fleet_minus)
 
-    # -- 6. result lines ----------------------------------------------------
+    # -- 6. the LM path's kernels against their plain versions --------------
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    log("[6 LM kernels vs plain] flash attention and the SSD scan")
+    lm_worst = lm_kernel_checks(torch, fa, sk, device)
+    kernel_mods = (fms, fa, sk)
+
+    # -- 7-8. the LM serving path -------------------------------------------
+    lm_runs = {}
+    from repro_torch.configs import get_config
+    for phase, arch, kmod, kname in ((7, "qwen3-0.6b", fa, "flash_attention"),
+                                     (8, "mamba2-130m", sk, "ssd")):
+        log(f"[{phase} serve] {arch}: {len(LM_PROMPT_LENS)} requests, "
+            f"prompts {min(LM_PROMPT_LENS)}-{max(LM_PROMPT_LENS)} tokens, "
+            f"{LM_MAX_NEW} new tokens, batch {LM_BATCH}, max_seq "
+            f"{LM_MAX_SEQ}")
+        lm_runs[kname] = serve_lm(torch, get_config(arch), device, kmod,
+                                  kname, kernel_mods)
+
+    # -- 9. the LM kernels timed on the largest inputs their path gave ------
+    log("[9 timing] flash attention and the SSD scan on their path's "
+        "largest inputs")
+    lm_sources = {"flash_attention": ("flash_attention", 78, flash_bound),
+                  "ssd": ("ssd", 72, ssd_bound)}
+    for kmod, kname in ((fa, "flash_attention"), (sk, "ssd")):
+        args, kwargs = lm_runs[kname]["args"]
+        kernel = getattr(kmod, kname)
+        plain = getattr(kmod, f"{kname}_plain")
+        plain_kwargs = {k: v for k, v in kwargs.items() if k != "chunk"}
+        saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
+        lm_worst[kname] = max(lm_worst[kname], lm_runs[kname]["max_abs_err"])
+        ms = time_ms(torch, lambda: kernel(*args, **kwargs))
+        plain_ms = time_ms(torch, lambda: plain(*args, **plain_kwargs),
+                           iters=10 if kname == "flash_attention" else 3,
+                           warmup=1)
+        library_ms = None
+        if kname == "flash_attention":
+            library_ms, lib_out = sdpa_ms(torch, (args, kwargs))
+            if lib_out is not None:
+                diff = _max_err(torch, lib_out,
+                                plain(*args, **plain_kwargs), 8e-3)[0]
+                log(f"  SDPA vs plain on these inputs: max |diff| "
+                    f"{diff:.3e}")
+        for k, mod in enumerate(kernel_mods):
+            mod.LAUNCHES.update(saved[k])   # timing launches are not the path's
+        src, line, bound_fn = lm_sources[kname]
+        bound_ms, bound_by = bound_fn((args, kwargs))
+        shape = "x".join(str(n) for n in args[0].shape)
+        log(f"  {kname}: {args[0].dtype} {shape}, {ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
+            f"bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of "
+            f"peak)")
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{src}.py:{line}",
+            "launches": lm_runs[kname]["launches"],
+            "max_abs_err": lm_worst[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+
+    # -- 10. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,16 @@
+"""qwen3-0.6b [hf:Qwen/Qwen3-8B family; hf]: qk_norm + GQA.
+
+28L d_model=1024 16H (GQA kv=8) d_ff=3072 vocab=151936; head_dim 128.
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-0.6b", family="dense",
+    n_layers=28, d_model=1024, n_heads=16, n_kv_heads=8, head_dim=128,
+    d_ff=3072, vocab_size=151936, qk_norm=True, rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    param_dtype="bfloat16", act_dtype="bfloat16", remat=True,
+    # <1B params: pure DP/FSDP beats 2D sharding at 256 chips (§Perf)
+    sharding_profile="dp", sharding_profile_serve="2d",
+)

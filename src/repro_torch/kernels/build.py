@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 #: kernel name -> (source file, C entry point, argtypes)
 KERNELS = {
     "fused_mlp_score": ("fused_mlp_score.cu", "repro_fused_mlp_score",
@@ -34,6 +35,13 @@ KERNELS = {
     "fused_mlp_score_rows": ("fused_mlp_score_rows.cu",
                              "repro_fused_mlp_score_rows",
                              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # q, k, v, o; dtype, B, H, KV, Sq, Skv, D; 4 x (b, h, s) strides;
+    # causal, window, scale; stream
+    "flash_attention": ("flash_attention.cu", "repro_flash_attention",
+                        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _F, _P]),
+    # x, dt, a, bmat, cmat, y, state; dtype, B, H, L, P, N, chunk;
+    # 5 x (b, h, l) strides; stream
+    "ssd": ("ssd.cu", "repro_ssd", [_P] * 7 + [_I] * 7 + [_L] * 15 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cuda_error.cuh"
+
 namespace repro_mlp {
 
 constexpr int kRows = 16;      // rows per CTA (h tile: kRows x H fp32)
@@ -76,7 +78,3 @@ inline bool shapes_ok(int B, int H, int L, int K) {
 }
 
 }  // namespace repro_mlp
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

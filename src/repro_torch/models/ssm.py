@@ -1,0 +1,223 @@
+"""Mamba2 (state-space duality / SSD) blocks (port of ``repro.models.ssm``).
+
+``ssd_chunked`` is the chunked SSD algorithm of arXiv:2405.21060 in plain
+PyTorch and ``ssd_reference`` the naive sequential recurrence, both as in
+the reference.  The model's prefill scan (:func:`mamba_block`) runs on
+the Hopper SSD kernel (:mod:`repro_torch.kernels.ssd`), which on CPU
+tensors computes its plain version; the one-token decode step is plain
+PyTorch, as it is plain jnp in the reference.
+
+Shapes: x (B, L, H, P)   dt (B, L, H)   A (H,)   B, C (B, L, G, N), G=1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ssd as ssd_k
+from repro_torch.models.layers import init_dense, rms_norm
+
+
+def ssd_reference(x, dt, a, b, c, d_skip=None):
+    """Sequential SSD recurrence: S_t = S_{t-1} exp(dt_t A) + dt_t B_t x_t."""
+    bs, l, h, p = x.shape
+    n = b.shape[-1]
+    g = b.shape[2]
+    rep = h // g
+    bh = torch.repeat_interleave(b, rep, dim=2).to(torch.float32)
+    ch = torch.repeat_interleave(c, rep, dim=2).to(torch.float32)
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    s = torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dtf[:, t] * a)[..., None, None]          # (B,H,1,1)
+        s = s * decay + (dtf[:, t, :, None] * bh[:, t])[..., :, None] \
+            * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t], s))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + d_skip[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ssd_chunked(x, dt, a, b, c, d_skip=None, chunk: int = 256,
+                return_final=False):
+    """Chunked SSD (the paper's hardware-efficient dual form)."""
+    bs, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    q = min(chunk, l)
+    pad = (-l) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    lp = l + pad
+    nc = lp // q
+    xc = x.reshape(bs, nc, q, h, p).to(torch.float32)
+    dtc = dt.reshape(bs, nc, q, h).to(torch.float32)
+    bc = b.reshape(bs, nc, q, g, n).to(torch.float32)
+    cc = c.reshape(bs, nc, q, g, n).to(torch.float32)
+    rep = h // g
+    bhc = torch.repeat_interleave(bc, rep, dim=3)          # (B,nc,Q,H,N)
+    chc = torch.repeat_interleave(cc, rep, dim=3)
+
+    adt = dtc * a                                          # (B,nc,Q,H), negative
+    cum = torch.cumsum(adt, dim=2)
+
+    # ---- intra-chunk (quadratic within chunk) -----------------------------
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,Qi,Qj,H)
+    ii = torch.arange(q, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])
+    decay = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", chc, bhc)
+    att = scores * decay * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)
+
+    # ---- chunk states -------------------------------------------------------
+    tail = torch.exp(cum[:, :, -1:, :] - cum)              # (B,nc,Q,H)
+    weighted = (tail * dtc)[..., None] * bhc               # (B,nc,Q,H,N)
+    states = torch.einsum("bcqhn,bcqhp->bchnp", weighted, xc)
+
+    # ---- inter-chunk recurrence ---------------------------------------------
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # (B,nc,H)
+    s = torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+    s_prevs = []
+    for ci in range(nc):
+        s_prevs.append(s)
+        s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    s_prevs = torch.stack(s_prevs, dim=1)                  # (B,nc,H,N,P)
+
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
+                           chc * torch.exp(cum)[..., None], s_prevs)
+    y = (y_intra + y_inter).reshape(bs, lp, h, p)[:, :l]
+    if d_skip is not None:
+        y = y + d_skip[None, None, :, None] * x.reshape(bs, lp, h, p)[:, :l]
+    y = y.to(torch.float32)
+    if return_final:
+        return y, s
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Full Mamba2 block
+# ---------------------------------------------------------------------------
+def init_mamba_block(cfg, dtype: torch.dtype,
+                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    conv_dim = di + 2 * g * n
+    dev = generator.device
+    return {
+        "in_proj": init_dense((d, 2 * di + 2 * g * n + h), dtype, generator),
+        "conv_w": init_dense((k, conv_dim), dtype, generator, scale=0.5),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "a_log": torch.log(torch.as_tensor(
+            np.linspace(1.0, 16.0, h, dtype=np.float32), device=dev)),
+        "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
+        "norm": torch.ones((di,), dtype=dtype, device=dev),
+        "out_proj": init_dense((di, d), dtype, generator),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor = None):
+    """Depthwise causal conv along seq.  xbc: (B, L, C); w: (K, C)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]),
+                          dtype=xbc.dtype, device=xbc.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, xbc], dim=1)
+    out = sum(xp[:, i:i + xbc.shape[1]] * w[i] for i in range(k))
+    new_state = xp[:, -(k - 1):] if k > 1 else pad
+    return F.silu(out + b), new_state
+
+
+def _split_proj(cfg, proj):
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    z = proj[..., :di]
+    xbc = proj[..., di:2 * di + 2 * g * n]
+    dt = proj[..., 2 * di + 2 * g * n:]
+    return z, xbc, dt
+
+
+def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
+    """Prefill Mamba2 block.  x: (B, L, D) -> (B, L, D).
+
+    The SSD scan is kernel 2, at the kernel's chunk (``cfg.ssm_chunk``
+    capped at ``ssd.MAX_CHUNK``: the chunk changes only the rounding).
+    B and C of the one group reach it as head-broadcast views, and the
+    D-skip is added here, as the reference's ``ssd_chunked`` adds it."""
+    bs, l, _ = x.shape
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    p = cfg.ssm_head_dim
+    proj = x @ params["in_proj"]
+    z, xbc_raw, dt_raw = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc_raw, params["conv_w"],
+                                   params["conv_b"])
+    xs = xbc[..., :di].reshape(bs, l, h, p)
+    bmat = xbc[..., di:di + g * n].reshape(bs, l, g, n).expand(bs, l, h, n)
+    cmat = xbc[..., di + g * n:].reshape(bs, l, g, n).expand(bs, l, h, n)
+    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, s_final = ssd_k.ssd(xs.transpose(1, 2), dt.transpose(1, 2), a,
+                           bmat.transpose(1, 2), cmat.transpose(1, 2),
+                           chunk=min(cfg.ssm_chunk, ssd_k.MAX_CHUNK))
+    y = y.transpose(1, 2) + params["d_skip"][None, None, :, None] \
+        * xs.to(torch.float32)
+    y = y.reshape(bs, l, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    out = y @ params["out_proj"]
+    if return_state:
+        return out, {"conv": conv_state, "ssm": s_final}
+    return out
+
+
+def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * g * n
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, h, n, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode_step(params, x: torch.Tensor, state: Dict,
+                      cfg) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (B, 1, D)."""
+    bs = x.shape[0]
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    p = cfg.ssm_head_dim
+    proj = x @ params["in_proj"]
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                   state["conv"])
+    xs = xbc[..., :di].reshape(bs, h, p)
+    bmat = xbc[..., di:di + g * n].reshape(bs, g, n)
+    cmat = xbc[..., di + g * n:].reshape(bs, g, n)
+    rep = h // g
+    bh = torch.repeat_interleave(bmat, rep, dim=1).to(torch.float32)
+    ch = torch.repeat_interleave(cmat, rep, dim=1).to(torch.float32)
+    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])[:, 0]
+    a = -torch.exp(params["a_log"])
+    decay = torch.exp(dt * a)[..., None, None]
+    s = state["ssm"] * decay + \
+        (dt[..., None] * bh)[..., :, None] \
+        * xs.to(torch.float32)[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", ch, s)
+    y = y + params["d_skip"][None, :, None] * xs.to(torch.float32)
+    y = y.reshape(bs, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"], {"conv": conv_state, "ssm": s}

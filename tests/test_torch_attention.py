@@ -1,0 +1,118 @@
+"""Port parity: flash attention (kernel 1's plain version) and the model's
+attention functions against the reference.
+
+On the CPU the port's ``flash_attention`` wrapper computes its plain
+version, so these tests hold it against the reference's Pallas kernel run
+in interpret mode and against its jnp oracle, over the cases the card
+phase covers (causal and not, windows, GQA rep 1/2/4, head dims 64/128,
+lengths off the kernel's 64-row tiles).  The model-layout functions are
+held against ``repro.models.attention``.  Inputs come from one numpy
+seed and are fp32.  Tolerance atol 2e-5 on O(1) outputs: fp32 softmax
+sums in another order (the reference's own kernel-vs-oracle test uses
+2e-5).  The CUDA kernel itself is held against the plain version on the
+card (``test_torch_kernels_cuda.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_kernel
+from repro.kernels.flash_attention_ref import flash_attention_ref
+from repro.models import attention as ref_attn
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import attention as attn
+
+ATOL = 2e-5
+
+# b, h, kv, sq, skv, d, causal, window, (Pallas block_q, block_kv)
+CASES = [
+    (1, 4, 4, 70, 70, 64, True, 0, 32, 32),       # rep 1, ragged tiles
+    (2, 4, 2, 45, 45, 128, True, 0, 16, 32),      # rep 2, D = 128
+    (1, 8, 2, 50, 50, 64, True, 17, 16, 16),      # rep 4, window
+    (1, 4, 1, 90, 90, 64, True, 256, 32, 64),     # window wider than S
+    (1, 4, 2, 33, 80, 64, False, 0, 32, 32),      # non-causal, Sq != Skv
+    (1, 2, 2, 40, 40, 128, False, 9, 16, 16),     # non-causal window
+]
+
+
+def _rand(rng, shape):
+    return (rng.standard_normal(shape) * 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_plain_matches_reference_kernel_and_oracle(case):
+    b, h, kv, sq, skv, d, causal, window, bq, bkv = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (_rand(rng, s) for s in ((b, h, sq, d), (b, kv, skv, d),
+                                      (b, kv, skv, d)))
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             window=window).numpy()
+    assert fa.LAUNCHES == before      # CPU tensors never reach the kernel
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    interp = ref_kernel(jq, jk, jv, causal=causal, window=window,
+                        block_q=bq, block_kv=bkv, interpret=True)
+    oracle = flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(interp), atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [0, 11])
+def test_model_layout_flash_matches_reference(window):
+    b, s, h, kvh, d = 2, 40, 4, 2, 16
+    rng = np.random.default_rng(window)
+    q, k, v = (_rand(rng, (b, s, n, d)) for n in (h, kvh, kvh))
+    got = attn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=True,
+                               window=window)
+    want = ref_attn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True,
+                                    window=window, chunk_q=16, chunk_kv=8)
+    assert tuple(got.shape) == (b, s, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, 0, 0),
+                                                    (True, 5, 0),
+                                                    (False, 0, 0),
+                                                    (True, 0, 7)])
+def test_dense_attention_matches_reference(causal, window, q_offset):
+    rng = np.random.default_rng(1)
+    q = _rand(rng, (2, 12, 4, 16))
+    k = _rand(rng, (2, 19, 2, 16))
+    v = _rand(rng, (2, 19, 2, 16))
+    got = attn.dense_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               window=window, q_offset=q_offset)
+    want = ref_attn.dense_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_decode_attention_per_slot_index_matches_reference(window):
+    """Every slot attends over its own prefix of the cache."""
+    rng = np.random.default_rng(2 + window)
+    q = _rand(rng, (3, 1, 8, 16))
+    kc = _rand(rng, (3, 24, 2, 16))
+    vc = _rand(rng, (3, 24, 2, 16))
+    index = np.array([0, 9, 23], np.int32)
+    got = attn.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc),
+                                torch.from_numpy(index), window)
+    want = ref_attn.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                     jnp.asarray(vc), jnp.asarray(index),
+                                     window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_flash_wrapper_rejects_bad_shapes():
+    x = torch.zeros((1, 3, 8, 16))
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        fa.flash_attention(x, torch.zeros((1, 2, 8, 16)),
+                           torch.zeros((1, 2, 8, 16)))
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(x, x, x, window=-1)

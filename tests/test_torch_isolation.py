@@ -26,7 +26,12 @@ def test_port_has_the_slice_modules():
                 "core.trace", "core.simulator", "core.wave_scaling",
                 "core.dataset", "core.mlp", "core.batched",
                 "core.predictor", "core.cost", "serve.cache",
-                "serve.fleet", "kernels.fused_mlp_score", "kernels.build"):
+                "serve.fleet", "kernels.fused_mlp_score", "kernels.build",
+                "kernels.flash_attention", "kernels.ssd", "models.config",
+                "models.layers", "models.attention", "models.ssm",
+                "models.transformer", "models.convert", "configs",
+                "configs.qwen3_0_6b", "configs.mamba2_130m", "serve.engine",
+                "launch.serve"):
         assert f"repro_torch.{mod}" in names
 
 

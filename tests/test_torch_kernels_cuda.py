@@ -7,7 +7,10 @@ so it runs on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|) — fp32
-sums over long dot products in another order, across the layers."""
+sums over long dot products in another order (across the layers, the
+softmax, the chunks) — except flash attention's bfloat16 output, held to
+8e-3 * max(1, max |plain|): about two bf16 ulps, since kernel and plain
+round their fp32 results to bf16 separately."""
 
 import numpy as np
 import pytest
@@ -15,7 +18,9 @@ import torch
 
 from repro_torch.core import batched, devices, dataset, mlp
 from repro_torch.core.predictor import HabitatPredictor
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp_score as fms
+from repro_torch.kernels import ssd as ssd_k
 
 
 @pytest.fixture
@@ -35,10 +40,11 @@ def _stack(seed, k, l, h, device):
     return torch.from_numpy(w).to(device), torch.from_numpy(b).to(device)
 
 
-def _close(got, want):
+def _close(got, want, rel=1e-4):
     torch.cuda.synchronize()
-    tol = 1e-4 * max(1.0, want.abs().max().item())
-    err = (got - want).abs().max().item()
+    want = want.float()
+    tol = rel * max(1.0, want.abs().max().item())
+    err = (got.float() - want).abs().max().item()
     assert err <= tol, (err, tol)
 
 
@@ -125,3 +131,92 @@ def test_masked_sweep_launches_the_row_kernel_once(sm90):
     np.testing.assert_allclose(full.total_ms, want, rtol=1e-4)
     np.testing.assert_allclose(masked.total_ms[mask], want[mask], rtol=1e-4)
     assert batched.SCORER_DISPATCHES.snapshot()["fused"] >= 2
+
+
+# b, h, kv, sq, skv, d, causal, window: GQA rep 1, 2 and 4, both head
+# dims of the zoo, Sq and Skv off the 64-row tiles, a window that starts
+# inside a tile, and a window wider than the sequence
+FLASH_CASES = [
+    (1, 16, 8, 300, 300, 128, True, 0),
+    (2, 4, 4, 130, 130, 64, True, 0),
+    (1, 8, 2, 200, 200, 64, True, 37),
+    (1, 4, 1, 777, 777, 128, True, 256),
+    (2, 4, 2, 70, 150, 64, False, 0),
+    (1, 4, 2, 100, 100, 128, False, 33),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(sm90, case, dtype):
+    b, h, kv, sq, skv, d, causal, window = case
+    gen = torch.Generator(device=sm90).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn((b, n, s_, d), generator=gen, device=sm90)
+               .to(dtype) for n, s_ in ((h, sq), (kv, skv), (kv, skv)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, h, sq, d)
+    _close(got, fa.flash_attention_plain(q, k, v, causal, window),
+           rel=8e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_model_layout_views(sm90):
+    """(B, S, H, D) activations go in as permuted views, no copy."""
+    gen = torch.Generator(device=sm90).manual_seed(3)
+    q = torch.randn((2, 190, 8, 64), generator=gen, device=sm90)
+    k = torch.randn((2, 190, 4, 64), generator=gen, device=sm90)
+    v = torch.randn((2, 190, 4, 64), generator=gen, device=sm90)
+    views = [t.permute(0, 2, 1, 3) for t in (q, k, v)]
+    got = fa.flash_attention(*views, causal=True, window=50)
+    want = fa.flash_attention_plain(*[t.contiguous() for t in views],
+                                    True, 50)
+    _close(got, want)
+
+
+# b, h, l, p, n, chunk: L off the chunk, both state sizes, a short chunk
+SSD_CASES = [
+    (1, 3, 200, 64, 128, 64),
+    (2, 2, 130, 64, 64, 64),
+    (1, 2, 77, 64, 128, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(sm90, case, dtype):
+    b, h, l, p, n, chunk = case
+    gen = torch.Generator(device=sm90).manual_seed(sum(case))
+    x = torch.randn((b, h, l, p), generator=gen, device=sm90).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((b, h, l), generator=gen, device=sm90)
+    a = -(0.5 + 3.5 * torch.rand((h,), generator=gen, device=sm90))
+    # one group shared by every head: an expanded view, head stride 0
+    bm = torch.randn((b, 1, l, n), generator=gen,
+                     device=sm90).to(dtype).expand(b, h, l, n)
+    cm = torch.randn((b, 1, l, n), generator=gen,
+                     device=sm90).to(dtype).expand(b, h, l, n)
+    before = ssd_k.LAUNCHES["ssd"]
+    y, state = ssd_k.ssd(x, dt, a, bm, cm, chunk=chunk)
+    assert ssd_k.LAUNCHES["ssd"] == before + 1
+    want_y, want_state = ssd_k.ssd_plain(x, dt, a, bm, cm)
+    _close(y, want_y)
+    _close(state, want_state)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(sm90):
+    q = torch.zeros((1, 4, 8, 48), device=sm90)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    x = torch.zeros((1, 2, 8, 64), device=sm90)
+    dt = torch.zeros((1, 2, 8), device=sm90)
+    bm = torch.zeros((1, 2, 8, 16), device=sm90)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_k.ssd(x, dt, -torch.ones(2, device=sm90), bm, bm, chunk=128)
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x, dt.double(), -torch.ones(2, device=sm90), bm, bm)
