@@ -37,15 +37,17 @@ published configs (every layer, every width, bf16).
    launches = prefills x 28.  The same model with plain attention,
    teacher-forced on the same tokens (each prompt's prefill at the
    engine's shapes, then one decode step per generated token), must
-   agree.  In bf16, as served: prefill logits within the stated bf16
-   tolerance, and every served token wherever the plain top-2 gap
-   exceeds it.  That tolerance is max(LOGIT_TOL * max |logit|, twice the
-   bf16 noise floor), the floor being the plain bf16 path's distance
-   from the same model in fp32 on the first request, from which the bf16
-   kernel path may lie no farther than twice the floor.  In fp32, kernel
-   path against plain path at every position: logits within
-   FP32_LOGIT_TOL * max |logit|, and equal greedy choices wherever the
-   top-2 gap exceeds that.
+   agree.  In fp32, kernel path against plain path at every position:
+   logits within FP32_LOGIT_TOL * max |logit|, and equal greedy choices
+   wherever the top-2 gap exceeds that.  In bf16, as served: prefill
+   logits within the stated bf16 tolerance, and every served token
+   wherever the plain top-2 gap exceeds it.  That tolerance is
+   max(LOGIT_TOL * the request's max |logit|, twice the bf16 noise
+   floor), the floor being the plain bf16 path's largest distance from
+   the same model in fp32 over all requests, from which the bf16 kernel
+   path may lie no farther than twice the floor.  Where that floor is
+   high (Mamba2-130M) the bf16 comparison fails only a grossly wrong
+   kernel and compares no token, and the fp32 comparison is the gate.
 8. Serving Mamba2-130M (24 layers, d_model 768, d_state 128, 24 heads of
    64, vocab 50280) the same way; SSD launches = prefills x 24.
 9. The two new kernels timed on the largest inputs their path gave them,
@@ -393,13 +395,13 @@ def bound(name, args) -> tuple:
             else (t_bytes, "bytes"))
 
 
-def breakdown(torch, batched, fms, planner, traces, dests) -> None:
+def breakdown(torch, batched, planner, traces, dests) -> None:
     """Where request (b)'s time goes: the host time of the traces' first
     touch (per-op extraction, memoized on each trace), then the same cold
     sweep again (fresh result, stack and factor caches; the scorer and
     libraries warm) under ``torch.profiler``, printing wall time,
-    device-busy time and the device ops that take it.  Its kernel
-    launches are not the path's."""
+    device-busy time and the device ops that take it.  It runs after the
+    path's launches were read."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     for t in traces:        # a trace's first touch: per-op extraction
@@ -408,7 +410,6 @@ def breakdown(torch, batched, fms, planner, traces, dests) -> None:
     log(f"  host: per-op array extraction + fingerprints of the "
         f"{len(traces)} traces ({sum(len(t.ops) for t in traces)} ops): "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    saved = dict(fms.LAUNCHES)
     planner.clear_cache()
     batched.STACK_CACHE.clear()
     batched.WAVE_FACTOR_CACHE.clear()
@@ -419,7 +420,6 @@ def breakdown(torch, batched, fms, planner, traces, dests) -> None:
         planner.sweep(traces, dests=dests)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fms.LAUNCHES.update(saved)
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -642,11 +642,8 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
     # path gave it (these launches are not the path's)
     plain = getattr(kmod, f"{kname}_plain")
     args, kwargs = rec["args"]
-    saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
     got = orig["kernel"](*args, **kwargs)
     want = plain(*args, **{k: v for k, v in kwargs.items() if k != "chunk"})
-    for k, mod in enumerate(kernel_mods):
-        mod.LAUNCHES.update(saved[k])
     rel = 8e-3 if kname == "flash_attention" and \
         args[0].dtype == torch.bfloat16 else 1e-4
     path_err = 0.0
@@ -672,7 +669,6 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
         """Logits (len(out), V) fp32: the prompt's last position, then
         after each generated token but the last."""
         setattr(kmod, kname, impl)
-        saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
         try:
             prompt = torch.as_tensor(req.prompt[None, :], device=device)
             logits, state = orig["prefill"](model, model_cfg, prompt,
@@ -686,8 +682,6 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
             return torch.stack(rows)
         finally:
             setattr(kmod, kname, orig["kernel"])
-            for k, mod in enumerate(kernel_mods):
-                mod.LAUNCHES.update(saved[k])
 
     def decisions(rows, out, tol):
         """(compared, skipped): ``out`` must be the argmax of ``rows``
@@ -705,8 +699,9 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     by_uid = {r.uid: r for r in done}
     t0 = time.perf_counter()
-    worst = {"bf16": 0.0, "fp32": 0.0}
-    counts = {"bf16": [0, 0], "fp32": [0, 0]}
+    dist = lambda u, v: float((u - v).abs().max().item())
+    worst32, counts32 = 0.0, [0, 0]
+    bf16 = []       # per request: (plain rows, tokens, scale, distances)
     for i, req in enumerate(reqs):
         out = by_uid[i].output
         got = rec["prefill"][i][1]
@@ -716,48 +711,56 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
         truth = teacher_forced(plain_call, p32, cfg32, req, out)
         kernel32 = teacher_forced(orig["kernel"], p32, cfg32, req, out)
         scale = max(1.0, float(truth.abs().max().item()))
-        if i == 0:
-            # the bf16 noise floor: the plain bf16 path's distance from the
-            # same model in fp32; the bf16 kernel path may lie no farther
-            # than twice that, and the stated bf16 tolerance is twice it
-            floor = float((rows[0] - truth[0]).abs().max().item())
-            far = float((got - truth[0]).abs().max().item())
-            tol = max(LOGIT_TOL * scale, 2 * floor)
-            log(f"  request 0 ({len(req.prompt)} tokens), prefill logits "
-                f"(scale {scale:.3f}): from the fp32 model the bf16 "
-                f"plain path lies {floor:.4f} (the noise floor) and the bf16 "
-                f"kernel path {far:.4f} (limit {2 * floor:.4f})")
-            if not far <= 2 * floor:
-                fail(f"{arch}: the bf16 kernel path lies {far:.4f} from the "
-                     f"fp32 model, over twice the plain path's {floor:.4f}")
-        err = float((got - rows[0]).abs().max().item())
-        err32 = float((kernel32 - truth).abs().max().item())
+        err32 = dist(kernel32, truth)
         tol32 = FP32_LOGIT_TOL * scale
-        worst["bf16"] = max(worst["bf16"], err)
-        worst["fp32"] = max(worst["fp32"], err32 / scale)
-        if not err <= tol:
-            fail(f"{arch}: request {i} prefill logits differ from the plain "
-                 f"path by {err:.3e} > {tol:.3e} (bf16)")
+        worst32 = max(worst32, err32 / scale)
         if not err32 <= tol32:
             fail(f"{arch}: request {i} logits differ from the plain path by "
                  f"{err32:.3e} > {tol32:.3e} (fp32)")
-        for key, c in (("bf16", decisions(rows, out, tol)),
-                       ("fp32", decisions(
-                           truth, kernel32.argmax(-1).cpu().numpy(), tol32))):
-            counts[key][0] += c[0]
-            counts[key][1] += c[1]
-        del rows, truth, kernel32
+        c = decisions(truth, kernel32.argmax(-1).cpu().numpy(), tol32)
+        counts32 = [counts32[0] + c[0], counts32[1] + c[1]]
+        bf16.append((rows, out, scale, dist(rows[0], truth[0]),
+                     dist(got, truth[0]), dist(got, rows[0])))
+        del truth, kernel32
     del p32
-    log(f"  teacher-forced on all {len(reqs)} requests "
-        f"({time.perf_counter() - t0:.1f} s): bf16 prefill logits max "
-        f"|kernel - plain| {worst['bf16']:.4f} (tol {tol:.4f}), served "
-        f"tokens equal the plain path's greedy choice at {counts['bf16'][0]} "
-        f"positions ({counts['bf16'][1]} within the tolerance skipped); fp32 "
-        f"logits max |kernel - plain| {worst['fp32']:.2e} of the scale "
-        f"(tol {FP32_LOGIT_TOL:g}), greedy choices equal at "
-        f"{counts['fp32'][0]} positions ({counts['fp32'][1]} skipped)")
 
-    saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
+    # bf16, as served.  The noise floor is the plain bf16 path's largest
+    # distance from the same model in fp32 over every request; the bf16
+    # kernel path may lie no farther than twice that from fp32, and its
+    # prefill logits no farther than the bf16 tolerance from the plain
+    # path's, max(LOGIT_TOL * the request's max |logit|, twice the floor)
+    floor = max(r[3] for r in bf16)
+    tols = [max(LOGIT_TOL * r[2], 2 * floor) for r in bf16]
+    counts16 = [0, 0]
+    for i, ((rows, out, _, _, far, err), tol) in enumerate(zip(bf16, tols)):
+        if not far <= 2 * floor:
+            fail(f"{arch}: request {i}'s bf16 kernel path lies {far:.4f} "
+                 f"from the fp32 model, over twice the floor {floor:.4f}")
+        if not err <= tol:
+            fail(f"{arch}: request {i} prefill logits differ from the plain "
+                 f"path by {err:.3e} > {tol:.3e} (bf16)")
+        c = decisions(rows, out, tol)
+        counts16 = [counts16[0] + c[0], counts16[1] + c[1]]
+    log(f"  teacher-forced on all {len(reqs)} requests "
+        f"({time.perf_counter() - t0:.1f} s).  fp32: logits max |kernel - "
+        f"plain| {worst32:.2e} of the scale (tol {FP32_LOGIT_TOL:g}), "
+        f"greedy choices equal at {counts32[0]} positions ({counts32[1]} "
+        f"within the tolerance skipped).  bf16: noise floor {floor:.4f} "
+        f"(largest logit {max(r[2] for r in bf16):.3f}), kernel path at "
+        f"most {max(r[4] for r in bf16):.4f} from fp32 (limit "
+        f"{2 * floor:.4f}), prefill logits max |kernel - plain| "
+        f"{max(r[5] for r in bf16):.4f} (tol {min(tols):.4f}-"
+        f"{max(tols):.4f} by request), served tokens "
+        f"equal the plain greedy choice at {counts16[0]} positions "
+        f"({counts16[1]} skipped)")
+    if counts16[0] == 0:
+        # a floor this high (the random bf16 Mamba2-130M) lets the bf16
+        # comparison fail only a grossly wrong kernel and compare no token
+        log("  the bf16 tolerance leaves no greedy decision to compare: in "
+            "bf16 only a grossly wrong kernel fails; the fp32 comparison is "
+            "this path's gate")
+    del bf16
+
     longest = torch.as_tensor(reqs[0].prompt[None, :], device=device)
     log(f"  breakdown of one prefill of {longest.shape[1]} tokens under "
         f"the profiler:")
@@ -768,8 +771,6 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
         f"{LM_MAX_SEQ}):")
     device_profile(torch, lambda: tfm.decode_step(params, cfg, token,
                                                   engine.state))
-    for k, mod in enumerate(kernel_mods):
-        mod.LAUNCHES.update(saved[k])
     del engine, params
     torch.cuda.empty_cache()
     return {"launches": launches[kname], "args": rec["args"],
@@ -799,21 +800,27 @@ def flash_bound(args) -> tuple:
 
 
 def ssd_bound(args) -> tuple:
-    """(bound_ms, bound_by) of one SSD call at the kernel's chunk Q: per
-    (b, h) and chunk of r rows, 2 r(r+1)/2 (N + P) FLOPs for the causal
-    scores and their product with x, and 4 r N P for the state's read and
-    update, over the fp32 peak; against x, dt, a, b, c (each stored
-    element once: b and c are shared by the heads) read once and y and the
-    state written once."""
-    (x, dt, a, bm, cm), kw = args[0][:5], args[1]
+    """(bound_ms, bound_by) of one SSD call: the scan's cheapest exact
+    FLOP count, whatever the kernel's own chunk, over the fp32 peak;
+    against x, dt, a, b, c (each stored element once: b and c are shared
+    by the heads) read once and y and the state written once.  In chunks
+    of Q the scan costs per (b, h), over chunks of r rows, r(r+1)(N + P)
+    FLOPs for the causal scores and their product with x, 4 r N P for the
+    readout and rank-1 update against the carried state, and N P for the
+    state's decay once a chunk; the bound takes the least over Q (Q = 1 is
+    the sequential recurrence)."""
+    x, dt, a, bm = args[0][:4]
     b, h, l, p = x.shape
     n = bm.shape[-1]
-    q = int(kw.get("chunk", 64))
-    rows = np.full(l // q, q, np.float64)
-    if l % q:
-        rows = np.append(rows, l % q)
-    flops = b * h * float((rows * (rows + 1) * (n + p) + 4 * rows * n * p)
-                          .sum())
+
+    def per_head(q: int) -> float:
+        rows = np.full(l // q, q, np.float64)
+        if l % q:
+            rows = np.append(rows, l % q)
+        return float((rows * (rows + 1) * (n + p)).sum()
+                     + (4 * l + len(rows)) * n * p)
+
+    flops = b * h * min(per_head(q) for q in range(1, min(l, 256) + 1))
     heads = 1 if bm.stride(1) == 0 else h
     nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
               + 2 * b * heads * l * n * bm.element_size()
@@ -833,18 +840,9 @@ def sdpa_ms(torch, args):
     causal = kw.get("causal", True)
     if int(kw.get("window", 0)):
         return None, None       # SDPA has no sliding window
-    try:
-        call = lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True)
-        out = call()
-    except TypeError:           # a torch without enable_gqa
-        rep = q.shape[1] // k.shape[1]
-        kr = k.repeat_interleave(rep, dim=1)
-        vr = v.repeat_interleave(rep, dim=1)
-        call = lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                      is_causal=causal)
-        out = call()
-    return time_ms(torch, call), out
+    call = lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+    return time_ms(torch, call), call()
 
 
 def main() -> int:
@@ -962,10 +960,8 @@ def main() -> int:
         worst[kname] = max(worst[kname], err)
         plain = getattr(fms, f"{kname}_plain")
         kernel = getattr(fms, kname)
-        saved = dict(fms.LAUNCHES)
         ms = time_ms(torch, lambda: kernel(*args, **kwargs))
         plain_ms = time_ms(torch, lambda: plain(*args), iters=5)
-        fms.LAUNCHES.update(saved)      # timing launches are not the path's
         bound_ms, bound_by = bound(kname, args)
         src, line = sources[kname]
         log(f"  {kname}: rows {args[0].shape[0]}, {ms:.3f} ms (plain "
@@ -980,7 +976,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
 
-    breakdown(torch, batched, fms, planner, traces, fleet_minus)
+    breakdown(torch, batched, planner, traces, fleet_minus)
 
     # -- 6. the LM path's kernels against their plain versions --------------
     from repro_torch.kernels import flash_attention as fa
@@ -1011,7 +1007,6 @@ def main() -> int:
         kernel = getattr(kmod, kname)
         plain = getattr(kmod, f"{kname}_plain")
         plain_kwargs = {k: v for k, v in kwargs.items() if k != "chunk"}
-        saved = {k: dict(mod.LAUNCHES) for k, mod in enumerate(kernel_mods)}
         lm_worst[kname] = max(lm_worst[kname], lm_runs[kname]["max_abs_err"])
         ms = time_ms(torch, lambda: kernel(*args, **kwargs))
         plain_ms = time_ms(torch, lambda: plain(*args, **plain_kwargs),
@@ -1025,8 +1020,6 @@ def main() -> int:
                                 plain(*args, **plain_kwargs), 8e-3)[0]
                 log(f"  SDPA vs plain on these inputs: max |diff| "
                     f"{diff:.3e}")
-        for k, mod in enumerate(kernel_mods):
-            mod.LAUNCHES.update(saved[k])   # timing launches are not the path's
         src, line, bound_fn = lm_sources[kname]
         bound_ms, bound_by = bound_fn((args, kwargs))
         shape = "x".join(str(n) for n in args[0].shape)

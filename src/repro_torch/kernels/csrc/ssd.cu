@@ -13,12 +13,16 @@
 // kernel's; the carried state after the last chunk is a second output
 // (B, H, N, P), which the TPU kernel discards and Mamba2's decode needs.
 //
-// What bounds it on an H100: per chunk of Q = 64 steps at the path's
-// widths (N = 128, P = 64) the work is 2 Q(Q+1)/2 (N + P) + 4 Q N P
-// = 2.9 MFLOP against at most 56 KB of bf16 x, b, c and fp32 dt and y
-// (b and c are shared by all heads): over 50 FLOP/B, above the fp32 ridge
-// point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), so the floor is FLOPs
-// over the fp32 rate.
+// What bounds it on an H100: the function's cheapest exact count, not this
+// design's.  In chunks of Q the scan costs, per step, 4 N P (readout and
+// rank-1 update against the carried state) + (Q+1)(N + P) (the causal
+// scores and their product with x) + N P / Q (the state's decay once a
+// chunk); Q = 1 is the sequential recurrence.  The bound takes the least
+// of that over Q (Q of 6-7 at N = 128, P = 64: about 35.5 kFLOP a step,
+// where this kernel's Q = 64 does 45.2 k) against about 410 bytes a step
+// and head of bf16 x, fp32 dt and y, and b and c (shared by all heads):
+// near 90 FLOP/B, above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s
+// = 20 FLOP/B), so the floor is FLOPs over the fp32 rate.
 //
 // Design.  The TPU kernel walks a sequential chunk grid axis with the
 // (N, P) state in VMEM scratch.  Here one CTA of 256 threads owns one

@@ -32,7 +32,6 @@ from repro_torch.kernels import build
 #: of 128 at N = 128, P = 64 would need 256 KB, over the 227 KB limit)
 MAX_CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 227 * 1024
 
 #: launches of the kernel, bumped only where it is launched
 LAUNCHES: Dict[str, int] = {"ssd": 0}
@@ -84,12 +83,6 @@ def _check(x, dt, a, bmat, cmat, chunk: int) -> None:
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
 
 
-def _smem_bytes(p: int, n: int) -> int:
-    """The kernel's dynamic shared memory (``smem_floats`` in ssd.cu)."""
-    q = MAX_CHUNK
-    return 4 * (q * p + 2 * q * (n + 1) + q * (q + 1) + n * p + 3 * q)
-
-
 def _check_cuda(x, dt, a, bmat, cmat) -> None:
     """Everything the CUDA launcher assumes, checked before launching."""
     if x.device.type != "cuda":
@@ -124,9 +117,6 @@ def _check_cuda(x, dt, a, bmat, cmat) -> None:
         raise ValueError("ssd: empty input")
     if b > 65535 or h > 65535:
         raise ValueError(f"ssd: B ({b}) and H ({h}) must be at most 65535")
-    if _smem_bytes(p, n) > _SMEM_LIMIT:
-        raise ValueError(f"ssd: P={p}, N={n} need {_smem_bytes(p, n)} bytes "
-                         f"of shared memory, over {_SMEM_LIMIT}")
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -105,6 +105,45 @@ def test_prefill_and_decode_match_reference(pair, s):
         _close(got, want)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+def test_bf16_distance_from_fp32_is_the_models(arch):
+    """At the published dtypes (bf16) each package's smoke model lies some
+    distance from the same weights in fp32; the port's distance is of the
+    reference's size, so a bf16 gap on the card (about a logit for the
+    random Mamba2-130M) belongs to the model, not to the port.  The two
+    round in another order, so their distances are alike, not equal:
+    within a factor of 3."""
+    full = ref_get_config(arch)
+    dtypes = dict(param_dtype=full.param_dtype, act_dtype=full.act_dtype)
+    fp32 = dict(param_dtype="float32", act_dtype="float32")
+    ref16 = dataclasses.replace(ref_smoke_config(full), **dtypes)
+    cfg16 = dataclasses.replace(smoke_config(get_config(arch)), **dtypes)
+    assert cfg16.param_dtype == "bfloat16"
+    p16 = ref_tfm.init_params(ref16, jax.random.PRNGKey(0))
+    p32 = jax.tree.map(lambda a: a.astype(jnp.float32)
+                       if a.dtype == jnp.bfloat16 else a, p16)
+    toks = _tokens(0, (4, 32), cfg16.vocab_size)
+
+    def ref_logits(cfg, params):
+        return np.asarray(ref_tfm.forward(params, cfg, jnp.asarray(toks))[0],
+                          np.float32)
+
+    def port_logits(cfg, params):
+        port = params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                               device="cpu")
+        return tfm.forward(port, cfg, torch.from_numpy(toks))[0].float() \
+            .numpy()
+
+    truth = ref_logits(dataclasses.replace(ref16, **fp32), p32)
+    scale = max(1.0, float(np.abs(truth).max()))
+    ref_d = float(np.abs(ref_logits(ref16, p16) - truth).max()) / scale
+    port_d = float(np.abs(
+        port_logits(cfg16, p16)
+        - port_logits(dataclasses.replace(cfg16, **fp32), p32)).max()) / scale
+    assert ref_d > 1e-3, ref_d          # bf16 really rounded something
+    assert ref_d / 3 <= port_d <= 3 * ref_d, (ref_d, port_d)
+
+
 def _requests(arch, cfg, cls):
     """The requests of the reference's own engine tests (test_system.py)."""
     if arch == "qwen3-0.6b":
