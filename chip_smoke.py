@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's two paths on the card and checks every phase; any
+Drives the port's three paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
-published configs (every layer, every width, bf16).
+published configs (every layer, every width, bf16); the training path
+trains the default predictor and the paper's full-width MLPs on the card
+and serves them through the ``fused_mlp`` kernel.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit.
-2. Build: all four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. Build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, in parallel.
 3. Kernels against their plain PyTorch versions on the card at the path's
    shapes (K=4, L=9, H=1024): one kind, all kinds mixed, a lone row,
@@ -52,12 +54,34 @@ published configs (every layer, every width, bf16).
    64, vocab 50280) the same way; SSD launches = prefills x 24.
 9. The two new kernels timed on the largest inputs their path gave them,
    beside the plain version, the bound and (flash) SDPA.
-10. A line with the card's name and power limit, a ``{"kernels": [...]}``
-    line with all four kernels, and last {"ok": true, "device": {...}}.
+10. Training, default predictor: ``default_predictor(force_retrain=True)``
+    trains the four kinds (3 x 256, 30 epochs) on the card from the port's
+    datasets (2,000 configurations x 15 devices) and seals them under
+    ``artifacts/mlps/``; each kind's test MAPE within TEST_MAPE_BAND of the
+    reference's.  ``train_mlps()`` then loads all four without training,
+    to the same numbers exactly, and ``TrackedTrace.to_device`` and
+    ``rank_devices(predictor=None)`` on the golden traces agree with the
+    same MLPs on the CPU (rtol 1e-4).
+11. Training at full width: ``MLPConfig()`` (8 x 1024, batch 512, 80
+    epochs) for the four kinds on the same datasets, after a gate that the
+    card takes the CPU's first TRAIN_PARITY_STEPS steps (each from the
+    CPU's state: see ``train_parity``); the device busy share of training
+    steps.
+12. ``fused_mlp``: the eight trained MLPs served through the kernel over
+    their kinds' 6,000 test rows (every kernel count set to 0 before phase
+    10 and read here: one launch a served MLP), held against the plain
+    chain (1e-4 * max(1, max |plain|) on log-ms) and ``predict_ms`` (rtol
+    1e-4); then constructed cases, B 1-6000, (L, H) up to (9, 1024), with
+    the launches counted exactly.
+13. ``fused_mlp`` timed on the path's largest inputs (L 9, H 1024, 6,000
+    rows) and at the default predictor's L 4, H 256.
+14. A line with the card's name and power limit, a ``{"kernels": [...]}``
+    line with all five kernels, and last {"ok": true, "device": {...}}.
 
-Weights are random (He init from a numpy seed for the MLPs, a seeded
-``torch.Generator`` on the card for the LMs) and feature statistics come
-from the port's own ``build_dataset``: nothing is downloaded.
+Weights are random (He init from a numpy seed for the serving MLPs, a
+seeded ``torch.Generator`` on the card for the LMs) or trained here, and
+feature statistics and training data come from the port's own
+``build_dataset``: nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -102,6 +126,26 @@ LM_MAX_SEQ = 4112
 LOGIT_TOL = 2.0 ** -5
 #: the same comparison in fp32: sums in another order through every layer
 FP32_LOGIT_TOL = 1e-3
+#: test MAPE of the reference's default predictor (``DEFAULT_MLP_CFG``: 3
+#: hidden layers of 256, 30 epochs, seed 0, on 2,000 configurations over the
+#: 15-device registry), computed by the JAX package on the CPU and read from
+#: its sealed artifacts under ``artifacts/mlps/``: accuracy, not speed
+REFERENCE_TEST_MAPE = {"bmm": 0.0846, "conv2d": 0.1509, "linear": 0.0764,
+                       "recurrent": 0.1463}
+#: each kind's test MAPE, trained on the card, may lie at most this factor
+#: above the reference's (the port's own spread over seeds is in PERF.md)
+TEST_MAPE_BAND = 1.5
+#: the card against the CPU over the first steps of a full-width training,
+#: each step from the CPU's state on the CPU's batch: the step's loss and
+#: the next batch's loss after the card's update within this relative
+#: tolerance (fp32 sums in another order, through one Adam update)
+TRAIN_PARITY_STEPS = 20
+TRAIN_PARITY_RTOL = 1e-4
+#: the paper's MLPConfig() trains 80 epochs, the lr switching at 40
+FULL_WIDTH_EPOCHS = 80
+#: fused_mlp's constructed cases: (L, H) by rows, ragged and whole tiles
+FUSED_MLP_SHAPES = ((3, 64), (4, 128), (9, 64), (4, 256), (9, 1024))
+FUSED_MLP_ROWS = (1, 37, 256, 6000)
 
 
 def fail(msg: str) -> None:
@@ -395,6 +439,23 @@ def bound(name, args) -> tuple:
             else (t_bytes, "bytes"))
 
 
+def device_rows(torch, prof) -> list:
+    """(device ms, name, count) of each device op the profiler recorded.
+    User annotations (``Optimizer.step#AdamW.step``) span the kernels they
+    enclose on the device timeline and are left out, as torch's own table
+    leaves them out of its device total."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, e.key, e.count))
+    return rows
+
+
 def breakdown(torch, batched, planner, traces, dests) -> None:
     """Where request (b)'s time goes: the host time of the traces' first
     touch (per-op extraction, memoized on each trace), then the same cold
@@ -420,14 +481,7 @@ def breakdown(torch, batched, planner, traces, dests) -> None:
         planner.sweep(traces, dests=dests)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3, e.key, e.count))
+    rows = device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         log("  breakdown: the profiler recorded no device time")
@@ -520,14 +574,7 @@ def device_profile(torch, fn, top: int = 6) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3, e.key, e.count))
+    rows = device_rows(torch, prof)
     if not rows:
         log(f"    wall {wall_ms:.1f} ms; the profiler recorded no device "
             f"time")
@@ -845,6 +892,336 @@ def sdpa_ms(torch, args):
     return time_ms(torch, call), call()
 
 
+# ---------------------------------------------------------------------------
+# the MLP training path and the fused_mlp kernel
+# ---------------------------------------------------------------------------
+def train_default(torch, device) -> tuple:
+    """Phase 10: ``default_predictor(force_retrain=True)`` trains the four
+    kinds on ``device`` and seals them; ``train_mlps()`` then loads all
+    four from the cache without training, to the same numbers; the trained
+    predictor behind ``TrackedTrace.to_device`` and ``rank_devices`` agrees
+    with the same MLPs on a CPU predictor.  Returns (datasets by kind, the
+    trained MLPs)."""
+    from repro_torch.core import cost, devices, mlp, predictor
+    from repro_torch.core import dataset as dataset_mod
+    from repro_torch.core.predictor import HabitatPredictor
+    builds, trains = {}, []
+    orig_build, orig_train = dataset_mod.build_dataset, mlp.train
+
+    def build(kind, *args, **kwargs):
+        t0 = time.perf_counter()
+        ds = orig_build(kind, *args, **kwargs)
+        builds[kind] = (time.perf_counter() - t0, ds)
+        return ds
+
+    def train(ds, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_train(ds, *args, **kwargs)
+        torch.cuda.synchronize()
+        trains.append((ds.kind, time.perf_counter() - t0))
+        return out
+
+    cfg = predictor.DEFAULT_MLP_CFG
+    dataset_mod.build_dataset, mlp.train = build, train
+    try:
+        fresh = dict(predictor.default_predictor(force_retrain=True,
+                                                 device=device).mlps)
+        n_trained = len(trains)
+        again = predictor.train_mlps(device=device)
+        retrained = len(trains) - n_trained
+    finally:
+        dataset_mod.build_dataset, mlp.train = orig_build, orig_train
+    seconds = dict(trains[:n_trained])
+    datasets = {k: ds for k, (_, ds) in builds.items()}
+    for kind in KINDS:
+        n_rows = int(0.8 * len(datasets[kind].y))
+        steps = cfg.epochs * -(-n_rows // cfg.batch_size)
+        m = fresh[kind]
+        log(f"  {kind}: dataset {len(datasets[kind].y)} rows in "
+            f"{builds[kind][0]:.2f} s; trained {steps} steps in "
+            f"{seconds[kind]:.2f} s ({seconds[kind] / steps * 1e3:.3f} ms a "
+            f"step); test_mape {m.test_mape:.4f} (reference "
+            f"{REFERENCE_TEST_MAPE[kind]:.4f}, ratio "
+            f"{m.test_mape / REFERENCE_TEST_MAPE[kind]:.3f})")
+        if not m.test_mape <= TEST_MAPE_BAND * REFERENCE_TEST_MAPE[kind]:
+            fail(f"{kind}: test_mape {m.test_mape:.4f} is over "
+                 f"{TEST_MAPE_BAND} x the reference's "
+                 f"{REFERENCE_TEST_MAPE[kind]:.4f}")
+    if retrained or sorted(again) != sorted(KINDS):
+        fail(f"train_mlps() retrained {retrained} kinds instead of loading "
+             f"all four from the cache")
+    for kind in KINDS:
+        feats = torch.as_tensor(datasets[kind].x[:2000]).to(device)
+        same = all(np.array_equal(a, b) for pa, pb in
+                   zip(again[kind].params, fresh[kind].params)
+                   for a, b in zip(pa, pb))
+        if not same or not torch.equal(again[kind].predict_ms(feats),
+                                       fresh[kind].predict_ms(feats)):
+            fail(f"{kind}: the cached artifact does not reproduce the "
+                 f"freshly trained model exactly")
+    log("  train_mlps(): all four kinds loaded from the cache, 0 trained; "
+        "parameters and predictions equal to the fresh ones exactly")
+
+    cpu = HabitatPredictor(fresh, device="cpu")
+    _, gold = golden()
+    devs = sorted(devices.all_devices())
+    worst = 0.0
+    for trace in gold:
+        for dest in devs:
+            got = trace.to_device(dest, device=device).run_time_ms
+            want = cpu.predict_trace(trace, dest).run_time_ms
+            worst = max(worst, abs(got / want - 1.0))
+        ranked = cost.rank_devices(trace, 32, devs, device=device)
+        want = {c.device: c.iter_ms for c in
+                cost.rank_devices(trace, 32, devs, predictor=cpu)}
+        if sorted(c.device for c in ranked) != devs:
+            fail("rank_devices did not rank the whole fleet")
+        for c in ranked:
+            worst = max(worst, abs(c.iter_ms / want[c.device] - 1.0))
+        times = [c.iter_ms for c in ranked]
+        if times != sorted(times):
+            fail("rank_devices by throughput is not fastest first")
+    log(f"  to_device and rank_devices(predictor=None) on the 3 golden "
+        f"traces x {len(devs)} devices: max rel err {worst:.3e} against the "
+        f"same MLPs on the CPU")
+    if worst > 1e-4:
+        fail(f"the trained predictor on {device} disagrees with the CPU: "
+             f"{worst:.3e}")
+    return datasets, fresh
+
+
+def train_parity(torch, ds, cfg, device) -> None:
+    """The gate of phase 11: the card takes the CPU's training steps.
+
+    Full-width training is chaotic: from initial weights that differ by
+    1e-7 relative, the CPU's own losses part by about 1e-2 within 20
+    steps (Adam moves every weight by about the learning rate, whatever
+    the sign noise of its gradient).  So each of the first
+    TRAIN_PARITY_STEPS steps starts on the card from the CPU's state
+    (parameters, Adam moments, step count) on the CPU's batch: the step's
+    loss and the loss of the card's updated parameters on the next batch
+    must match the CPU's within TRAIN_PARITY_RTOL.  The free-running card
+    and a CPU run from perturbed weights are printed beside, ungated."""
+    from repro_torch.core import mlp
+    cpu = torch.device("cpu")
+    norm = ds.normalized()
+    tr, _ = norm.split(0.8, seed=cfg.seed)
+    cfg = dataclasses.replace(cfg, in_features=tr.x.shape[1])
+    init = mlp.init_params(cfg, "cpu")
+    perm = np.random.default_rng(cfg.seed).permutation(len(tr.y))
+    data = {d: (torch.as_tensor(tr.x).to(d),
+                torch.as_tensor(np.log(np.maximum(tr.y, 1e-9))).to(d))
+            for d in (cpu, device)}
+
+    def batch(d, step):
+        idx = torch.as_tensor(perm[step * cfg.batch_size:
+                                   (step + 1) * cfg.batch_size]).to(d)
+        return data[d][0][idx], data[d][1][idx]
+
+    def trainer(d, scale=1.0):
+        params = [((w * scale).to(d).requires_grad_(),
+                   b.clone().to(d).requires_grad_()) for w, b in init]
+        return params, mlp._optimizer(params, cfg)
+
+    def flat(params):
+        return [t for pair in params for t in pair]
+
+    def run(d, scale=1.0):
+        params, opt = trainer(d, scale)
+        return np.asarray([float(mlp._train_step(params, opt, *batch(d, k),
+                                                 cfg.lr))
+                           for k in range(TRAIN_PARITY_STEPS)])
+
+    host, host_opt = trainer(cpu)
+    card, card_opt = trainer(device)
+    step_rel, next_rel, card_next, losses = 0.0, 0.0, None, []
+    for k in range(TRAIN_PARITY_STEPS):
+        with torch.no_grad():
+            for h, c in zip(flat(host), flat(card)):
+                c.copy_(h)
+                state = host_opt.state.get(h)
+                card_opt.state.pop(c, None)
+                if state:
+                    card_opt.state[c] = {n: v.clone().to(device)
+                                         for n, v in state.items()}
+        loss = float(mlp._train_step(host, host_opt, *batch(cpu, k), cfg.lr))
+        got = float(mlp._train_step(card, card_opt, *batch(device, k),
+                                    cfg.lr))
+        step_rel = max(step_rel, abs(got / loss - 1.0))
+        if card_next is not None:
+            next_rel = max(next_rel, abs(card_next / loss - 1.0))
+        if k + 1 < TRAIN_PARITY_STEPS:
+            with torch.no_grad():
+                card_next = float(mlp.male_loss(card, *batch(device, k + 1)))
+        losses.append(loss)
+    free = np.abs(run(device) / np.asarray(losses) - 1.0)
+    floor = np.abs(run(cpu, 1.0 + 1e-7) / np.asarray(losses) - 1.0)
+    log(f"  {ds.kind}: the first {TRAIN_PARITY_STEPS} steps, each from the "
+        f"CPU's state on the CPU's batch: step loss max rel diff "
+        f"{step_rel:.3e}, next-batch loss after the card's update "
+        f"{next_rel:.3e} (tol {TRAIN_PARITY_RTOL:g}); losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"  ungated: the free-running card against the CPU, max rel diff "
+        f"{free.max():.3e} (at step {int(free.argmax()) + 1}); the CPU "
+        f"from weights x (1 + 1e-7), {floor.max():.3e} (at step "
+        f"{int(floor.argmax()) + 1})")
+    if not (step_rel <= TRAIN_PARITY_RTOL and next_rel <= TRAIN_PARITY_RTOL):
+        fail(f"training on {device} departs from the CPU's steps: "
+             f"{step_rel:.3e}, {next_rel:.3e}")
+
+
+def train_full_width(torch, device, datasets, cfg=None) -> dict:
+    """Phase 11: the paper's ``MLPConfig()`` (8 x 1024, batch 512; or
+    ``cfg``) trained on ``device`` for all four kinds, after the gate of
+    ``train_parity``; the device busy share of training steps under the
+    profiler.  Returns the trained MLPs."""
+    from repro_torch.core import mlp
+    cfg = cfg or dataclasses.replace(mlp.MLPConfig(),
+                                     epochs=FULL_WIDTH_EPOCHS)
+    kind = KINDS[0]
+    train_parity(torch, datasets[kind], cfg, device)
+    out = {}
+    n_rows = int(0.8 * len(datasets[kind].y))
+    steps = cfg.epochs * -(-n_rows // cfg.batch_size)
+    for kind in KINDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kind] = mlp.train(datasets[kind], cfg, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"  {kind}: {cfg.hidden_layers} x {cfg.hidden_size}, "
+            f"{cfg.epochs} epochs, {steps} steps in {secs:.2f} s "
+            f"({secs / steps * 1e3:.3f} ms a step); test_mape "
+            f"{out[kind].test_mape:.4f}")
+
+    # ten steady steps under the profiler
+    cfg = dataclasses.replace(cfg, in_features=13)
+    params = [(w.requires_grad_(), b.requires_grad_())
+              for w, b in mlp.init_params(cfg, device)]
+    opt = mlp._optimizer(params, cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((cfg.batch_size, 13), generator=gen, device=device)
+    logy = torch.randn((cfg.batch_size,), generator=gen, device=device)
+    step = lambda: mlp._train_step(params, opt, x, logy, cfg.lr)
+    for _ in range(3):
+        step()
+    log(f"  breakdown of 10 training steps ({cfg.hidden_layers} x "
+        f"{cfg.hidden_size}, batch {cfg.batch_size}) under the profiler:")
+    device_profile(torch, lambda: [step() for _ in range(10)])
+    return out
+
+
+def _served_inputs(torch, fm, mlp_sets, datasets, device) -> list:
+    """(label, MLP, raw test rows, packed weights, biases) for each trained
+    MLP: its kind's 20% test split at the MLP's seed."""
+    inputs = []
+    for set_name, mlps in mlp_sets:
+        for kind in KINDS:
+            m = mlps[kind]
+            _, test = datasets[kind].split(0.8, seed=m.cfg.seed)
+            w, b = fm.pack_trained(m, device)
+            inputs.append((f"{set_name} {kind}", m,
+                           torch.as_tensor(test.x).to(device), w, b))
+    return inputs
+
+
+def fused_mlp_checks(torch, fm, device, inputs, kernel_mods) -> tuple:
+    """Phase 12: the trained MLPs served through ``fused_mlp``, the end of
+    the path whose kernel counts were set to 0 before phase 10 and are read
+    here: exactly one ``fused_mlp`` launch a served MLP, the block scorer
+    behind ``to_device`` and ``rank_devices``, no LM kernel.  The served
+    answers are held against the plain chain and ``TrainedMLP.predict_ms``;
+    then the kernel against its plain version on constructed cases.
+    Returns (the path's ``fused_mlp`` launches, the worst |kernel - plain|
+    on log-ms)."""
+    served = [fm.serve_trained(m, feats, w, b)
+              for _, m, feats, w, b in inputs]
+    torch.cuda.synchronize()
+    launches = {k: v for mod in kernel_mods for k, v in mod.LAUNCHES.items()}
+    log(f"  served {len(inputs)} trained MLPs through fused_mlp; launches "
+        f"on the path of phases 10-12: {launches}")
+    if launches["fused_mlp"] != len(inputs):
+        fail(f"fused_mlp launched {launches['fused_mlp']} times for "
+             f"{len(inputs)} calls")
+    if launches["fused_mlp_score"] < 1:
+        fail("the trained predictor on the card never launched the scorer")
+    if launches["flash_attention"] or launches["ssd"]:
+        fail(f"an LM kernel launched on the MLP path: {launches}")
+
+    worst = 0.0
+    for (label, m, feats, w, b), ms in zip(inputs, served):
+        xp = fm.padded_rows(m, feats, w.shape[-1])
+        err, tol = _max_err(torch, fm.fused_mlp(xp, w, b),
+                            fm.fused_mlp_plain(xp, w, b), 1e-4)
+        rel = float(((ms / m.predict_ms(feats)) - 1.0).abs().max().item())
+        worst = max(worst, err)
+        log(f"  {label}: {feats.shape[0]} test rows, L {w.shape[0]}, H "
+            f"{w.shape[-1]}: log-ms max |kernel - plain| {err:.3e} (tol "
+            f"{tol:.3e}); ms vs predict_ms max rel {rel:.3e} (tol 1e-4)")
+        if not err <= tol or not rel <= 1e-4 or \
+                not torch.isfinite(ms).all():
+            fail(f"fused_mlp disagrees on the trained {label} MLP")
+
+    rng = np.random.default_rng(SEED + 13)
+    before, calls = fm.LAUNCHES["fused_mlp"], 0
+    for nl, hdim in FUSED_MLP_SHAPES:
+        w = torch.from_numpy((rng.standard_normal((nl, hdim, hdim))
+                              * np.sqrt(2.0 / hdim)).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal((nl, hdim)) * 0.1)
+                             .astype(np.float32))
+        w, b = w.to(device), b.to(device)
+        for rows in FUSED_MLP_ROWS:
+            x = torch.from_numpy(rng.standard_normal((rows, hdim))
+                                 .astype(np.float32)).to(device)
+            err, tol = _max_err(torch, fm.fused_mlp(x, w, b),
+                                fm.fused_mlp_plain(x, w, b), 1e-4)
+            calls += 1
+            worst = max(worst, err)
+            if not err <= tol:
+                fail(f"fused_mlp B{rows} L{nl} H{hdim}: |err| {err:.3e} > "
+                     f"{tol:.3e}")
+    counted = fm.LAUNCHES["fused_mlp"] - before
+    log(f"  constructed cases: B {FUSED_MLP_ROWS} x (L, H) "
+        f"{FUSED_MLP_SHAPES}: {calls} calls, {counted} launches counted; "
+        f"max |kernel - plain| over everything {worst:.3e}")
+    if counted != calls:
+        fail(f"fused_mlp counted {counted} launches for {calls} calls")
+    return launches["fused_mlp"], worst
+
+
+def fused_mlp_bound(x, w) -> tuple:
+    """(bound_ms, bound_by) of one ``fused_mlp`` call: each row through L
+    packed layers of 2 H^2 FLOPs over the fp32 peak, against x, the weights
+    and biases read once and the output written once over HBM."""
+    bsz, hdim = x.shape
+    nl = w.shape[0]
+    flops = bsz * nl * 2.0 * hdim * hdim
+    nbytes = (x.numel() + nl * (hdim * hdim + hdim) + bsz) * 4
+    t_flops = flops / FP32_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_flops, "operations") if t_flops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def time_fused_mlp(torch, fm, inputs) -> dict:
+    """Phase 13: ``fused_mlp`` on the path's largest inputs (a trained
+    8 x 1024 MLP over its 6,000 test rows) and on the default predictor's
+    (L 4, H 256), beside its plain version and its bound."""
+    timed = []
+    for label, m, feats, w, b in (inputs[-1], inputs[len(inputs) // 2 - 1]):
+        xp = fm.padded_rows(m, feats, w.shape[-1])
+        ms = time_ms(torch, lambda: fm.fused_mlp(xp, w, b))
+        plain_ms = time_ms(torch, lambda: fm.fused_mlp_plain(xp, w, b))
+        bound_ms, bound_by = fused_mlp_bound(xp, w)
+        log(f"  fused_mlp ({label}): rows {xp.shape[0]}, L {w.shape[0]}, H "
+            f"{w.shape[-1]}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library "
+            f"none, bound {bound_ms:.4f} ms by {bound_by}: "
+            f"{bound_ms / ms:.1%} of peak)")
+        timed.append((ms, plain_ms, bound_ms, bound_by))
+    return timed[0]
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -983,7 +1360,8 @@ def main() -> int:
     from repro_torch.kernels import ssd as sk
     log("[6 LM kernels vs plain] flash attention and the SSD scan")
     lm_worst = lm_kernel_checks(torch, fa, sk, device)
-    kernel_mods = (fms, fa, sk)
+    from repro_torch.kernels import fused_mlp as fm
+    kernel_mods = (fms, fa, sk, fm)
 
     # -- 7-8. the LM serving path -------------------------------------------
     lm_runs = {}
@@ -1037,7 +1415,41 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
 
-    # -- 10. result lines ---------------------------------------------------
+    # -- 10-12. the MLP training path and the fused_mlp kernel -------------
+    for mod in kernel_mods:
+        mod.reset_launches()
+    log(f"[10 train, default predictor] default_predictor(force_retrain="
+        f"True) on {device}: 4 kinds, 3 x 256, 30 epochs, 2000 "
+        f"configurations x 15 devices")
+    t0 = time.perf_counter()
+    datasets, default_mlps = train_default(torch, device)
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    log(f"[11 train, full width] MLPConfig(): 8 x 1024, batch 512, "
+        f"{FULL_WIDTH_EPOCHS} epochs, 4 kinds on {device}")
+    t0 = time.perf_counter()
+    full_mlps = train_full_width(torch, device, datasets)
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    log("[12 fused_mlp] the trained MLPs served through the kernel, then "
+        "constructed cases against the plain chain")
+    inputs = _served_inputs(torch, fm, (("default", default_mlps),
+                                        ("full-width", full_mlps)),
+                            datasets, device)
+    fm_launches, fm_worst = fused_mlp_checks(torch, fm, device, inputs,
+                                             kernel_mods)
+
+    # -- 13. fused_mlp timed ------------------------------------------------
+    log("[13 timing] fused_mlp on the path's largest inputs and at the "
+        "default predictor's width")
+    ms, plain_ms, bound_ms, bound_by = time_fused_mlp(torch, fm, inputs)
+    kernels.append({
+        "name": "fused_mlp", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
+        "replaces": "src/repro/kernels/fused_mlp.py:51",
+        "launches": fm_launches, "max_abs_err": fm_worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+
+    # -- 14. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

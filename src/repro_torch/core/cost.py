@@ -45,16 +45,21 @@ class DeviceChoice:
 
 def rank_devices(trace: TrackedTrace, batch_size: int,
                  candidates: Sequence[str],
-                 predictor, by: str = "throughput") -> List[DeviceChoice]:
+                 predictor=None, by: str = "throughput",
+                 device=None) -> List[DeviceChoice]:
     """Predict and rank candidate devices for the traced workload.
 
     ``by`` is either "throughput" (maximize speed) or "cost" (maximize
     samples/$) — the two user objectives from case studies 1 and 2.
 
-    ``predictor`` (any of ``repro_torch.core.predictor``) is queried once
-    for the whole candidate set through its ``predict_fleet`` grid."""
+    ``predictor`` (any of ``repro_torch.core.predictor``; by default the
+    ``default_predictor`` on ``device``) is queried once for the whole
+    candidate set through its ``predict_fleet`` grid."""
     candidates = list(candidates)   # may be a one-shot iterator
     origin_ms = trace.run_time_ms
+    if predictor is None:
+        from repro_torch.core import predictor as predictor_mod
+        predictor = predictor_mod.default_predictor(device=device)
     fleet_ms = predictor.predict_fleet(trace, candidates).as_dict()
     out: List[DeviceChoice] = []
     for name in candidates:

@@ -16,7 +16,7 @@ paper's join-by-configuration dataset construction (Sec. 4.3.2).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -141,6 +141,17 @@ class Dataset:
         mean = self.x.mean(axis=0)
         std = self.x.std(axis=0) + 1e-8
         return Dataset(self.kind, (self.x - mean) / std, self.y, mean, std)
+
+    def split(self, train_frac: float = 0.8,
+              seed: int = 0) -> Tuple["Dataset", "Dataset"]:
+        rng = np.random.default_rng(seed)
+        idx = rng.permutation(len(self.y))
+        cut = int(train_frac * len(idx))
+        tr, te = idx[:cut], idx[cut:]
+        return (Dataset(self.kind, self.x[tr], self.y[tr],
+                        self.feature_mean, self.feature_std),
+                Dataset(self.kind, self.x[te], self.y[te],
+                        self.feature_mean, self.feature_std))
 
 
 def sample_ops(kind: str, n: int, seed: int = 0) -> List[Op]:

@@ -6,22 +6,28 @@ for kernel-alike ops and **pre-trained MLPs** for kernel-varying ops
 roofline (Paleo-style, also :class:`PaleoPredictor`) for kinds without an
 MLP.  The port of ``repro.core.predictor``: every predictor runs its grid
 math on a torch ``device`` — ``cuda`` unless the caller passes
-``device="cpu"``.  Training the MLPs comes with a later part of the port.
+``device="cpu"``.  :func:`default_predictor` trains the MLPs once (on the
+same device) and caches them as sealed artifacts under ``artifacts/mlps/``,
+a store shared with the reference package.
 """
 
 from __future__ import annotations
 
 import copy
+import pickle
+from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import batched, dataset as dataset_mod
-from repro_torch.core import devices, mlp, wave_scaling
+from repro_torch.core import devices, integrity, mlp, wave_scaling
 from repro_torch.core.batched import FleetPrediction
 from repro_torch.core.devices import DeviceSpec
 from repro_torch.core.trace import Op, TrackedTrace
+
+ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "mlps"
 
 
 def _analytical_ms(op: Op, dev: DeviceSpec) -> float:
@@ -105,7 +111,7 @@ class HabitatPredictor(_FleetTraceMixin):
             m = self.mlps.get(op.kind)
             if m is not None:
                 feats = dataset_mod.op_features(op, dest)
-                return float(m.predict_ms(feats)[0])
+                return float(m.predict_ms(feats, device=self.device)[0])
             return _analytical_ms(op, dest)
         if op.measured_ms is None:
             raise ValueError(f"op {op.name} has no origin measurement")
@@ -195,7 +201,7 @@ class HabitatPredictor(_FleetTraceMixin):
         for kind, idxs in by_kind.items():
             feats = np.stack([dataset_mod.op_features(new_ops[i], dest_spec)
                               for i in idxs])
-            preds = self.mlps[kind].predict_ms(feats)
+            preds = self.mlps[kind].predict_ms(feats, device=self.device)
             for i, p in zip(idxs, preds):
                 new_ops[i].predicted_ms = float(p)
         return TrackedTrace(ops=new_ops, origin_device=dest,
@@ -253,3 +259,71 @@ class PaleoPredictor(_FleetTraceMixin):
         return FleetPrediction(origin_device=trace.origin_device,
                                dests=list(da.names), op_ms=op_ms,
                                arrays=arrays, label=trace.label)
+
+
+# ---------------------------------------------------------------------------
+# Default predictor: MLPs trained once on simulator-labelled datasets and
+# cached under artifacts/mlps/.  A small-but-sufficient config; the paper's
+# full-width MLPs are trained by their callers.
+# ---------------------------------------------------------------------------
+_DEFAULT: Dict[str, HabitatPredictor] = {}
+DEFAULT_MLP_CFG = mlp.MLPConfig(hidden_layers=3, hidden_size=256, epochs=30)
+DEFAULT_N_CONFIGS = 2000
+
+
+def train_mlps(kinds: Sequence[str] = ("conv2d", "linear", "bmm",
+                                       "recurrent"),
+               cfg: Optional[mlp.MLPConfig] = None,
+               n_configs: Optional[int] = None,
+               device_names: Optional[Sequence[str]] = None,
+               cache_dir: Optional[Path] = None,
+               force: bool = False,
+               verbose: bool = False,
+               device=None) -> Dict[str, mlp.TrainedMLP]:
+    """Train (or load cached) MLP predictors for the given op kinds.
+
+    Training runs on ``device`` (``cuda`` unless the caller passes
+    ``"cpu"``).  Artifacts live in a content-addressed store
+    (:mod:`repro_torch.core.artifacts`): the file name embeds a hash of
+    the MLP config, dataset spec, and device specs, so a cached artifact
+    is never served for a semantically different training run.  A corrupt
+    artifact is a cache miss: it is counted and retrained."""
+    from repro_torch.core import artifacts
+
+    cfg = cfg or DEFAULT_MLP_CFG
+    n_configs = DEFAULT_N_CONFIGS if n_configs is None else n_configs
+    cache_dir = cache_dir or ARTIFACT_DIR
+    out: Dict[str, mlp.TrainedMLP] = {}
+    if device_names is None:
+        # the whole registry, so the default predictor can target any
+        # registered device
+        device_names = sorted(devices.all_devices())
+    for kind in kinds:
+        path = artifacts.artifact_path(cache_dir, kind, cfg, n_configs,
+                                       device_names)
+        if path.exists() and not force:
+            try:
+                out[kind] = mlp.TrainedMLP.load(path)
+                continue
+            except (integrity.IntegrityError, pickle.UnpicklingError,
+                    EOFError, KeyError) as e:
+                print(f"MLP artifact {path} is corrupt ({e}); retraining")
+                integrity.COUNTERS.bump("artifact")
+        ds = dataset_mod.build_dataset(kind, n_configs,
+                                       device_names=device_names)
+        trained = mlp.train(ds, cfg, verbose=verbose, device=device)
+        trained.save(path)
+        out[kind] = trained
+    return out
+
+
+def default_predictor(force_retrain: bool = False,
+                      device=None) -> HabitatPredictor:
+    """The process's default predictor on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``), its MLPs trained there on first use."""
+    dev = devices.torch_device(device)
+    key = str(dev)
+    if key not in _DEFAULT or force_retrain:
+        mlps = train_mlps(force=force_retrain, device=dev)
+        _DEFAULT[key] = HabitatPredictor(mlps=mlps, device=dev)
+    return _DEFAULT[key]

@@ -455,3 +455,10 @@ class TrackedTrace:
             raise ValueError(f"unknown measure method {method!r}")
         return self
 
+    def to_device(self, dest: str, predictor=None,
+                  device=None) -> "TrackedTrace":
+        """Predict this trace's execution on a different device (Listing
+        1), by default with the ``default_predictor`` on ``device``."""
+        from repro_torch.core import predictor as predictor_mod
+        pred = predictor or predictor_mod.default_predictor(device=device)
+        return pred.predict_trace(self, dest)

@@ -35,6 +35,9 @@ KERNELS = {
     "fused_mlp_score_rows": ("fused_mlp_score_rows.cu",
                              "repro_fused_mlp_score_rows",
                              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # x, weights, biases, out; B, H, L; stream
+    "fused_mlp": ("fused_mlp.cu", "repro_fused_mlp",
+                  [_P, _P, _P, _P, _I, _I, _I, _P]),
     # q, k, v, o; dtype, B, H, KV, Sq, Skv, D; 4 x (b, h, s) strides;
     # causal, window, scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",

@@ -170,16 +170,14 @@ def _check_stack(x: torch.Tensor, weights: torch.Tensor,
                          f"{tuple(weights.shape[:3])}")
 
 
-def _check_cuda(name: str, x: torch.Tensor, kinds: torch.Tensor,
-                weights: torch.Tensor, biases: torch.Tensor) -> None:
-    """Everything the CUDA launcher assumes, checked before launching."""
+def check_cuda_tensors(name: str, x: torch.Tensor, *named) -> None:
+    """What every MLP launcher assumes of its tensors: ``x`` and each
+    ``(tensor, what, dtype)`` of ``named`` on one sm_90 CUDA device, of
+    the stated type, contiguous and 16-byte aligned, and ``x`` float32."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device} are neither CPU "
                          f"nor CUDA")
-    for t, what, dtype in ((x, "x", torch.float32),
-                           (kinds, "kinds", torch.int32),
-                           (weights, "weights", torch.float32),
-                           (biases, "biases", torch.float32)):
+    for t, what, dtype in ((x, "x", torch.float32), *named):
         if t.device != x.device:
             raise ValueError(f"{name}: {what} on {t.device}, x on "
                              f"{x.device}")
@@ -194,6 +192,14 @@ def _check_cuda(name: str, x: torch.Tensor, kinds: torch.Tensor,
         raise RuntimeError(
             f"{name} is built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(x.device)} has capability {cap}")
+
+
+def _check_cuda(name: str, x: torch.Tensor, kinds: torch.Tensor,
+                weights: torch.Tensor, biases: torch.Tensor) -> None:
+    """Everything the CUDA launcher assumes, checked before launching."""
+    check_cuda_tensors(name, x, (kinds, "kinds", torch.int32),
+                       (weights, "weights", torch.float32),
+                       (biases, "biases", torch.float32))
     nk, hdim = weights.shape[0], x.shape[1]
     if not 0 < nk <= 32 or hdim % 4 or hdim > 1024:
         raise ValueError(f"{name}: needs 1 <= K <= 32 kinds and H a "

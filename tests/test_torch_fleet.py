@@ -147,8 +147,8 @@ def test_mlp_save_load_roundtrip_readable_by_reference(tmp_path):
     back = pt_mlp.TrainedMLP.load(path)
     feats = np.stack([ref_dataset.op_features(op, ref_devices.get("T4"))
                       for op in ref_dataset.sample_ops("linear", 20, 3)])
-    np.testing.assert_allclose(back.predict_ms(feats), ref.predict_ms(feats),
-                               rtol=1e-5)
+    np.testing.assert_allclose(back.predict_ms(feats, device="cpu"),
+                               ref.predict_ms(feats), rtol=1e-5)
 
 
 @pytest.mark.parametrize("path", ARTIFACTS, ids=lambda p: p.name[:12])
@@ -159,5 +159,5 @@ def test_reference_artifact_loads_and_matches(path):
     ops = ref_dataset.sample_ops(ref.kind, 50, seed=8)
     feats = np.stack([ref_dataset.op_features(op, ref_devices.get(d))
                       for op in ops for d in ("V100", "tpu-v4")])
-    np.testing.assert_allclose(port.predict_ms(feats), ref.predict_ms(feats),
-                               rtol=1e-5)
+    np.testing.assert_allclose(port.predict_ms(feats, device="cpu"),
+                               ref.predict_ms(feats), rtol=1e-5)

@@ -31,7 +31,8 @@ def test_port_has_the_slice_modules():
                 "models.layers", "models.attention", "models.ssm",
                 "models.transformer", "models.convert", "configs",
                 "configs.qwen3_0_6b", "configs.mamba2_130m", "serve.engine",
-                "launch.serve"):
+                "launch.serve", "core.artifacts", "kernels.fused_mlp",
+                "launch.train_mlps"):
         assert f"repro_torch.{mod}" in names
 
 

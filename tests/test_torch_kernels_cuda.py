@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import batched, devices, dataset, mlp
 from repro_torch.core.predictor import HabitatPredictor
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import fused_mlp_score as fms
 from repro_torch.kernels import ssd as ssd_k
 
@@ -220,3 +221,73 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(sm90):
         ssd_k.ssd(x, dt, -torch.ones(2, device=sm90), bm, bm, chunk=128)
     with pytest.raises(TypeError):
         ssd_k.ssd(x, dt.double(), -torch.ones(2, device=sm90), bm, bm)
+
+
+# (L, H) of fused_mlp: the reference's test shapes, the default predictor's
+# (4, 256) and the paper's (9, 1024); rows ragged and whole
+FUSED_MLP_SHAPES = [(3, 64), (4, 128), (9, 64), (4, 256), (9, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 256, 6000])
+@pytest.mark.parametrize("shape", FUSED_MLP_SHAPES)
+def test_fused_mlp_kernel_matches_plain(sm90, shape, rows):
+    nl, h = shape
+    w, b = _stack(nl + h, 1, nl, h, sm90)
+    w, b = w[0].contiguous(), b[0].contiguous()
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+        (rows, h)).astype(np.float32)).to(sm90)
+    before = fm.LAUNCHES["fused_mlp"]
+    got = fm.fused_mlp(x, w, b)
+    assert fm.LAUNCHES["fused_mlp"] == before + 1
+    assert tuple(got.shape) == (rows,)
+    _close(got, fm.fused_mlp_plain(x, w, b))
+
+
+@pytest.mark.cuda
+def test_fused_mlp_refuses_what_the_kernel_does_not_take(sm90):
+    w, b = _stack(2, 1, 2, 64, sm90)
+    w, b = w[0].contiguous(), b[0].contiguous()
+    x = torch.zeros((40, 64), device=sm90)
+    before = fm.LAUNCHES["fused_mlp"]
+    with pytest.raises(TypeError):
+        fm.fused_mlp(x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_mlp(torch.zeros((64, 40), device=sm90).t(), w, b)
+    big_w, big_b = _stack(2, 1, 2, 2048, sm90)
+    with pytest.raises(ValueError, match="up to 1024"):
+        fm.fused_mlp(torch.zeros((40, 2048), device=sm90), big_w[0],
+                     big_b[0])
+    assert fm.LAUNCHES["fused_mlp"] == before
+
+
+@pytest.mark.cuda
+def test_scalar_paths_score_on_the_card(sm90):
+    """``predict_trace_scalar`` and ``predict_op_ms`` of a ``cuda``
+    predictor run the MLP on the card (its stack lives there, none on the
+    CPU) and agree with the same MLPs on a CPU predictor."""
+    cfg = mlp.MLPConfig(in_features=13, hidden_layers=2, hidden_size=64)
+    rng = np.random.default_rng(3)
+    sizes = [13, 64, 64, 1]
+    params = [(rng.standard_normal((a, c)).astype(np.float32)
+               * np.float32(np.sqrt(2.0 / a)), np.zeros(c, np.float32))
+              for a, c in zip(sizes[:-1], sizes[1:])]
+    norm = dataset.build_dataset("linear", 30).normalized()
+    on_card = mlp.TrainedMLP.from_numpy("linear", cfg, params,
+                                        norm.feature_mean, norm.feature_std)
+    on_host = mlp.TrainedMLP.from_numpy("linear", cfg, params,
+                                        norm.feature_mean, norm.feature_std)
+    from repro_torch.core.trace import TrackedTrace
+    trace = TrackedTrace(ops=dataset.sample_ops("linear", 8, seed=1),
+                         origin_device="T4", label="t").measure()
+    pred = HabitatPredictor({"linear": on_card}, device=sm90)
+    cpu = HabitatPredictor({"linear": on_host}, device="cpu")
+    got = pred.predict_trace_scalar(trace, "V100").run_time_ms
+    one = pred.predict_op_ms(trace.ops[0], devices.get("T4"),
+                             devices.get("V100"))
+    keys = list(on_card._on_device)
+    assert any(k.startswith("cuda") for k in keys) and "cpu" not in keys
+    assert got == pytest.approx(
+        cpu.predict_trace_scalar(trace, "V100").run_time_ms, rel=1e-4)
+    assert one == pytest.approx(cpu.predict_op_ms(
+        trace.ops[0], devices.get("T4"), devices.get("V100")), rel=1e-4)
