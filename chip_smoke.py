@@ -421,22 +421,44 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound(name, args) -> tuple:
-    """(bound_ms, bound_by): the larger of FLOPs over the fp32 peak and
-    bytes over HBM bandwidth, for this call's data: each row through its
-    own kind's L layers of 2*H^2, each input read once (weights of the
-    kinds present only), the output written once."""
-    x, kinds, w, _ = args
-    bsz, hdim = x.shape
-    nl = w.shape[1]
-    present = len(set(kinds.cpu().tolist()))
-    flops = bsz * nl * 2.0 * hdim * hdim
-    nbytes = (x.numel() * 4 + kinds.numel() * 4 + bsz * 4
-              + present * nl * (hdim * hdim + hdim) * 4)
-    t_flops = flops / FP32_PEAK_FLOPS * 1e3
+def chain_work(x, w) -> tuple:
+    """(FLOPs, bytes) that one packed MLP's chain ``w`` (L, H, H) needs for
+    the rows ``x`` (n, H), each input read once: the first layer over the
+    input columns that are non-zero in both x and W[0] (the packing pads
+    the 13 features with zeros), the hidden layers whole, and only column
+    0 of the last layer, which is all the function returns."""
+    nl, hdim = w.shape[0], w.shape[-1]
+    k_in = int(((x != 0).any(0) & (w[0] != 0).any(1)).sum())
+    widths = [k_in] + [hdim] * (nl - 1) + [1]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    flops = x.shape[0] * sum(2.0 * a * b for a, b in pairs)
+    nbytes = (x.shape[0] * k_in + sum(a * b + b for a, b in pairs)) * 4
+    return flops, nbytes
+
+
+def roofline(flops: float, nbytes: float,
+             peak: float = FP32_PEAK_FLOPS) -> tuple:
+    """(bound_ms, bound_by): the larger of FLOPs over ``peak`` and bytes
+    over HBM bandwidth."""
+    t_flops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return ((t_flops, "operations") if t_flops >= t_bytes
             else (t_bytes, "bytes"))
+
+
+def bound(name, args) -> tuple:
+    """(bound_ms, bound_by) of one scorer call (``roofline``) for this
+    call's data: each row through what its own kind's chain needs
+    (``chain_work``), the kinds read once, the output written once."""
+    x, kinds, w, _ = args
+    bsz = x.shape[0]
+    row_kinds = (kinds if kinds.numel() == bsz
+                 else kinds.repeat_interleave(bsz // kinds.numel()))
+    flops, nbytes = 0.0, (kinds.numel() + bsz) * 4
+    for k in sorted(set(kinds.cpu().tolist())):
+        f, nb = chain_work(x[row_kinds == k], w[k])
+        flops, nbytes = flops + f, nbytes + nb
+    return roofline(flops, nbytes)
 
 
 def device_rows(torch, prof) -> list:
@@ -840,10 +862,7 @@ def flash_bound(args) -> tuple:
     flops = 4.0 * b * h * d * pairs
     peak = FP32_PEAK_FLOPS if q.dtype.itemsize == 4 else BF16_PEAK_FLOPS
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_flops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((t_flops, "operations") if t_flops >= t_bytes
-            else (t_bytes, "bytes"))
+    return roofline(flops, nbytes, peak)
 
 
 def ssd_bound(args) -> tuple:
@@ -872,10 +891,7 @@ def ssd_bound(args) -> tuple:
     nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
               + 2 * b * heads * l * n * bm.element_size()
               + b * h * l * p * 4 + b * h * n * p * 4)
-    t_flops = flops / FP32_PEAK_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((t_flops, "operations") if t_flops >= t_bytes
-            else (t_bytes, "bytes"))
+    return roofline(flops, nbytes)
 
 
 def sdpa_ms(torch, args):
@@ -1191,17 +1207,10 @@ def fused_mlp_checks(torch, fm, device, inputs, kernel_mods) -> tuple:
 
 
 def fused_mlp_bound(x, w) -> tuple:
-    """(bound_ms, bound_by) of one ``fused_mlp`` call: each row through L
-    packed layers of 2 H^2 FLOPs over the fp32 peak, against x, the weights
-    and biases read once and the output written once over HBM."""
-    bsz, hdim = x.shape
-    nl = w.shape[0]
-    flops = bsz * nl * 2.0 * hdim * hdim
-    nbytes = (x.numel() + nl * (hdim * hdim + hdim) + bsz) * 4
-    t_flops = flops / FP32_PEAK_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((t_flops, "operations") if t_flops >= t_bytes
-            else (t_bytes, "bytes"))
+    """(bound_ms, bound_by) of one ``fused_mlp`` call: what the chain needs
+    for x's rows (``chain_work``), the output written once."""
+    flops, nbytes = chain_work(x, w)
+    return roofline(flops, nbytes + x.shape[0] * 4)
 
 
 def time_fused_mlp(torch, fm, inputs) -> dict:

@@ -129,6 +129,8 @@ class TrainedMLP:
     feature_mean: np.ndarray
     feature_std: np.ndarray
     test_mape: float = float("nan")
+    #: the package that trained it: artifacts of both share one store
+    trainer: str = "repro_torch"
     uid: int = dataclasses.field(default_factory=lambda: next(_UID))
     _on_device: Dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
@@ -142,7 +144,7 @@ class TrainedMLP:
                    params=[(np.asarray(w, np.float32),
                             np.asarray(b, np.float32)) for w, b in params],
                    feature_mean=np.asarray(feature_mean),
-                   feature_std=np.asarray(feature_std))
+                   feature_std=np.asarray(feature_std), trainer="repro")
 
     def _device_state(self, device: torch.device):
         """(MLPStack, mean, std) on ``device``, built once per device."""
@@ -200,7 +202,7 @@ class TrainedMLP:
                 "params": [(np.asarray(w), np.asarray(b))
                            for w, b in self.params],
                 "mean": self.feature_mean, "std": self.feature_std,
-                "test_mape": self.test_mape}
+                "test_mape": self.test_mape, "trainer": self.trainer}
         with open(path, "wb") as f:
             f.write(integrity.seal(pickle.dumps(blob)))
 
@@ -209,7 +211,8 @@ class TrainedMLP:
         """Load a sealed artifact (``integrity.IntegrityError`` on a
         checksum mismatch).  Raw-pickle artifacts written before the
         integrity envelope existed still load.  The format holds numpy
-        arrays only, so reference artifacts load here unchanged."""
+        arrays only, so reference artifacts load here unchanged; they carry
+        no ``trainer`` (the reference reads the port's and ignores it)."""
         with open(path, "rb") as f:
             raw = f.read()
         if integrity.is_sealed(raw):
@@ -221,7 +224,7 @@ class TrainedMLP:
             params=[(np.asarray(w, np.float32), np.asarray(b, np.float32))
                     for w, b in blob["params"]],
             feature_mean=blob["mean"], feature_std=blob["std"],
-            test_mape=blob["test_mape"])
+            test_mape=blob["test_mape"], trainer=blob.get("trainer", "repro"))
 
 
 def _optimizer(params, cfg: MLPConfig) -> torch.optim.AdamW:
@@ -257,39 +260,40 @@ def train(dataset: Dataset, cfg: Optional[MLPConfig] = None,
     split, its per-epoch numpy permutations and batch order (the last
     batch short), the learning-rate switch at ``epochs // 2`` and its test
     MAPE.  The training set goes to the device once; each epoch's
-    permutation is one host-to-device copy."""
+    permutation is one host-to-device copy.  Products are fp32 without
+    TF32, as the reference's: the process's float32 matmul precision must
+    be ``"highest"`` (PyTorch's default), else this raises."""
     cfg = cfg or MLPConfig()
     dev = devices.torch_device(device)
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "mlp.train trains in fp32 without TF32: call "
+            "torch.set_float32_matmul_precision('highest') first")
     norm = dataset.normalized()
     train_ds, test_ds = norm.split(0.8, seed=cfg.seed)
     cfg = dataclasses.replace(cfg, in_features=train_ds.x.shape[1])
-    precision = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")       # no TF32
-    try:
-        params = [(w.to(dev, torch.float32).requires_grad_(),
-                   b.to(dev, torch.float32).requires_grad_())
-                  for w, b in init_params(cfg, dev)]
-        opt = _optimizer(params, cfg)
-        x = torch.as_tensor(train_ds.x, dtype=torch.float32).to(dev)
-        logy = torch.as_tensor(np.log(np.maximum(train_ds.y, 1e-9)),
-                               dtype=torch.float32).to(dev)
-        n = len(train_ds.y)
-        rng = np.random.default_rng(cfg.seed)
-        for epoch in range(cfg.epochs):
-            lr = cfg.lr if epoch < cfg.epochs // 2 else cfg.lr_after_half
-            perm = torch.as_tensor(rng.permutation(n)).to(dev)
-            for start in range(0, n, cfg.batch_size):
-                idx = perm[start:start + cfg.batch_size]
-                loss = _train_step(params, opt, x[idx], logy[idx], lr)
-            if verbose and (epoch % 10 == 0 or epoch == cfg.epochs - 1):
-                print(f"  [{dataset.kind}] epoch {epoch:3d} loss "
-                      f"{float(loss):.4f}")
-        with torch.no_grad():
-            test_mape = float(mape_loss(
-                params, torch.as_tensor(test_ds.x, dtype=torch.float32)
-                .to(dev), torch.as_tensor(test_ds.y).to(dev)))
-    finally:
-        torch.set_float32_matmul_precision(precision)
+    params = [(w.to(dev, torch.float32).requires_grad_(),
+               b.to(dev, torch.float32).requires_grad_())
+              for w, b in init_params(cfg, dev)]
+    opt = _optimizer(params, cfg)
+    x = torch.as_tensor(train_ds.x, dtype=torch.float32).to(dev)
+    logy = torch.as_tensor(np.log(np.maximum(train_ds.y, 1e-9)),
+                           dtype=torch.float32).to(dev)
+    n = len(train_ds.y)
+    rng = np.random.default_rng(cfg.seed)
+    for epoch in range(cfg.epochs):
+        lr = cfg.lr if epoch < cfg.epochs // 2 else cfg.lr_after_half
+        perm = torch.as_tensor(rng.permutation(n)).to(dev)
+        for start in range(0, n, cfg.batch_size):
+            idx = perm[start:start + cfg.batch_size]
+            loss = _train_step(params, opt, x[idx], logy[idx], lr)
+        if verbose and (epoch % 10 == 0 or epoch == cfg.epochs - 1):
+            print(f"  [{dataset.kind}] epoch {epoch:3d} loss "
+                  f"{float(loss):.4f}")
+    with torch.no_grad():
+        test_mape = float(mape_loss(
+            params, torch.as_tensor(test_ds.x, dtype=torch.float32)
+            .to(dev), torch.as_tensor(test_ds.y).to(dev)))
     return TrainedMLP(
         kind=dataset.kind, cfg=cfg,
         params=[(w.detach().cpu().numpy(), b.detach().cpu().numpy())

@@ -9,17 +9,20 @@
 // count: the last CTA masks its tail (zero rows in, no write out), so the
 // host pads nothing.
 //
-// What bounds it on an H100: FLOPs.  Each row costs L * 2 * H^2 FLOPs, the
-// padded first and last layers included as the packing computes them: at
-// the paper's MLPConfig (L = 9, H = 1024) 18.9 MFLOP a row against 4 KB
-// of input, and the weights (L * H^2 * 4 B = 37.7 MB) are read once per
-// launch.  At the 6,000 test rows of a trained predictor that is 113 GFLOP,
-// far above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B),
-// so the floor is FLOPs / fp32 FFMA peak: 1.69 ms.
+// What bounds it on an H100: FLOPs.  A row needs, of the packed chain,
+// the first layer over its real inputs (2 * 13 * H: the packing pads the
+// 13 features with zeros), the hidden layers whole (2 * H^2 each) and only
+// column 0 of the last layer (2 * H): at the paper's MLPConfig (L = 9,
+// H = 1024) 14.7 MFLOP a row against 52 B of real input, and the weights
+// it needs (about (L - 2) * H^2 * 4 B = 29.4 MB) are read once per launch.
+// At the 6,000 test rows of a trained predictor that is 88.3 GFLOP, far
+// above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), so
+// the floor is FLOPs / fp32 FFMA peak: 1.32 ms.  The kernel itself runs
+// every packed layer whole (L * 2 * H^2 = 18.9 MFLOP a row), 28% more.
 //
 // What the design does about it: the TPU kernel keeps a (256, H) tile in
 // VMEM across a sequential layer grid axis; at H = 1024 that is 1 MB, which
-// fits no CTA.  Here, as in the multi-kind scorer (mlp_chain.cuh), a CTA
+// fits no CTA.  Here, with the scorers' chain (mlp_chain.cuh), a CTA
 // takes kRows = 16 rows, keeps their activations in shared memory across
 // all L layers (64 KB at H = 1024, updated in place once every thread has
 // read h), and loops over the layers itself; thread g owns output columns
@@ -41,36 +44,9 @@ mlp_kernel(const float* __restrict__ x, const float* __restrict__ weights,
   float* h = reinterpret_cast<float*>(smem);
   const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
   const int rows = min(kRows, static_cast<int>(B - row0));
-  const int H4 = H >> 2;
-  {  // the CTA's rows; the tail past B is zero
-    const float4* src = reinterpret_cast<const float4*>(x + row0 * H);
-    float4* dst = reinterpret_cast<float4*>(h);
-    for (int i = threadIdx.x; i < kRows * H4; i += blockDim.x) {
-      dst[i] = i < rows * H4 ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
+  load_rows(h, x, row0, rows, H);  // the tail past B reads as zero
   __syncthreads();
-  const int g = threadIdx.x;
-  float4 acc[kRows];
-  for (int l = 0; l < L; ++l) {
-    if (g < H4) {
-      layer_product(h, weights + static_cast<long long>(l) * H * H, H, g,
-                    acc);
-    }
-    __syncthreads();  // every thread has finished reading h
-    if (g < H4) {
-      const float4 b = reinterpret_cast<const float4*>(
-          biases + static_cast<long long>(l) * H)[g];
-      const bool last = l == L - 1;
-      float4* h4 = reinterpret_cast<float4*>(h);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 z = add4(acc[r], b);
-        h4[r * H4 + g] = last ? z : relu4(z);
-      }
-    }
-    __syncthreads();
-  }
+  run_chain(h, weights, biases, H, L);
   if (threadIdx.x < rows) out[row0 + threadIdx.x] = h[threadIdx.x * H];
 }
 
@@ -81,7 +57,7 @@ mlp_kernel(const float* __restrict__ x, const float* __restrict__ weights,
 extern "C" int repro_fused_mlp(const float* x, const float* weights,
                                const float* biases, float* out, int B, int H,
                                int L, void* stream) {
-  if (B <= 0 || H <= 0 || H % 4 || H / 4 > kThreads || L <= 0) {
+  if (B <= 0 || !shapes_ok((B + kRows - 1) / kRows * kRows, H, L, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = kRows * H * static_cast<int>(sizeof(float));

@@ -7,13 +7,15 @@
 // layer, and writes column 0 of the last layer to out[i].  Rows arrive
 // grouped by kind and padded to whole block_m blocks (the host does that).
 //
-// What bounds it on an H100: FLOPs.  Each row costs L * 2 * H^2 FLOPs —
-// 9 * 2 * 1024^2 = 18.9 MFLOP at the paper's MLPConfig, the padded first
-// and last layers included, as the packing computes them — against
-// 4 * H = 4 KB of input; one kind's weights are L * H^2 * 4 B = 37.7 MB.
-// At tens of thousands of rows a launch is ~1e12 FLOP and reads at most
-// 4 x 37.7 MB of weights, far above the fp32 ridge point (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/B), so the floor is FLOPs / fp32 FFMA peak.
+// What bounds it on an H100: FLOPs.  A row needs, of its kind's packed
+// chain, the first layer over its 13 real inputs, the hidden layers whole
+// and only column 0 of the last: 2 * 13 * H + (L - 2) * 2 * H^2 + 2 * H =
+// 14.7 MFLOP at the paper's MLPConfig (L = 9, H = 1024; the kernel runs
+// every packed layer whole, L * 2 * H^2 = 18.9 MFLOP) against 52 B of
+// real input; one kind's weights are about 29.4 MB of that.  At tens of
+// thousands of rows a launch is ~1e12 FLOP and reads at most 4 x 29.4 MB
+// of weights, far above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s =
+// 20 FLOP/B), so the floor is FLOPs / fp32 FFMA peak.
 //
 // What the design does about it: the TPU kernel keeps a (128, H) tile in
 // VMEM across a sequential layer axis; 512 KB does not fit the 227 KB of
@@ -44,27 +46,10 @@ score_kernel(const float* __restrict__ x, const int* __restrict__ block_kinds,
     if (threadIdx.x < kRows) out[row0 + threadIdx.x] = __int_as_float(0x7fc00000);
     return;
   }
-  load_rows(h, x, row0, H);
+  load_rows(h, x, row0, kRows, H);
   __syncthreads();
-  const int g = threadIdx.x;
-  const int H4 = H >> 2;
-  float4 acc[kRows];
-  for (int l = 0; l < L; ++l) {
-    const long long layer = static_cast<long long>(kind) * L + l;
-    if (g < H4) layer_product(h, weights + layer * H * H, H, g, acc);
-    __syncthreads();  // every thread has finished reading h
-    if (g < H4) {
-      const float4 b = reinterpret_cast<const float4*>(biases + layer * H)[g];
-      const bool last = l == L - 1;
-      float4* h4 = reinterpret_cast<float4*>(h);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 z = add4(acc[r], b);
-        h4[r * H4 + g] = last ? z : relu4(z);
-      }
-    }
-    __syncthreads();
-  }
+  const long long first = static_cast<long long>(kind) * L;
+  run_chain(h, weights + first * H * H, biases + first * H, H, L);
   if (threadIdx.x < kRows) out[row0 + threadIdx.x] = h[threadIdx.x * H];
 }
 

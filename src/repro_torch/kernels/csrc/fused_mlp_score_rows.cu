@@ -10,8 +10,8 @@
 // garbage by contract.
 //
 // What bounds it on an H100: FLOPs, as for the block-mapped kernel —
-// 9 * 2 * 1024^2 = 18.9 MFLOP per row at the paper's MLPConfig (padded
-// first and last layers included) against 37.7 MB of weights per kind.
+// 14.7 MFLOP a row needs at the paper's MLPConfig (the first layer over 13
+// real inputs, column 0 of the last) against 29.4 MB of weights per kind.
 // A CTA holding rows of m kinds does m layer products per layer, so a
 // mixed CTA costs m times the FLOPs its rows need.
 //
@@ -42,7 +42,7 @@ score_rows_kernel(const float* __restrict__ x,
   __shared__ unsigned s_present;
   const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
   if (threadIdx.x == 0) s_present = 0u;
-  load_rows(h, x, row0, H);
+  load_rows(h, x, row0, kRows, H);
   __syncthreads();
   if (threadIdx.x < kRows) {
     const int k = row_kinds[row0 + threadIdx.x];

@@ -1,4 +1,4 @@
-// Shared pieces of the two fused MLP scorer kernels (sm_90a, fp32 FFMA).
+// Shared pieces of the fused MLP kernels (sm_90a, fp32 FFMA).
 //
 // A CTA owns kRows consecutive rows of x (B, H) and keeps their activation
 // tile h (kRows x H fp32, 64 KB at H = 1024) in shared memory across all L
@@ -36,13 +36,15 @@ __device__ __forceinline__ float4 relu4(const float4& a) {
                      fmaxf(a.w, 0.f));
 }
 
-// Copy the CTA's kRows rows of x (row-major, H wide) into shared memory.
+// Copy the CTA's kRows rows of x (row-major, H wide) into shared memory;
+// rows past the first `rows` (a ragged tail) read as zero.
 __device__ __forceinline__ void load_rows(float* h, const float* x,
-                                          long long row0, int H) {
+                                          long long row0, int rows, int H) {
   const float4* src = reinterpret_cast<const float4*>(x + row0 * H);
   float4* dst = reinterpret_cast<float4*>(h);
+  const int n = rows * (H >> 2);
   for (int i = threadIdx.x; i < kRows * (H >> 2); i += blockDim.x) {
-    dst[i] = src[i];
+    dst[i] = i < n ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -71,7 +73,39 @@ __device__ __forceinline__ void layer_product(const float* __restrict__ h,
   }
 }
 
-// Host-side shape contract shared by both launchers.
+// One MLP's L-layer chain on the CTA's tile h, in place:
+// h <- relu(h @ w[l] + b[l]) for l < L - 1, no ReLU after the last layer.
+// w is (L, H, H) and b (L, H).  Thread g owns column group g; h is
+// rewritten only once every thread has finished reading it.
+__device__ __forceinline__ void run_chain(float* h,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ b, int H,
+                                          int L) {
+  const int g = threadIdx.x;
+  const int H4 = H >> 2;
+  float4* h4 = reinterpret_cast<float4*>(h);
+  float4 acc[kRows];
+  for (int l = 0; l < L; ++l) {
+    if (g < H4) {
+      layer_product(h, w + static_cast<long long>(l) * H * H, H, g, acc);
+    }
+    __syncthreads();  // every thread has finished reading h
+    if (g < H4) {
+      const float4 bias =
+          reinterpret_cast<const float4*>(b + static_cast<long long>(l) * H)[g];
+      const bool last = l == L - 1;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 z = add4(acc[r], bias);
+        h4[r * H4 + g] = last ? z : relu4(z);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Host-side shape contract shared by the launchers (B in whole kRows
+// tiles: the ragged fused_mlp passes B rounded up).
 inline bool shapes_ok(int B, int H, int L, int K) {
   return B > 0 && B % kRows == 0 && H > 0 && H % 4 == 0 &&
          H / 4 <= kThreads && L > 0 && K > 0 && K <= 32;

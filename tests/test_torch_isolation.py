@@ -31,8 +31,7 @@ def test_port_has_the_slice_modules():
                 "models.layers", "models.attention", "models.ssm",
                 "models.transformer", "models.convert", "configs",
                 "configs.qwen3_0_6b", "configs.mamba2_130m", "serve.engine",
-                "launch.serve", "core.artifacts", "kernels.fused_mlp",
-                "launch.train_mlps"):
+                "launch.serve", "core.artifacts", "kernels.fused_mlp"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -13,10 +13,14 @@ pieces and the port's on the CPU:
   switch in one framework but not the other, after which Adam's
   normalized step moves the weights they feed by up to the learning rate;
 - artifact keys and paths are equal, and each package loads the other's
-  sealed artifacts without training.
+  sealed artifacts without training;
+- the default set trained on the CPU at seeds 0-2 stays within the band
+  that ``chip_smoke.py`` holds the card's training to.
 """
 
 import dataclasses
+import functools
+import importlib.util
 import json
 from pathlib import Path
 
@@ -33,6 +37,7 @@ from repro.core import mlp as ref_mlp
 from repro.core import predictor as ref_predictor
 from repro.core.trace import TrackedTrace as RefTrace
 from repro_torch.core import artifacts, cost, integrity
+from repro_torch.core import devices as pt_devices
 from repro_torch.core import dataset as pt_dataset
 from repro_torch.core import mlp as pt_mlp
 from repro_torch.core import predictor as pt_predictor
@@ -42,6 +47,11 @@ from test_torch_engine import DEVS, VARYING_KINDS, carried_mlps
 
 GOLDEN_FILES = sorted((Path(__file__).resolve().parent / "golden")
                       .glob("*.json"))
+# chip_smoke.py's constants (importing the script runs nothing)
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+CHIP_SMOKE = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(CHIP_SMOKE)
 TINY = dict(hidden_layers=1, hidden_size=16, epochs=2, batch_size=32)
 
 
@@ -236,6 +246,7 @@ def test_reference_artifacts_load_in_the_port(tmp_path, monkeypatch):
     feats = ref_dataset.build_dataset("bmm", 10, device_names=["V100"]).x
     for kind in SMALL["kinds"]:
         assert port[kind].test_mape == ref[kind].test_mape
+        assert port[kind].trainer == "repro"
         np.testing.assert_allclose(
             port[kind].predict_ms(feats, device="cpu"),
             ref[kind].predict_ms(feats), rtol=1e-5)
@@ -244,7 +255,10 @@ def test_reference_artifacts_load_in_the_port(tmp_path, monkeypatch):
 def test_port_artifacts_load_in_the_reference(tmp_path, monkeypatch):
     port = pt_predictor.train_mlps(cfg=_pt_cfg(**TINY), cache_dir=tmp_path,
                                    device="cpu", **SMALL)
-    assert len(list(tmp_path.glob("*.pkl"))) == 2
+    paths = sorted(tmp_path.glob("*.pkl"))
+    assert len(paths) == 2
+    assert [pt_mlp.TrainedMLP.load(p).trainer for p in paths] == \
+        ["repro_torch"] * 2
     monkeypatch.setattr(ref_mlp, "train", _refuse_training)
     ref = ref_predictor.train_mlps(cfg=_ref_cfg(**TINY), cache_dir=tmp_path,
                                    **SMALL)
@@ -323,21 +337,41 @@ def test_default_predictor_behind_rank_and_to_device(path, monkeypatch):
                                    rtol=1e-5)
 
 
-def test_train_mlps_cli_compares_with_the_shared_store(tmp_path, monkeypatch,
-                                                      capsys):
-    """The CLI behind PERF.md's CPU band: seed 0 retrained elsewhere
-    reproduces the shared store's artifact (ratio 1), other seeds differ."""
-    from repro_torch.launch import train_mlps as cli
-    shared = tmp_path / "shared"
-    monkeypatch.setattr(pt_predictor, "ARTIFACT_DIR", shared)
-    monkeypatch.setattr(pt_predictor, "DEFAULT_MLP_CFG", _pt_cfg(**TINY))
-    monkeypatch.setattr(pt_predictor, "DEFAULT_N_CONFIGS", 20)
-    pt_predictor.train_mlps(device="cpu")
-    assert cli.main(["--device", "cpu", "--seeds", "0", "1", "--cache-dir",
-                     str(tmp_path / "fresh"), "--force"]) == 0
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [(r["kind"], r["seed"]) for r in rows[:-1]] == [
-        (k, s) for s in (0, 1) for k in cli.KINDS]
-    assert all(r["ratio"] == 1.0 for r in rows[:4])
-    assert sorted(rows[-1]["largest_ratio"]) == sorted(cli.KINDS)
-    assert len(list((tmp_path / "fresh").glob("*.pkl"))) == 8
+@functools.lru_cache(maxsize=None)
+def _default_dataset(kind):
+    """The default predictor's dataset of ``kind``: DEFAULT_N_CONFIGS
+    configurations over the whole registry, as ``train_mlps`` builds it."""
+    return pt_dataset.build_dataset(
+        kind, pt_predictor.DEFAULT_N_CONFIGS,
+        device_names=sorted(pt_devices.all_devices()))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", VARYING_KINDS)
+def test_default_set_test_mape_within_the_chip_band(kind, seed):
+    """``chip_smoke.py`` holds each kind's test MAPE, trained on the card
+    at ``DEFAULT_MLP_CFG``, within ``TEST_MAPE_BAND`` of the reference's
+    fixed seed-0 values (``REFERENCE_TEST_MAPE``, read from artifacts the
+    JAX package trained).  The port trained on the CPU at seeds 0-2 stays
+    inside that band, so the gate allows for the spread over seeds (run
+    with ``-s`` to read the ratios)."""
+    cfg = dataclasses.replace(pt_predictor.DEFAULT_MLP_CFG, seed=seed)
+    model = pt_mlp.train(_default_dataset(kind), cfg, device="cpu")
+    want = CHIP_SMOKE.REFERENCE_TEST_MAPE[kind]
+    ratio = model.test_mape / want
+    print(f"{kind} seed {seed}: test_mape {model.test_mape:.4f}, "
+          f"{ratio:.3f} x the reference's {want}")
+    assert ratio <= CHIP_SMOKE.TEST_MAPE_BAND
+
+
+def test_train_refuses_tf32():
+    """Training products are fp32 without TF32; a process set to TF32 gets
+    an error, and its setting is left as it was."""
+    ds = pt_dataset.build_dataset("linear", 20, device_names=["T4"])
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            pt_mlp.train(ds, _pt_cfg(**TINY), device="cpu")
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
