@@ -17,6 +17,11 @@ flash_attention.cu``) for CUDA tensors and counts the launch in
 kernel reads its inputs through strides (unit stride on D), so views of
 the model's (B, S, H, D) activations go in without a copy, and the
 output it returns is a (B, H, Sq, D) view of (B, Sq, H, D) memory.
+bfloat16 inputs run on the tensor cores (P rounded to bf16 for P V, every
+sum fp32) and are copied with 16-byte rows (``cp.async``): a view whose
+data pointer is not 16-byte aligned or whose (b, h, s) strides are not
+multiples of 8 is cloned first (the model's views never are).  float32
+inputs run the FFMA kernel.
 """
 
 from __future__ import annotations
@@ -116,6 +121,12 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"at most 65535")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every (b, h, s) row of ``t`` starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st in t.stride()[:3])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, H, Sq, D); k, v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype.
@@ -127,6 +138,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     _check_cuda(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _rows_aligned(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
