@@ -35,8 +35,8 @@
 //     stays in registers.  Row sums l add the unrounded fp32 P.
 //   * Q, K and V tiles come in by cp.async into padded shared rows (D + 8
 //     bf16: ldmatrix without bank conflicts); K and V have separate
-//     two-stage rings, so tile j + 1 of K loads while S of tile j runs and
-//     V's while P V runs.
+//     two-stage rings, so K and V of tile j + 1 load while tile j
+//     computes, with one barrier a tile.
 //   * Masking only where needed, per warp: a tile that lies wholly inside
 //     the warp's causal / window band skips the per-element mask, a tile
 //     that none of its rows can see is skipped, and tiles outside the
@@ -341,19 +341,21 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   load_tile(kb, sk.s, ks, k_begin);
-  cp_async_commit();  // group: Q and K tile 0
   load_tile(vb, sv.s, vs, k_begin);
-  cp_async_commit();  // group: V tile 0
+  cp_async_commit();  // group: Q and tile 0
 
   for (int j = 0; j < n_k; ++j) {
     const int k0 = k_begin + j * kBN;
     const int st = j & 1;
-    // K of tile j + 1 into the other stage: its last reader, S of tile
-    // j - 1, finished before the barrier ahead of P V of tile j - 1
-    if (j + 1 < n_k) load_tile(kb, sk.s, ks + (st ^ 1) * kBN * LD, k0 + kBN);
-    cp_async_commit();
-    cp_async_wait<2>();  // all but K j + 1 and V j: K tile j has landed
+    cp_async_wait<0>();  // tile j, the one group in flight, has landed
+    // one barrier a tile: every thread's copies of tile j are visible, and
+    // every warp is done with tile j - 1, whose stage tile j + 1 takes
     __syncthreads();
+    if (j + 1 < n_k) {
+      load_tile(kb, sk.s, ks + (st ^ 1) * kBN * LD, k0 + kBN);
+      load_tile(vb, sv.s, vs + (st ^ 1) * kBN * LD, k0 + kBN);
+    }
+    cp_async_commit();
 
     // skip a tile none of this warp's rows sees; mask only a tile that
     // some of its rows see in part
@@ -446,13 +448,6 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-
-    // V of tile j + 1: its stage's last reader, P V of tile j - 1, passed
-    // the barrier above
-    if (j + 1 < n_k) load_tile(vb, sv.s, vs + (st ^ 1) * kBN * LD, k0 + kBN);
-    cp_async_commit();
-    cp_async_wait<2>();  // all but K j + 1 and V j + 1: V tile j has landed
-    __syncthreads();
 
     if (!skip) {
       const bf16* vt = vs + st * kBN * LD;
