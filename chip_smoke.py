@@ -11,7 +11,10 @@ and serves them through the ``fused_mlp`` kernel.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit.
 2. Build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, in parallel.
+   one ``nvcc`` per source, in parallel; ptxas's registers and spills,
+   and counts of the tensor-core MMAs, ``ldmatrix`` loads and ``cp.async``
+   copies in each library's SASS (``cuobjdump -sass``): flash attention
+   and the SSD scan must hold bf16 ``HMMA``s.
 3. Kernels against their plain PyTorch versions on the card at the path's
    shapes (K=4, L=9, H=1024): one kind, all kinds mixed, a lone row,
    bucket padding.  Tolerance: max |kernel - plain| <= 1e-4 * max(1,
@@ -28,11 +31,15 @@ and serves them through the ``fused_mlp`` kernel.
 5. Each kernel timed on the inputs the path gave it, beside its plain
    version and its bound.
 6. Flash attention and the SSD scan against their plain versions on the
-   card: flash in bf16 and fp32, causal or not, window 0 or 256, GQA rep
-   1, 2 and 4, D 64 and 128, lengths off the 64-row tiles (bf16 output
-   within 8e-3 * max(1, max |plain|), about two bf16 ulps; fp32 within
-   1e-4 * that); SSD at N 64 and 128, P 64, L off the chunk, y and final
-   state within 1e-4 * max(1, max |plain|) (fp32 sums in another order).
+   card: flash in bf16 (the tensor-core kernel) and fp32 (FFMA), causal
+   or not, window 0, 100 or 256, GQA rep 1, 2, 4 and 8, D 16 to 128,
+   lengths off the 16-row fragments and 64-key tiles (bf16 output within
+   8e-3 * max(1, max |plain|), about two bf16 ulps; fp32 within 1e-4 *
+   that); SSD in bf16 (tensor cores, fp32 operands split in two bf16
+   terms) and fp32 at N 64 and 128, P 64, L from 1 to the path's 4096 at
+   H 24, off the chunk and on it, chunk 16 and 64, b and c shared by the
+   heads or not, y and final state within 1e-4 * max(1, max |plain|)
+   (fp32 sums in another order).
 7. Serving Qwen3-0.6B (28 layers, d_model 1024, 16 / 8 heads of 128,
    vocab 151936): ``ServingEngine(batch=4, max_seq=4112)`` answers 8
    requests of 384-4096 prompt tokens and 16 new tokens each; flash
@@ -52,8 +59,10 @@ and serves them through the ``fused_mlp`` kernel.
    kernel and compares no token, and the fp32 comparison is the gate.
 8. Serving Mamba2-130M (24 layers, d_model 768, d_state 128, 24 heads of
    64, vocab 50280) the same way; SSD launches = prefills x 24.
-9. The two new kernels timed on the largest inputs their path gave them,
-   beside the plain version, the bound and (flash) SDPA.
+9. The two LM kernels timed on the largest inputs their path gave them,
+   beside the plain version, the bound, (flash) SDPA and, as a constant
+   from PERF.md (``earlier_ms``), the time of PR 13's kernel before the
+   tensor-core redesign.
 10. Training, default predictor: ``default_predictor(force_retrain=True)``
     trains the four kinds (3 x 256, 30 epochs) on the card from the port's
     datasets (2,000 configurations x 15 devices) and seals them under
@@ -86,8 +95,10 @@ feature statistics and training data come from the port's own
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -405,14 +416,38 @@ def compare(torch, fms, name, args, kwargs=None):
     return err, tol
 
 
+#: clock cycles of the spin kernel ahead of each timed call (about 1 ms)
+SPIN_CYCLES = 2_000_000
+
+
+#: kernels whose bf16 products run on the tensor cores (phase 2 checks
+#: their SASS for the MMA)
+TENSOR_CORE_KERNELS = ("flash_attention", "ssd")
+
+
+def sass_ops(text: str) -> dict:
+    """Counts of the tensor-core MMAs (HMMA, HGMMA), the shared-memory
+    matrix loads (LDSM) and the asynchronous copies (LDGSTS) in a SASS
+    listing."""
+    ops = re.findall(r"\b((?:HMMA|HGMMA|LDSM|LDGSTS)\.[\w.]+)", text)
+    return dict(sorted(collections.Counter(ops).items()))
+
+
 def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times (ms)."""
+    """Median of per-call CUDA-event times (ms) of the device work ``fn``
+    enqueues.  A spin kernel of about 1 ms (``torch.cuda._sleep``) goes
+    ahead of each timed call, so the host's time to enqueue it (a
+    wrapper's checks and allocations, about 0.1 ms on that host) passes
+    behind the spin and the events bracket the device work; a call whose
+    host work outlasts the spin (the plain SSD scan's thousands of
+    launches) is timed with its host gaps."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -518,18 +553,27 @@ def breakdown(torch, batched, planner, traces, dests) -> None:
 # ---------------------------------------------------------------------------
 # the LM serving path: flash attention and the SSD scan
 # ---------------------------------------------------------------------------
-#: b, h, kv, sq, skv, d, causal, window
+#: b, h, kv, sq, skv, d, causal, window; the bf16 kernel's risky cases too:
+#: lengths around its 16-row fragments and 64-key tiles, GQA rep 1-8, a
+#: window starting inside a key tile, every head dim
 FLASH_CASES = [
     (1, 16, 8, 1000, 1000, 128, True, 0),
     (2, 8, 8, 300, 300, 64, True, 256),
     (1, 16, 4, 777, 777, 128, True, 256),
     (1, 8, 2, 200, 450, 64, False, 0),
     (1, 16, 8, 513, 513, 128, False, 256),
+    (1, 16, 8, 17, 17, 128, True, 0),
+    (1, 8, 1, 65, 65, 64, True, 100),
+    (2, 4, 4, 64, 64, 32, True, 0),
+    (1, 4, 1, 333, 90, 16, False, 0),
 ]
-#: b, h, l, p, n, chunk
+#: b, h, l, p, n, chunk, b and c shared by the heads (head stride 0)
 SSD_CASES = [
-    (1, 24, 1000, 64, 128, 64),
-    (2, 8, 333, 64, 64, 64),
+    (1, 24, 1000, 64, 128, 64, True),
+    (2, 8, 333, 64, 64, 64, True),
+    (1, 24, 4096, 64, 128, 64, True),
+    (1, 2, 1, 64, 128, 64, True),
+    (2, 3, 128, 64, 128, 16, False),
 ]
 
 
@@ -564,21 +608,23 @@ def lm_kernel_checks(torch, fa, sk, device) -> dict:
                 f"{err:.3e} (tol {tol:.3e})")
             if not err <= tol:
                 fail("flash_attention disagrees with its plain version")
-    for b, h, l, p, n, chunk in SSD_CASES:
+    for b, h, l, p, n, chunk, shared in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             x = randn(b, h, l, p).to(dtype)
             dt = 0.01 + 0.19 * torch.rand((b, h, l), generator=gen,
                                           device=device)
             a = -(0.5 + 3.5 * torch.rand((h,), generator=gen, device=device))
-            bm = randn(b, 1, l, n).to(dtype).expand(b, h, l, n)
-            cm = randn(b, 1, l, n).to(dtype).expand(b, h, l, n)
+            g = 1 if shared else h
+            bm = randn(b, g, l, n).to(dtype).expand(b, h, l, n)
+            cm = randn(b, g, l, n).to(dtype).expand(b, h, l, n)
             y, st = sk.ssd(x, dt, a, bm, cm, chunk=chunk)
             want_y, want_st = sk.ssd_plain(x, dt, a, bm, cm)
             for got, want, what in ((y, want_y, "y"), (st, want_st, "state")):
                 err, tol = _max_err(torch, got, want, 1e-4)
                 worst["ssd"] = max(worst["ssd"], err)
                 log(f"  ssd {str(dtype)[6:]} B{b} H{h} L{l} P{p} N{n} "
-                    f"chunk {chunk} {what}: max |err| {err:.3e} "
+                    f"chunk {chunk} b, c {'shared' if shared else 'per head'}"
+                    f" {what}: max |err| {err:.3e} "
                     f"(tol {tol:.3e})")
                 if not err <= tol:
                     fail(f"ssd {what} disagrees with its plain version")
@@ -867,31 +913,42 @@ def flash_bound(args) -> tuple:
 
 def ssd_bound(args) -> tuple:
     """(bound_ms, bound_by) of one SSD call: the scan's cheapest exact
-    FLOP count, whatever the kernel's own chunk, over the fp32 peak;
-    against x, dt, a, b, c (each stored element once: b and c are shared
-    by the heads) read once and y and the state written once.  In chunks
-    of Q the scan costs per (b, h), over chunks of r rows, r(r+1)(N + P)
-    FLOPs for the causal scores and their product with x, 4 r N P for the
-    readout and rank-1 update against the carried state, and N P for the
-    state's decay once a chunk; the bound takes the least over Q (Q = 1 is
-    the sequential recurrence)."""
+    FLOP count, whatever the kernel's own chunk, each FLOP at the rate the
+    kernel runs it; against x, dt, a, b, c (each stored element once: b
+    and c are shared by the heads) read once and y and the state written
+    once.  In chunks of Q the scan costs per (b, h), over chunks of r
+    rows, r(r+1) N FLOPs for the causal scores c b^T, r(r+1) P for their
+    product with x, 4 r N P for the readout and rank-1 update against the
+    carried state, and N P for the state's decay once a chunk; the bound
+    takes the least time over Q (Q = 1 is the sequential recurrence).
+    fp32 inputs: every FLOP at the fp32 peak.  bf16 inputs run the
+    products on the bf16 tensor cores, the scores once (both operands
+    exact in bf16) and the other three as two bf16 products each (the
+    fp32 operand split in two terms), so those FLOPs count twice at the
+    bf16 peak and the decay at the fp32 peak: the share of the bound is
+    not flattered by the split."""
     x, dt, a, bm = args[0][:4]
     b, h, l, p = x.shape
     n = bm.shape[-1]
+    tc = x.dtype.itemsize == 2
+    mma_peak = BF16_PEAK_FLOPS if tc else FP32_PEAK_FLOPS
+    split = 2.0 if tc else 1.0
 
-    def per_head(q: int) -> float:
+    def per_head_s(q: int) -> float:
         rows = np.full(l // q, q, np.float64)
         if l % q:
             rows = np.append(rows, l % q)
-        return float((rows * (rows + 1) * (n + p)).sum()
-                     + (4 * l + len(rows)) * n * p)
+        pairs = float((rows * (rows + 1)).sum())
+        mma = pairs * n + split * (pairs * p + 4 * l * n * p)
+        return mma / mma_peak + len(rows) * n * p / FP32_PEAK_FLOPS
 
-    flops = b * h * min(per_head(q) for q in range(1, min(l, 256) + 1))
+    seconds = b * h * min(per_head_s(q) for q in range(1, min(l, 256) + 1))
     heads = 1 if bm.stride(1) == 0 else h
     nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
               + 2 * b * heads * l * n * bm.element_size()
               + b * h * l * p * 4 + b * h * n * p * 4)
-    return roofline(flops, nbytes)
+    t_ops, t_bytes = seconds * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def sdpa_ms(torch, args):
@@ -1268,6 +1325,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
+    for kname in sorted(build.KERNELS):
+        ops = sass_ops(build.sass(kname))
+        log(f"  {kname} SASS: {ops}")
+        if kname in TENSOR_CORE_KERNELS and not ops.get("HMMA.16816.F32.BF16"):
+            fail(f"{kname}: no bf16 tensor-core MMA in its SASS")
 
     # -- 3. kernels against their plain versions ----------------------------
     log("[3 kernels vs plain] K=4, L=9, H=1024, block_m=128")
@@ -1389,6 +1451,9 @@ def main() -> int:
         "largest inputs")
     lm_sources = {"flash_attention": ("flash_attention", 78, flash_bound),
                   "ssd": ("ssd", 72, ssd_bound)}
+    #: the first kernels' times on the same inputs (PERF.md, chip call 5 of
+    #: PR 13, H100 80GB HBM3 at 700 W), before the tensor-core redesign
+    earlier_ms = {"flash_attention": 3.506, "ssd": 5.662}
     for kmod, kname in ((fa, "flash_attention"), (sk, "ssd")):
         args, kwargs = lm_runs[kname]["args"]
         kernel = getattr(kmod, kname)
@@ -1414,7 +1479,7 @@ def main() -> int:
             f"{plain_ms:.3f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
             f"bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of "
-            f"peak)")
+            f"peak; PR 13's kernel {earlier_ms[kname]:.3f} ms)")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1422,7 +1487,7 @@ def main() -> int:
             "launches": lm_runs[kname]["launches"],
             "max_abs_err": lm_worst[kname], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms, "earlier_ms": earlier_ms[kname]})
 
     # -- 10-12. the MLP training path and the fused_mlp kernel -------------
     for mod in kernel_mods:

@@ -42,9 +42,9 @@ KERNELS = {
     # causal, window, scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _F, _P]),
-    # x, dt, a, bmat, cmat, y, state; dtype, B, H, L, P, N, chunk;
-    # 5 x (b, h, l) strides; stream
-    "ssd": ("ssd.cu", "repro_ssd", [_P] * 7 + [_I] * 7 + [_L] * 15 + [_P]),
+    # x, dt, a, bmat, cmat, y, state, chunk-state and cum_last scratch;
+    # dtype, B, H, L, P, N, chunk; 5 x (b, h, l) strides; stream
+    "ssd": ("ssd.cu", "repro_ssd", [_P] * 9 + [_I] * 7 + [_L] * 15 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -123,6 +123,14 @@ def library(name: str) -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s built library (``cuobjdump -sass``,
+    the toolkit's disassembler beside ``nvcc``)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def launch(name: str, *args) -> None:

@@ -1,5 +1,5 @@
-// Mamba2 SSD chunk scan for Hopper (sm_90a), fp32 FFMA on fp32 or bf16
-// inputs.
+// Mamba2 SSD chunk scan for Hopper (sm_90a): chunk-parallel in three
+// kernels, bf16 products on the tensor cores, fp32 products on FFMA.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd.py:72 (ssd, body
 // _ssd_kernel :28).  For x (B, H, L, P), dt (B, H, L), a (H,) negative and
@@ -17,165 +17,483 @@
 // design's.  In chunks of Q the scan costs, per step, 4 N P (readout and
 // rank-1 update against the carried state) + (Q+1)(N + P) (the causal
 // scores and their product with x) + N P / Q (the state's decay once a
-// chunk); Q = 1 is the sequential recurrence.  The bound takes the least
-// of that over Q (Q of 6-7 at N = 128, P = 64: about 35.5 kFLOP a step,
-// where this kernel's Q = 64 does 45.2 k) against about 410 bytes a step
-// and head of bf16 x, fp32 dt and y, and b and c (shared by all heads):
-// near 90 FLOP/B, above the fp32 ridge point (67 TFLOP/s over 3.35 TB/s
-// = 20 FLOP/B), so the floor is FLOPs over the fp32 rate.
+// chunk); Q = 1 is the sequential recurrence.  The least of that over Q
+// (Q of 6-7 at N = 128, P = 64: about 35.5 kFLOP a step) against about
+// 410 bytes a step and head of bf16 x, fp32 dt and y, and b and c (shared
+// by all heads).  chip_smoke.py counts those FLOPs at the rate this kernel
+// runs them (bf16 products as two tensor-core products each, see there).
 //
-// Design.  The TPU kernel walks a sequential chunk grid axis with the
-// (N, P) state in VMEM scratch.  Here one CTA of 256 threads owns one
-// (b, h) and loops over the chunks in order, the state in shared memory:
-// the loop takes the place of the sequential grid axis.  Per chunk: stage
-// x, b, c (fp32) and dt, take the cumulative decay, build the causal
-// (Q, Q) matrix (c_i . b_j) exp(cum_i - cum_j) dt_j only for j <= i (for
-// j > i the exponent is positive and could overflow, and inf * 0 is NaN),
-// then y, then the state update.  Staged in fp32 a chunk of 128 would need
-// 256 KB of shared memory (x 32 + b 64 + c 64 + scores 64 + state 32), over
-// the 227 KB a CTA may use, so the chunk is at most 64 (132 KB at N = 128,
-// P = 64); the chunk changes only the fp32 rounding.  b and c rows are
-// padded to N + 1 floats so 32 consecutive j fall in 32 banks.  Rows past
-// L are staged as zeros with dt = 0: they add nothing and decay nothing,
-// as the TPU kernel's zero padding, and the host pads nothing.  Inputs are
-// addressed by (batch, head, seq) strides, so b and c shared by every head
-// (one group) arrive with a head stride of 0 and are never repeated.
-// Known limit: a batch-1 prefill gives B * H = 24 CTAs for 132 SMs; a
-// chunk-parallel split (states per chunk, then a short scan) is later work.
+// The first kernel (PR 12) ran one CTA per (b, h) over the chunks in order:
+// 24 CTAs on 132 SMs for a batch-1 Mamba2-130M prefill, FFMA products with
+// one thread taking the cumulative sum: 5.662 ms at 1 x 24 x 4096 x 64,
+// N 128.  This design splits the scan at the chunk boundaries, as the
+// port's plain models/ssm.py ssd_chunked does, over grids that fill the
+// card (1,536 CTAs for stages 1 and 3 at that shape):
+//   1. chunk states, grid (chunks, H, B): the chunk's cumulative decay (a
+//      warp scan), its local state sum_j exp(cum_last - cum_j) dt_j b_j
+//      x_j^T (N x P) and cum_last, into scratch the wrapper allocates
+//      ((B, H, C, N, P) and (B, H, C) fp32);
+//   2. state passing, grid (N P / 256, H, B), each thread one state
+//      element along the chunks: S_c = S_{c-1} exp(cum_last_c) + local_c;
+//      each slot is overwritten with the state entering its chunk, and the
+//      state after the last chunk is the second output;
+//   3. output, grid (chunks, H, B): the causal (Q x Q) matrix
+//      (c_i . b_j) exp(cum_i - cum_j) dt_j for j <= i (for j > i the
+//      exponent is positive and could overflow, and inf * 0 is NaN), then
+//      y = att x + exp(cum_i) c S_prev, written once.
+// Products: 8 warps each take 16 x 16 output units.  bf16 inputs run
+// mma.sync.m16n8k16 with fp32 sums.  Every product of the scan has one
+// operand that is an input, exact in bf16 (x, b or c); c b^T takes both as
+// they are, and the fp32 operand of (b w)^T x, att x and c S goes in as two
+// bf16 terms, hi = bf16(v) and lo = bf16(v - hi), two MMAs into one fp32
+// sum: about 2^-16 of relative error per term instead of 2^-8, which keeps
+// the fp32 gate.  fp32 inputs run the same kernels with the products on
+// FFMA in the same register layout.  Operands are staged in shared memory
+// as fp32, rows padded so fragment loads hit 32 banks.  Rows past L are
+// staged as zeros with dt = 0 (they add nothing and decay nothing, as the
+// TPU kernel's zero padding), so the host pads nothing; N, P and the chunk
+// are padded to 16 in shared memory.  Inputs are addressed by (batch,
+// head, seq) strides, so b and c shared by every head (one group) arrive
+// with a head stride of 0 and are never repeated.
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cuda_error.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
-constexpr int kMaxQ = 64;      // largest chunk the shared-memory plan holds
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxQ = 64;     // largest chunk: the cumulative sum is 2 a lane
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPassThreads = 256;
+constexpr int kPassBatch = 32;  // chunks a state-passing thread loads at once
 
 struct Strides {
   long long b, h, l;  // elements; the innermost (P or N) axis has stride 1
 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+__device__ __forceinline__ float load_f(const bf16* p) {
   return __bfloat162float(*p);
 }
 
-inline int smem_floats(int P, int N) {
-  return kMaxQ * P + 2 * kMaxQ * (N + 1) + kMaxQ * (kMaxQ + 1) + N * P +
-         3 * kMaxQ;
-}
+// Copies rows [0, Rp) x columns [0, Wp) of an input block (rows x W valid,
+// row stride ld, unit column stride) into shared fp32 at row stride lds,
+// zeros outside the valid block.  16-byte vectors where the rows allow
+// them (aligned start, ld and W multiples of a vector), each thread issuing
+// kBatch loads before it stores any, so a CTA waits about one memory
+// latency per kBatch vectors a thread; else one element at a time.
+constexpr int kBatch = 8;
 
 template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int lds,
+                                           const T* __restrict__ src,
+                                           long long ld, int rows, int W,
+                                           int Rp, int Wp, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  if (reinterpret_cast<unsigned long long>(src) % 16 == 0 && ld % V == 0 &&
+      W % V == 0) {
+    const int per_row = Wp / V;
+    const int total = Rp * per_row;
+    for (int base = 0; base < total; base += kThreads * kBatch) {
+      uint4 buf[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * kThreads + tid;
+        const int r = i / per_row, c = i % per_row * V;
+        buf[u] = i < total && r < rows && c < W
+                     ? *reinterpret_cast<const uint4*>(src + r * ld + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * kThreads + tid;
+        if (i < total) {
+          const T* e = reinterpret_cast<const T*>(&buf[u]);
+          float4* d = reinterpret_cast<float4*>(dst + i / per_row * lds +
+                                                i % per_row * V);
+#pragma unroll
+          for (int q = 0; q < V / 4; ++q) {
+            d[q] = make_float4(load_f(e + 4 * q), load_f(e + 4 * q + 1),
+                               load_f(e + 4 * q + 2), load_f(e + 4 * q + 3));
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < Rp * Wp; i += kThreads) {
+      const int r = i / Wp, c = i % Wp;
+      dst[r * lds + c] = r < rows && c < W ? load_f(src + r * ld + c) : 0.f;
+    }
+  }
+}
+
+__host__ __device__ __forceinline__ int pad16(int n) {
+  return (n + 15) / 16 * 16;
+}
+
+// shared-memory plans (floats); row strides are chosen so that fragment
+// loads of 8 rows hit distinct banks: +8 where k is contiguous (pairs),
+// +4 where the row index is
+struct Plan {
+  int qp, np, pp;
+  __host__ __device__ Plan(int Q, int N, int P)
+      : qp(pad16(Q)), np(pad16(N)), pp(pad16(P)) {}
+  // stage 1: b w (Qp x Np + 4), x (Qp x Pp + 4), dt, cum, w
+  __host__ __device__ int state_floats() const {
+    return qp * (np + 4) + qp * (pp + 4) + 3 * qp;
+  }
+  // stage 3: c (Qp x Np + 8); b (Qp x Np + 8), later S (Np x Pp + 4);
+  // att (Qp x Qp + 8); x (Qp x Pp + 4); dt, cum, exp(cum)
+  __host__ __device__ int bs_floats() const {
+    const int b = qp * (np + 8), s = np * (pp + 4);
+    return b > s ? b : s;
+  }
+  __host__ __device__ int output_floats() const {
+    return qp * (np + 8) + bs_floats() + qp * (qp + 8) + qp * (pp + 4) +
+           3 * qp;
+  }
+};
+
+// (v(r, k), v(r, k + 1)) of an fp32 operand in shared memory, stored
+// k-contiguous (KC: v(r, k) at p[r * ld + k]) or r-contiguous (at
+// p[k * ld + r])
+template <bool KC>
+__device__ __forceinline__ float2 pair_at(const float* p, int ld, int r,
+                                          int k) {
+  if (KC) return *reinterpret_cast<const float2*>(p + r * ld + k);
+  return make_float2(p[k * ld + r], p[(k + 1) * ld + r]);
+}
+
+// One warp's 16 x 16 output unit: acc[nt] (this lane's C fragment of
+// n-tile nt, warp_mma.cuh) += sum_k A(m0 + row, k) B(k, n0 + 8 nt + col),
+// over k < K (a multiple of 16).  A(m, k) is pair_at<AKC>(A, lda, m, k),
+// B(k, n) is pair_at<BKC>(B, ldb, n, k).  SPLIT names the fp32 operand
+// that bf16 takes as two terms (1: A, 2: B, 0: neither, both exact).
+template <typename T, bool AKC, bool BKC, int SPLIT>
+__device__ __forceinline__ void unit_product(float (&acc)[2][4],
+                                             const float* A, int lda,
+                                             const float* B, int ldb, int m0,
+                                             int n0, int K, int lane) {
+  using namespace warp_mma;
+  const int g = lane / 4, t = lane % 4;
+  if constexpr (std::is_same<T, bf16>::value) {
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const float2 a[4] = {pair_at<AKC>(A, lda, m0 + g, k0 + 2 * t),
+                           pair_at<AKC>(A, lda, m0 + g + 8, k0 + 2 * t),
+                           pair_at<AKC>(A, lda, m0 + g, k0 + 2 * t + 8),
+                           pair_at<AKC>(A, lda, m0 + g + 8, k0 + 2 * t + 8)};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (SPLIT == 1) split_bf16(a[i].x, a[i].y, ah[i], al[i]);
+        else ah[i] = pack_bf16(a[i].x, a[i].y);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = n0 + 8 * nt + g;
+        const float2 b0 = pair_at<BKC>(B, ldb, n, k0 + 2 * t);
+        const float2 b1 = pair_at<BKC>(B, ldb, n, k0 + 2 * t + 8);
+        if (SPLIT == 2) {
+          uint32_t h0, l0, h1, l1;
+          split_bf16(b0.x, b0.y, h0, l0);
+          split_bf16(b1.x, b1.y, h1, l1);
+          mma_bf16(acc[nt], ah, h0, h1);
+          mma_bf16(acc[nt], ah, l0, l1);
+        } else {
+          const uint32_t h0 = pack_bf16(b0.x, b0.y);
+          const uint32_t h1 = pack_bf16(b1.x, b1.y);
+          mma_bf16(acc[nt], ah, h0, h1);
+          if (SPLIT == 1) mma_bf16(acc[nt], al, h0, h1);
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < K; k += 2) {
+      const float2 a0 = pair_at<AKC>(A, lda, m0 + g, k);
+      const float2 a1 = pair_at<AKC>(A, lda, m0 + g + 8, k);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float2 bb = pair_at<BKC>(B, ldb, n0 + 8 * nt + 2 * t + cc, k);
+          acc[nt][cc] = fmaf(a0.y, bb.y, fmaf(a0.x, bb.x, acc[nt][cc]));
+          acc[nt][2 + cc] =
+              fmaf(a1.y, bb.y, fmaf(a1.x, bb.x, acc[nt][2 + cc]));
+        }
+      }
+    }
+  }
+}
+
+// Warp 0: cum_j = sum_{i <= j} dt_i a over the (padded) chunk, two steps a
+// lane and a shuffle scan; w_j = exp(cum_last - cum_j) dt_j (may be null).
+// Returns cum_last to every lane of warp 0.
+__device__ __forceinline__ float chunk_cumsum(const float* dts, float ah,
+                                              float* cum, float* w, int qp,
+                                              int lane) {
+  const int j = 2 * lane;
+  const float v0 = j < qp ? dts[j] * ah : 0.f;
+  const float v1 = j + 1 < qp ? dts[j + 1] * ah : 0.f;
+  float s = v0 + v1;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const float o = __shfl_up_sync(0xffffffffu, s, off);
+    if (lane >= off) s += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) excl = 0.f;
+  const float last = __shfl_sync(0xffffffffu, s, 31);
+  if (j < qp) {
+    cum[j] = excl + v0;
+    if (w) w[j] = expf(last - cum[j]) * dts[j];
+  }
+  if (j + 1 < qp) {
+    cum[j + 1] = s;
+    if (w) w[j + 1] = expf(last - s) * dts[j + 1];
+  }
+  return last;
+}
+
+// ---- stage 1: each chunk's local state and total decay ----------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a, const T* __restrict__ bmat,
-           const T* __restrict__ cmat, float* __restrict__ y,
-           float* __restrict__ state_out, int H, int L, int P, int N, int Q,
-           Strides sx, Strides sdt, Strides sb, Strides sc, Strides sy) {
-  const int NS = N + 1;        // b / c row stride
-  const int AS = kMaxQ + 1;    // score row stride
-  extern __shared__ float smem[];
-  float* xs = smem;                 // kMaxQ x P
-  float* bs = xs + kMaxQ * P;       // kMaxQ x NS
-  float* cs = bs + kMaxQ * NS;      // kMaxQ x NS
-  float* att = cs + kMaxQ * NS;     // kMaxQ x AS
-  float* st = att + kMaxQ * AS;     // N x P carried state
-  float* dts = st + N * P;          // kMaxQ
-  float* cum = dts + kMaxQ;         // kMaxQ
-  float* wts = cum + kMaxQ;         // kMaxQ: exp(cum_last - cum_j) dt_j
+ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ a,
+                       const T* __restrict__ bmat, float* __restrict__ states,
+                       float* __restrict__ cum_last, int H, int L, int P,
+                       int N, int Q, int C, Strides sx, Strides sdt,
+                       Strides sb) {
+  const Plan pl(Q, N, P);
+  const int ldw = pl.np + 4, ldx = pl.pp + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* bw = smem;                // Qp x ldw: b_j w_j, read n-contiguous
+  float* xs = bw + pl.qp * ldw;    // Qp x ldx: x, read p-contiguous
+  float* dts = xs + pl.qp * ldx;   // Qp
+  float* cum = dts + pl.qp;        // Qp
+  float* w = cum + pl.qp;          // Qp
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float ah = a[h];
-  const T* xb = x + b * sx.b + h * sx.h;
-  const float* dtb = dt + b * sdt.b + h * sdt.h;
-  const T* bb = bmat + b * sb.b + h * sb.h;
-  const T* cb = cmat + b * sc.b + h * sc.h;
-  float* yb = y + b * sy.b + h * sy.h;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int l0 = c * Q;
+  const int rows = min(Q, L - l0);
+  const T* xb = x + b * sx.b + h * sx.h + l0 * sx.l;
+  const T* bb = bmat + b * sb.b + h * sb.h + l0 * sb.l;
+  const float* dtb = dt + b * sdt.b + h * sdt.h + l0 * sdt.l;
 
-  for (int i = tid; i < N * P; i += kThreads) st[i] = 0.f;
+  for (int j = tid; j < pl.qp; j += kThreads) {
+    dts[j] = j < rows ? dtb[j * sdt.l] : 0.f;
+  }
+  stage_rows(bw, ldw, bb, sb.l, rows, N, pl.qp, pl.np, tid);
+  stage_rows(xs, ldx, xb, sx.l, rows, P, pl.qp, pl.pp, tid);
+  __syncthreads();
+  if (warp == 0) {
+    const float last = chunk_cumsum(dts, a[h], cum, w, pl.qp, lane);
+    if (lane == 0) cum_last[(static_cast<long long>(b) * H + h) * C + c] = last;
+  }
+  __syncthreads();
+  for (int i = tid; i < pl.qp * pl.np; i += kThreads) {
+    const int j = i / pl.np, n = i % pl.np;
+    bw[j * ldw + n] *= w[j];
+  }
+  __syncthreads();
 
-  for (int l0 = 0; l0 < L; l0 += Q) {
-    const int rows = min(Q, L - l0);
-    __syncthreads();  // the last chunk's state update is done with xs, bs
-    for (int i = tid; i < Q * P; i += kThreads) {
-      const int j = i / P, p = i % P;
-      xs[j * P + p] = j < rows ? load_f(xb + (l0 + j) * sx.l + p) : 0.f;
-    }
-    for (int i = tid; i < Q * N; i += kThreads) {
-      const int j = i / N, n = i % N;
-      const bool in = j < rows;
-      bs[j * NS + n] = in ? load_f(bb + (l0 + j) * sb.l + n) : 0.f;
-      cs[j * NS + n] = in ? load_f(cb + (l0 + j) * sc.l + n) : 0.f;
-    }
-    for (int j = tid; j < Q; j += kThreads) {
-      dts[j] = j < rows ? dtb[(l0 + j) * sdt.l] : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {  // Q <= 64 sequential adds: negligible beside the rest
-      float c = 0.f;
-      for (int j = 0; j < Q; ++j) {
-        c += dts[j] * ah;
-        cum[j] = c;
+  // local state (Np x Pp) = (b w)^T x
+  float* out = states + ((static_cast<long long>(b) * H + h) * C + c) * N * P;
+  const int g = lane / 4, t = lane % 4;
+  const int units_n = pl.pp / 16;
+  for (int u = warp; u < pl.np / 16 * units_n; u += kWarps) {
+    const int m0 = u / units_n * 16, n0 = u % units_n * 16;
+    float acc[2][4] = {};
+    unit_product<T, false, false, 1>(acc, bw, ldw, xs, ldx, m0, n0, pl.qp,
+                                     lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = m0 + g + (e >= 2 ? 8 : 0);
+        const int p = n0 + 8 * nt + 2 * t + (e & 1);
+        if (n < N && p < P) out[n * P + p] = acc[nt][e];
       }
     }
-    __syncthreads();
-    const float cum_last = cum[Q - 1];
+  }
+}
 
-    // att[i][j] = (c_i . b_j) exp(cum_i - cum_j) dt_j for j <= i, else 0
-    for (int idx = tid; idx < Q * Q; idx += kThreads) {
-      const int i = idx / Q, j = idx % Q;
-      float val = 0.f;
-      if (j <= i) {
-        float dot = 0.f;
-        for (int n = 0; n < N; ++n) dot = fmaf(cs[i * NS + n], bs[j * NS + n], dot);
-        val = dot * expf(cum[i] - cum[j]) * dts[j];
+// ---- stage 2: pass the state along the chunks ---------------------------------
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass_kernel(float* __restrict__ states,
+                      const float* __restrict__ cum_last,
+                      float* __restrict__ state_out, int H, int C, int NP) {
+  const int i = blockIdx.x * kPassThreads + threadIdx.x;
+  if (i >= NP) return;
+  const long long bh = static_cast<long long>(blockIdx.z) * H + blockIdx.y;
+  float* s = states + bh * C * NP + i;
+  const float* cl = cum_last + bh * C;
+  float run = 0.f;
+  // kPassBatch chunks' loads in flight before their stores (a store to
+  // one slot could alias the next load, so the compiler would not reorder)
+  for (int c0 = 0; c0 < C; c0 += kPassBatch) {
+    float local[kPassBatch], decay[kPassBatch];
+#pragma unroll
+    for (int u = 0; u < kPassBatch; ++u) {
+      const bool in = c0 + u < C;
+      local[u] = in ? s[static_cast<long long>(c0 + u) * NP] : 0.f;
+      decay[u] = in ? expf(cl[c0 + u]) : 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPassBatch; ++u) {
+      if (c0 + u < C) {
+        s[static_cast<long long>(c0 + u) * NP] = run;  // state entering it
+        run = run * decay[u] + local[u];
       }
-      att[i * AS + j] = val;
     }
-    for (int j = tid; j < Q; j += kThreads) wts[j] = expf(cum_last - cum[j]) * dts[j];
-    __syncthreads();
+  }
+  state_out[bh * NP + i] = run;
+}
 
-    // y_i = att_i . x  +  exp(cum_i) c_i . S_prev
-    for (int idx = tid; idx < rows * P; idx += kThreads) {
-      const int i = idx / P, p = idx % P;
-      float intra = 0.f;
-      for (int j = 0; j <= i; ++j) intra = fmaf(att[i * AS + j], xs[j * P + p], intra);
-      float inter = 0.f;
-      for (int n = 0; n < N; ++n) inter = fmaf(cs[i * NS + n], st[n * P + p], inter);
-      yb[(l0 + i) * sy.l + p] = intra + expf(cum[i]) * inter;
+// ---- stage 3: each chunk's output ----------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ a, const T* __restrict__ bmat,
+                  const T* __restrict__ cmat,
+                  const float* __restrict__ states, float* __restrict__ y,
+                  int H, int L, int P, int N, int Q, int C, Strides sx,
+                  Strides sdt, Strides sb, Strides sc, Strides sy) {
+  const Plan pl(Q, N, P);
+  const int ldc = pl.np + 8, ldb = pl.np + 8, lds = pl.pp + 4;
+  const int ldt = pl.qp + 8, ldx = pl.pp + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* cs = smem;                 // Qp x ldc: c, read n-contiguous (k)
+  float* bs = cs + pl.qp * ldc;     // Qp x ldb: b (k-contiguous); then
+  float* ss = bs;                   //   Np x lds: S entering the chunk
+  float* att = bs + pl.bs_floats(); // Qp x ldt
+  float* xs = att + pl.qp * ldt;    // Qp x ldx
+  float* dts = xs + pl.qp * ldx;    // Qp
+  float* cum = dts + pl.qp;         // Qp
+  float* ecum = cum + pl.qp;        // Qp: exp(cum)
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int l0 = c * Q;
+  const int rows = min(Q, L - l0);
+  const T* xb = x + b * sx.b + h * sx.h + l0 * sx.l;
+  const T* bb = bmat + b * sb.b + h * sb.h + l0 * sb.l;
+  const T* cb = cmat + b * sc.b + h * sc.h + l0 * sc.l;
+  const float* dtb = dt + b * sdt.b + h * sdt.h + l0 * sdt.l;
+
+  for (int j = tid; j < pl.qp; j += kThreads) {
+    dts[j] = j < rows ? dtb[j * sdt.l] : 0.f;
+  }
+  stage_rows(cs, ldc, cb, sc.l, rows, N, pl.qp, pl.np, tid);
+  stage_rows(bs, ldb, bb, sb.l, rows, N, pl.qp, pl.np, tid);
+  stage_rows(xs, ldx, xb, sx.l, rows, P, pl.qp, pl.pp, tid);
+  __syncthreads();
+  if (warp == 0) chunk_cumsum(dts, a[h], cum, nullptr, pl.qp, lane);
+  __syncthreads();
+  for (int j = tid; j < pl.qp; j += kThreads) ecum[j] = expf(cum[j]);
+
+  // scores c b^T: at most 16 units (Qp <= 64), at most 2 a warp, held in
+  // registers until every warp is done with b
+  const int units_q = pl.qp / 16;
+  float sc_acc[2][2][4] = {};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = warp + r * kWarps;
+    if (u < units_q * units_q) {
+      unit_product<T, true, true, 0>(sc_acc[r], cs, ldc, bs, ldb,
+                                     u / units_q * 16, u % units_q * 16,
+                                     pl.np, lane);
     }
-    __syncthreads();  // every y read S_prev
+  }
+  __syncthreads();  // b is free: S takes its place
 
-    // S = S_prev exp(cum_last) + sum_j (b_j w_j) x_j^T
-    const float decay = expf(cum_last);
-    for (int idx = tid; idx < N * P; idx += kThreads) {
-      const int n = idx / P, p = idx % P;
-      float upd = 0.f;
-      for (int j = 0; j < rows; ++j) upd = fmaf(bs[j * NS + n] * wts[j], xs[j * P + p], upd);
-      st[idx] = st[idx] * decay + upd;
+  stage_rows(ss, lds,
+             states + ((static_cast<long long>(b) * H + h) * C + c) * N * P,
+             P, N, P, pl.np, pl.pp, tid);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = warp + r * kWarps;
+    if (u < units_q * units_q) {
+      const int m0 = u / units_q * 16, n0 = u % units_q * 16;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = m0 + g + (e >= 2 ? 8 : 0);
+          const int j = n0 + 8 * nt + 2 * t + (e & 1);
+          att[i * ldt + j] =
+              j <= i ? sc_acc[r][nt][e] * expf(cum[i] - cum[j]) * dts[j]
+                     : 0.f;
+        }
+      }
     }
   }
   __syncthreads();
-  float* sb_out = state_out + (static_cast<long long>(b) * H + h) * N * P;
-  for (int i = tid; i < N * P; i += kThreads) sb_out[i] = st[i];
+
+  // y = att x + exp(cum_i) c S_prev
+  const int units_p = pl.pp / 16;
+  float* yb = y + b * sy.b + h * sy.h + l0 * sy.l;
+  for (int u = warp; u < units_q * units_p; u += kWarps) {
+    const int m0 = u / units_p * 16, n0 = u % units_p * 16;
+    float intra[2][4] = {}, inter[2][4] = {};
+    unit_product<T, true, false, 1>(intra, att, ldt, xs, ldx, m0, n0, pl.qp,
+                                    lane);
+    unit_product<T, true, false, 2>(inter, cs, ldc, ss, lds, m0, n0, pl.np,
+                                    lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = m0 + g + (e >= 2 ? 8 : 0);
+        const int p = n0 + 8 * nt + 2 * t + (e & 1);
+        if (i < rows && p < P) {
+          yb[i * sy.l + p] = intra[nt][e] + ecum[i] * inter[nt][e];
+        }
+      }
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* x, const float* dt, const float* a, const void* bmat,
-           const void* cmat, float* y, float* state, int B, int H, int L,
-           int P, int N, int Q, Strides sx, Strides sdt, Strides sb,
-           Strides sc, Strides sy, cudaStream_t stream) {
-  const int smem = smem_floats(P, N) * static_cast<int>(sizeof(float));
+           const void* cmat, float* y, float* state, float* states,
+           float* cum_last, int B, int H, int L, int P, int N, int Q,
+           Strides sx, Strides sdt, Strides sb, Strides sc, Strides sy,
+           cudaStream_t stream) {
+  const Plan pl(Q, N, P);
+  const int C = (L + Q - 1) / Q;
+  const int smem1 = pl.state_floats() * static_cast<int>(sizeof(float));
+  const int smem3 = pl.output_floats() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_chunk_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(bmat),
-      static_cast<const T*>(cmat), y, state, H, L, P, N, Q, sx, sdt, sb, sc,
-      sy);
+  err = cudaFuncSetAttribute(ssd_output_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(bmat);
+  const dim3 grid(C, H, B);
+  ssd_chunk_state_kernel<T><<<grid, kThreads, smem1, stream>>>(
+      xt, dt, a, bt, states, cum_last, H, L, P, N, Q, C, sx, sdt, sb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid2((N * P + kPassThreads - 1) / kPassThreads, H, B);
+  ssd_state_pass_kernel<<<grid2, kPassThreads, 0, stream>>>(
+      states, cum_last, state, H, C, N * P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_output_kernel<T><<<grid, kThreads, smem3, stream>>>(
+      xt, dt, a, bt, static_cast<const T*>(cmat), states, y, H, L, P, N, Q,
+      C, sx, sdt, sb, sc, sy);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -184,29 +502,32 @@ int launch(const void* x, const float* dt, const float* a, const void* bmat,
 // x (B, H, L, P), bmat and cmat (B, H, L, N) of one type (dtype 0 = fp32,
 // 1 = bf16); dt (B, H, L) and a (H,) fp32; y (B, H, L, P) fp32, all by
 // (batch, head, seq) element strides with unit innermost stride; state
-// (B, H, N, P) fp32 contiguous.  1 <= chunk <= 64.  Returns a cudaError_t.
+// (B, H, N, P) fp32 contiguous.  Scratch, contiguous fp32: states (B, H,
+// C, N, P) and cum_last (B, H, C), C = ceil(L / chunk).  1 <= chunk <= 64.
+// Three kernels on the stream.  Returns a cudaError_t.
 extern "C" int repro_ssd(const void* x, const float* dt, const float* a,
                          const void* bmat, const void* cmat, float* y,
-                         float* state, int dtype, int B, int H, int L, int P,
-                         int N, int chunk, long long x_sb, long long x_sh,
+                         float* state, float* states, float* cum_last,
+                         int dtype, int B, int H, int L, int P, int N,
+                         int chunk, long long x_sb, long long x_sh,
                          long long x_sl, long long dt_sb, long long dt_sh,
                          long long dt_sl, long long b_sb, long long b_sh,
                          long long b_sl, long long c_sb, long long c_sh,
                          long long c_sl, long long y_sb, long long y_sh,
                          long long y_sl, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || P <= 0 || N <= 0 || chunk <= 0 ||
-      chunk > kMaxQ || B > 65535 ||
-      smem_floats(P, N) * sizeof(float) > 227 * 1024) {
+      chunk > kMaxQ || B > 65535 || H > 65535 ||
+      Plan(chunk, N, P).output_floats() * sizeof(float) > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides sx{x_sb, x_sh, x_sl}, sdt{dt_sb, dt_sh, dt_sl},
       sb{b_sb, b_sh, b_sl}, sc{c_sb, c_sh, c_sl}, sy{y_sb, y_sh, y_sl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(x, dt, a, bmat, cmat, y, state, B, H, L, P, N, chunk, sx, sdt, sb, sc, sy, s);
+    return launch<float>(x, dt, a, bmat, cmat, y, state, states, cum_last, B, H, L, P, N, chunk, sx, sdt, sb, sc, sy, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, dt, a, bmat, cmat, y, state, B, H, L, P, N, chunk, sx, sdt, sb, sc, sy, s);
+    return launch<bf16>(x, dt, a, bmat, cmat, y, state, states, cum_last, B, H, L, P, N, chunk, sx, sdt, sb, sc, sy, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,10 @@ them, it computes :func:`ssd_plain`, a port of ``ssd_ref.py``.  The
 kernel reads its inputs through strides (unit innermost stride): b and c
 shared by every head may arrive as an ``expand``-ed view with head stride
 0.  Its y is a (B, H, L, P) view of (B, L, H, P) memory, the layout the
-model reshapes to (B, L, H * P) without a copy.
+model reshapes to (B, L, H * P) without a copy.  One call runs three CUDA
+kernels (chunk states, state passing, output) and counts as one launch;
+it allocates their scratch, (B, H, C, N, P) and (B, H, C) fp32 with C =
+ceil(L / chunk).
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the largest chunk the kernel's shared-memory plan holds (a fp32 chunk
-#: of 128 at N = 128, P = 64 would need 256 KB, over the 227 KB limit)
+#: the largest chunk the kernel takes (its cumulative sum is one warp
+#: scan, two steps a lane)
 MAX_CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -138,6 +141,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty((b, l, h, p), dtype=torch.float32,
                     device=x.device).permute(0, 2, 1, 3)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    n_chunks = -(-l // chunk)
+    states = torch.empty((b, h, n_chunks, n, p), dtype=torch.float32,
+                         device=x.device)
+    cum_last = torch.empty((b, h, n_chunks), dtype=torch.float32,
+                           device=x.device)
     strides = []
     for t in (x, dt, bmat, cmat, y):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
@@ -145,7 +153,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         build.launch("ssd", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                      bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
-                     state.data_ptr(), _DTYPES[x.dtype], b, h, l, p, n,
+                     state.data_ptr(), states.data_ptr(),
+                     cum_last.data_ptr(), _DTYPES[x.dtype], b, h, l, p, n,
                      chunk, *strides, stream)
     LAUNCHES["ssd"] += 1
     return y, state

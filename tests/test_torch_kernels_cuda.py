@@ -137,6 +137,11 @@ def test_masked_sweep_launches_the_row_kernel_once(sm90):
 # b, h, kv, sq, skv, d, causal, window: GQA rep 1, 2 and 4, both head
 # dims of the zoo, Sq and Skv off the 64-row tiles, a window that starts
 # inside a tile, and a window wider than the sequence
+# b, h, kv, sq, skv, d, causal, window: the bf16 kernel packs the rep =
+# h / kv query heads of a kv head into 128-row CTAs of 16-row warps over
+# 64-key tiles, so lengths around 16 and 64 (partial fragments and tiles),
+# windows that start inside a key tile, non-causal Sq != Skv, rep 1-8 and
+# every head dim are the risky cases
 FLASH_CASES = [
     (1, 16, 8, 300, 300, 128, True, 0),
     (2, 4, 4, 130, 130, 64, True, 0),
@@ -144,6 +149,15 @@ FLASH_CASES = [
     (1, 4, 1, 777, 777, 128, True, 256),
     (2, 4, 2, 70, 150, 64, False, 0),
     (1, 4, 2, 100, 100, 128, False, 33),
+    (1, 2, 2, 1, 1, 64, True, 0),
+    (1, 4, 2, 15, 15, 32, True, 0),
+    (1, 2, 1, 16, 16, 128, True, 0),
+    (1, 8, 1, 17, 17, 64, True, 0),
+    (1, 4, 1, 64, 64, 16, True, 0),
+    (1, 2, 1, 65, 65, 32, True, 0),
+    (1, 4, 2, 300, 300, 128, True, 100),
+    (2, 8, 1, 90, 333, 64, False, 0),
+    (1, 4, 4, 333, 90, 16, False, 0),
 ]
 
 
@@ -177,34 +191,77 @@ def test_flash_attention_kernel_reads_model_layout_views(sm90):
     _close(got, want)
 
 
-# b, h, l, p, n, chunk: L off the chunk, both state sizes, a short chunk
+@pytest.mark.cuda
+def test_flash_attention_kernel_takes_unaligned_bf16_views(sm90):
+    """A bf16 view off 16-byte rows is cloned, not refused."""
+    gen = torch.Generator(device=sm90).manual_seed(5)
+    base = torch.randn((1, 4, 101, 65), generator=gen,
+                       device=sm90).to(torch.bfloat16)
+    q = base[..., 1:]                 # data pointer 2 bytes off
+    k = v = base[:, :2, :, :64]       # row stride 65
+    got = fa.flash_attention(q, k, v, causal=True, window=0)
+    _close(got, fa.flash_attention_plain(q, k, v, True, 0), rel=8e-3)
+
+
+# b, h, l, p, n, chunk, shared: L off the chunk, both state sizes, a
+# short chunk; L = 1, L under one chunk, L a whole number of chunks, the
+# path's L 4096 at H 24; b and c one group shared by the heads (head
+# stride 0) or one per head; B = 2
 SSD_CASES = [
-    (1, 3, 200, 64, 128, 64),
-    (2, 2, 130, 64, 64, 64),
-    (1, 2, 77, 64, 128, 16),
+    (1, 3, 200, 64, 128, 64, True),
+    (2, 2, 130, 64, 64, 64, True),
+    (1, 2, 77, 64, 128, 16, True),
+    (1, 2, 1, 64, 128, 64, True),
+    (1, 2, 40, 64, 128, 64, True),
+    (1, 2, 128, 64, 128, 64, False),
+    (2, 3, 96, 64, 64, 16, False),
+    (1, 24, 4096, 64, 128, 64, True),
 ]
+
+
+def _ssd_inputs(case, dtype, device):
+    b, h, l, p, n, chunk, shared = case
+    gen = torch.Generator(device=device).manual_seed(sum(case[:6]))
+    x = torch.randn((b, h, l, p), generator=gen, device=device).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((b, h, l), generator=gen, device=device)
+    a = -(0.5 + 3.5 * torch.rand((h,), generator=gen, device=device))
+    # one group shared by every head: an expanded view, head stride 0
+    bm, cm = (torch.randn((b, 1 if shared else h, l, n), generator=gen,
+                          device=device).to(dtype).expand(b, h, l, n)
+              for _ in range(2))
+    return x, dt, a, bm, cm
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_kernel_matches_plain(sm90, case, dtype):
-    b, h, l, p, n, chunk = case
-    gen = torch.Generator(device=sm90).manual_seed(sum(case))
-    x = torch.randn((b, h, l, p), generator=gen, device=sm90).to(dtype)
-    dt = 0.01 + 0.19 * torch.rand((b, h, l), generator=gen, device=sm90)
-    a = -(0.5 + 3.5 * torch.rand((h,), generator=gen, device=sm90))
-    # one group shared by every head: an expanded view, head stride 0
-    bm = torch.randn((b, 1, l, n), generator=gen,
-                     device=sm90).to(dtype).expand(b, h, l, n)
-    cm = torch.randn((b, 1, l, n), generator=gen,
-                     device=sm90).to(dtype).expand(b, h, l, n)
+    x, dt, a, bm, cm = _ssd_inputs(case, dtype, sm90)
     before = ssd_k.LAUNCHES["ssd"]
-    y, state = ssd_k.ssd(x, dt, a, bm, cm, chunk=chunk)
+    y, state = ssd_k.ssd(x, dt, a, bm, cm, chunk=case[5])
     assert ssd_k.LAUNCHES["ssd"] == before + 1
     want_y, want_state = ssd_k.ssd_plain(x, dt, a, bm, cm)
     _close(y, want_y)
     _close(state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_final_state_on_a_chunk_boundary(sm90, chunk):
+    """A prompt that ends exactly on a chunk boundary: the state the
+    decode continues from is the last chunk's, passed on once."""
+    case = (1, 4, 4 * chunk + 1, 64, 128, chunk, True)
+    x, dt, a, bm, cm = _ssd_inputs(case, torch.bfloat16, sm90)
+    first = [t[:, :, :-1] for t in (x, dt, bm, cm)]
+    _, state = ssd_k.ssd(first[0], first[1], a, first[2], first[3],
+                         chunk=chunk)
+    _close(state, ssd_k.ssd_plain(first[0], first[1], a, first[2],
+                                  first[3])[1])
+    # the decode's next step from that state is the plain scan's last
+    dt1 = dt[:, :, -1, None, None]
+    stepped = state * torch.exp(dt1 * a[None, :, None, None]) + \
+        (dt1 * bm[:, :, -1, :, None].float()) * x[:, :, -1, None, :].float()
+    _close(stepped, ssd_k.ssd_plain(x, dt, a, bm, cm)[1])
 
 
 @pytest.mark.cuda
