@@ -48,8 +48,10 @@
 // bf16 terms, hi = bf16(v) and lo = bf16(v - hi), two MMAs into one fp32
 // sum: about 2^-16 of relative error per term instead of 2^-8, which keeps
 // the fp32 gate.  fp32 inputs run the same kernels with the products on
-// FFMA in the same register layout.  Operands are staged in shared memory
-// as fp32, rows padded so fragment loads hit 32 banks.  Rows past L are
+// FFMA in the same register layout.  Inputs are staged in shared memory
+// in their own type by cp.async, all of a CTA's loads in flight at once
+// (the carried state too), rows padded so fragment loads hit 32 banks;
+// b w is scaled as it is read.  Rows past L are
 // staged as zeros with dt = 0 (they add nothing and decay nothing, as the
 // TPU kernel's zero padding), so the host pads nothing; N, P and the chunk
 // are padded to 16 in shared memory.  Inputs are addressed by (batch,
@@ -77,21 +79,52 @@ struct Strides {
   long long b, h, l;  // elements; the innermost (P or N) axis has stride 1
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const bf16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return *reinterpret_cast<const unsigned short*>(&v);
 }
 
-// Copies rows [0, Rp) x columns [0, Wp) of an input block (rows x W valid,
-// row stride ld, unit column stride) into shared fp32 at row stride lds,
-// zeros outside the valid block.  16-byte vectors where the rows allow
-// them (aligned start, ld and W multiples of a vector), each thread issuing
-// kBatch loads before it stores any, so a CTA waits about one memory
-// latency per kBatch vectors a thread; else one element at a time.
-constexpr int kBatch = 8;
+__host__ __device__ __forceinline__ int pad16(int n) {
+  return (n + 15) / 16 * 16;
+}
 
+// Shared-memory plans, in bytes.  Inputs are staged in their own type T
+// (bf16 x, b, c are exact; fp32 stays fp32), the fp32 operands (the
+// carried state, att) in fp32.  Row strides keep the fragment loads of 8
+// rows on distinct banks: +8 elements where k is contiguous (pairs), and
+// where the row index is, +8 in bf16 and +4 in fp32.
 template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int lds,
+struct Plan {
+  static constexpr int kRc = sizeof(T) == 2 ? 8 : 4;  // r-contiguous pad
+  int qp, np, pp;
+  __host__ __device__ Plan(int Q, int N, int P)
+      : qp(pad16(Q)), np(pad16(N)), pp(pad16(P)) {}
+  // stage 1: b (Qp x Np, n-contiguous), x (Qp x Pp, p-contiguous)
+  __host__ __device__ int b1_ld() const { return np + kRc; }
+  __host__ __device__ int x_ld() const { return pp + kRc; }
+  __host__ __device__ int state_bytes() const {
+    return (qp * b1_ld() + qp * x_ld()) * static_cast<int>(sizeof(T)) +
+           3 * qp * 4;
+  }
+  // stage 3: c and b (Qp x Np, n = k contiguous), x, S (Np x Pp fp32,
+  // p-contiguous), att (Qp x Qp fp32, k-contiguous)
+  __host__ __device__ int cb_ld() const { return np + 8; }
+  __host__ __device__ int s_ld() const { return pp + 4; }
+  __host__ __device__ int att_ld() const { return qp + 8; }
+  __host__ __device__ int output_bytes() const {
+    return (2 * qp * cb_ld() + qp * x_ld()) * static_cast<int>(sizeof(T)) +
+           (np * s_ld() + qp * att_ld() + 3 * qp) * 4;
+  }
+};
+
+// Copies rows [0, Rp) x columns [0, Wp) of an input block (rows x W valid,
+// row stride ld, unit column stride) into shared memory of the same type
+// at row stride lds, zeros outside the valid block: by cp.async in 16-byte
+// pieces where the rows allow it (aligned start, ld and W whole pieces),
+// to be waited for with cp_async_wait; else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int lds,
                                            const T* __restrict__ src,
                                            long long ld, int rows, int W,
                                            int Rp, int Wp, int tid) {
@@ -99,129 +132,104 @@ __device__ __forceinline__ void stage_rows(float* dst, int lds,
   if (reinterpret_cast<unsigned long long>(src) % 16 == 0 && ld % V == 0 &&
       W % V == 0) {
     const int per_row = Wp / V;
-    const int total = Rp * per_row;
-    for (int base = 0; base < total; base += kThreads * kBatch) {
-      uint4 buf[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        const int r = i / per_row, c = i % per_row * V;
-        buf[u] = i < total && r < rows && c < W
-                     ? *reinterpret_cast<const uint4*>(src + r * ld + c)
-                     : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < total) {
-          const T* e = reinterpret_cast<const T*>(&buf[u]);
-          float4* d = reinterpret_cast<float4*>(dst + i / per_row * lds +
-                                                i % per_row * V);
-#pragma unroll
-          for (int q = 0; q < V / 4; ++q) {
-            d[q] = make_float4(load_f(e + 4 * q), load_f(e + 4 * q + 1),
-                               load_f(e + 4 * q + 2), load_f(e + 4 * q + 3));
-          }
-        }
-      }
+    for (int i = tid; i < Rp * per_row; i += kThreads) {
+      const int r = i / per_row, c = i % per_row * V;
+      const bool in = r < rows && c < W;
+      warp_mma::cp_async_16(dst + r * lds + c, in ? src + r * ld + c : src,
+                            in ? 16 : 0);
     }
   } else {
     for (int i = tid; i < Rp * Wp; i += kThreads) {
       const int r = i / Wp, c = i % Wp;
-      dst[r * lds + c] = r < rows && c < W ? load_f(src + r * ld + c) : 0.f;
+      dst[r * lds + c] = r < rows && c < W ? src[r * ld + c] : T(0.f);
     }
   }
 }
 
-__host__ __device__ __forceinline__ int pad16(int n) {
-  return (n + 15) / 16 * 16;
-}
-
-// shared-memory plans (floats); row strides are chosen so that fragment
-// loads of 8 rows hit distinct banks: +8 where k is contiguous (pairs),
-// +4 where the row index is
-struct Plan {
-  int qp, np, pp;
-  __host__ __device__ Plan(int Q, int N, int P)
-      : qp(pad16(Q)), np(pad16(N)), pp(pad16(P)) {}
-  // stage 1: b w (Qp x Np + 4), x (Qp x Pp + 4), dt, cum, w
-  __host__ __device__ int state_floats() const {
-    return qp * (np + 4) + qp * (pp + 4) + 3 * qp;
+// Operands of a unit product, element (r, k) with r the row of A or the
+// column of B: a matrix in shared memory stored k-contiguous (KC: at
+// p[r * ld + k]) or r-contiguous (at p[k * ld + r]).  f2 gives the pair
+// (r, k), (r, k + 1) as floats; packed gives it as the bf16 pair of an
+// MMA fragment register (bf16 matrices only).
+template <typename E, bool KC>
+struct Mat {
+  const E* p;
+  int ld;
+  __device__ __forceinline__ float2 f2(int r, int k) const {
+    if constexpr (KC && std::is_same<E, float>::value) {
+      return *reinterpret_cast<const float2*>(p + r * ld + k);
+    }
+    if (KC) return make_float2(to_f(p[r * ld + k]), to_f(p[r * ld + k + 1]));
+    return make_float2(to_f(p[k * ld + r]), to_f(p[(k + 1) * ld + r]));
   }
-  // stage 3: c (Qp x Np + 8); b (Qp x Np + 8), later S (Np x Pp + 4);
-  // att (Qp x Qp + 8); x (Qp x Pp + 4); dt, cum, exp(cum)
-  __host__ __device__ int bs_floats() const {
-    const int b = qp * (np + 8), s = np * (pp + 4);
-    return b > s ? b : s;
-  }
-  __host__ __device__ int output_floats() const {
-    return qp * (np + 8) + bs_floats() + qp * (qp + 8) + qp * (pp + 4) +
-           3 * qp;
+  __device__ __forceinline__ uint32_t packed(int r, int k) const {
+    if (KC) return *reinterpret_cast<const uint32_t*>(p + r * ld + k);
+    return bits(p[k * ld + r]) | bits(p[(k + 1) * ld + r]) << 16;
   }
 };
 
-// (v(r, k), v(r, k + 1)) of an fp32 operand in shared memory, stored
-// k-contiguous (KC: v(r, k) at p[r * ld + k]) or r-contiguous (at
-// p[k * ld + r])
-template <bool KC>
-__device__ __forceinline__ float2 pair_at(const float* p, int ld, int r,
-                                          int k) {
-  if (KC) return *reinterpret_cast<const float2*>(p + r * ld + k);
-  return make_float2(p[k * ld + r], p[(k + 1) * ld + r]);
-}
+// (b w)^T of stage 1: element (n, j) = b[j][n] w_j, scaled as it is read
+template <typename E>
+struct ScaledRows {
+  const E* p;
+  int ld;
+  const float* w;
+  __device__ __forceinline__ float2 f2(int r, int k) const {
+    return make_float2(to_f(p[k * ld + r]) * w[k],
+                       to_f(p[(k + 1) * ld + r]) * w[k + 1]);
+  }
+};
 
 // One warp's 16 x 16 output unit: acc[nt] (this lane's C fragment of
 // n-tile nt, warp_mma.cuh) += sum_k A(m0 + row, k) B(k, n0 + 8 nt + col),
-// over k < K (a multiple of 16).  A(m, k) is pair_at<AKC>(A, lda, m, k),
-// B(k, n) is pair_at<BKC>(B, ldb, n, k).  SPLIT names the fp32 operand
-// that bf16 takes as two terms (1: A, 2: B, 0: neither, both exact).
-template <typename T, bool AKC, bool BKC, int SPLIT>
-__device__ __forceinline__ void unit_product(float (&acc)[2][4],
-                                             const float* A, int lda,
-                                             const float* B, int ldb, int m0,
-                                             int n0, int K, int lane) {
+// over k < K (a multiple of 16).  SPLIT names the fp32 operand that bf16
+// takes as two terms (1: A, 2: B); the other operand is a bf16 input,
+// exact, and goes in as it is (both when SPLIT is 0).
+template <typename T, int SPLIT, typename OpA, typename OpB>
+__device__ __forceinline__ void unit_product(float (&acc)[2][4], OpA A,
+                                             OpB B, int m0, int n0, int K,
+                                             int lane) {
   using namespace warp_mma;
   const int g = lane / 4, t = lane % 4;
   if constexpr (std::is_same<T, bf16>::value) {
     for (int k0 = 0; k0 < K; k0 += 16) {
-      const float2 a[4] = {pair_at<AKC>(A, lda, m0 + g, k0 + 2 * t),
-                           pair_at<AKC>(A, lda, m0 + g + 8, k0 + 2 * t),
-                           pair_at<AKC>(A, lda, m0 + g, k0 + 2 * t + 8),
-                           pair_at<AKC>(A, lda, m0 + g + 8, k0 + 2 * t + 8)};
       uint32_t ah[4], al[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (SPLIT == 1) split_bf16(a[i].x, a[i].y, ah[i], al[i]);
-        else ah[i] = pack_bf16(a[i].x, a[i].y);
+        const int r = m0 + g + (i & 1) * 8, k = k0 + 2 * t + (i / 2) * 8;
+        if constexpr (SPLIT == 1) {
+          const float2 v = A.f2(r, k);
+          split_bf16(v.x, v.y, ah[i], al[i]);
+        } else {
+          ah[i] = A.packed(r, k);
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int n = n0 + 8 * nt + g;
-        const float2 b0 = pair_at<BKC>(B, ldb, n, k0 + 2 * t);
-        const float2 b1 = pair_at<BKC>(B, ldb, n, k0 + 2 * t + 8);
-        if (SPLIT == 2) {
+        if constexpr (SPLIT == 2) {
+          const float2 b0 = B.f2(n, k0 + 2 * t), b1 = B.f2(n, k0 + 2 * t + 8);
           uint32_t h0, l0, h1, l1;
           split_bf16(b0.x, b0.y, h0, l0);
           split_bf16(b1.x, b1.y, h1, l1);
           mma_bf16(acc[nt], ah, h0, h1);
           mma_bf16(acc[nt], ah, l0, l1);
         } else {
-          const uint32_t h0 = pack_bf16(b0.x, b0.y);
-          const uint32_t h1 = pack_bf16(b1.x, b1.y);
+          const uint32_t h0 = B.packed(n, k0 + 2 * t);
+          const uint32_t h1 = B.packed(n, k0 + 2 * t + 8);
           mma_bf16(acc[nt], ah, h0, h1);
-          if (SPLIT == 1) mma_bf16(acc[nt], al, h0, h1);
+          if constexpr (SPLIT == 1) mma_bf16(acc[nt], al, h0, h1);
         }
       }
     }
   } else {
     for (int k = 0; k < K; k += 2) {
-      const float2 a0 = pair_at<AKC>(A, lda, m0 + g, k);
-      const float2 a1 = pair_at<AKC>(A, lda, m0 + g + 8, k);
+      const float2 a0 = A.f2(m0 + g, k), a1 = A.f2(m0 + g + 8, k);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
-          const float2 bb = pair_at<BKC>(B, ldb, n0 + 8 * nt + 2 * t + cc, k);
+          const float2 bb = B.f2(n0 + 8 * nt + 2 * t + cc, k);
           acc[nt][cc] = fmaf(a0.y, bb.y, fmaf(a0.x, bb.x, acc[nt][cc]));
           acc[nt][2 + cc] =
               fmaf(a1.y, bb.y, fmaf(a1.x, bb.x, acc[nt][2 + cc]));
@@ -269,37 +277,33 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        float* __restrict__ cum_last, int H, int L, int P,
                        int N, int Q, int C, Strides sx, Strides sdt,
                        Strides sb) {
-  const Plan pl(Q, N, P);
-  const int ldw = pl.np + 4, ldx = pl.pp + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* bw = smem;                // Qp x ldw: b_j w_j, read n-contiguous
-  float* xs = bw + pl.qp * ldw;    // Qp x ldx: x, read p-contiguous
-  float* dts = xs + pl.qp * ldx;   // Qp
-  float* cum = dts + pl.qp;        // Qp
-  float* w = cum + pl.qp;          // Qp
+  const Plan<T> pl(Q, N, P);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* bs = reinterpret_cast<T*>(smem_raw);          // Qp x b1_ld: b
+  T* xs = bs + pl.qp * pl.b1_ld();                  // Qp x x_ld: x
+  float* dts = reinterpret_cast<float*>(xs + pl.qp * pl.x_ld());  // Qp
+  float* cum = dts + pl.qp;                         // Qp
+  float* w = cum + pl.qp;                           // Qp
 
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int l0 = c * Q;
   const int rows = min(Q, L - l0);
-  const T* xb = x + b * sx.b + h * sx.h + l0 * sx.l;
-  const T* bb = bmat + b * sb.b + h * sb.h + l0 * sb.l;
   const float* dtb = dt + b * sdt.b + h * sdt.h + l0 * sdt.l;
 
+  stage_rows(bs, pl.b1_ld(), bmat + b * sb.b + h * sb.h + l0 * sb.l, sb.l,
+             rows, N, pl.qp, pl.np, tid);
+  stage_rows(xs, pl.x_ld(), x + b * sx.b + h * sx.h + l0 * sx.l, sx.l, rows,
+             P, pl.qp, pl.pp, tid);
+  warp_mma::cp_async_commit();
   for (int j = tid; j < pl.qp; j += kThreads) {
     dts[j] = j < rows ? dtb[j * sdt.l] : 0.f;
   }
-  stage_rows(bw, ldw, bb, sb.l, rows, N, pl.qp, pl.np, tid);
-  stage_rows(xs, ldx, xb, sx.l, rows, P, pl.qp, pl.pp, tid);
+  warp_mma::cp_async_wait<0>();
   __syncthreads();
   if (warp == 0) {
     const float last = chunk_cumsum(dts, a[h], cum, w, pl.qp, lane);
     if (lane == 0) cum_last[(static_cast<long long>(b) * H + h) * C + c] = last;
-  }
-  __syncthreads();
-  for (int i = tid; i < pl.qp * pl.np; i += kThreads) {
-    const int j = i / pl.np, n = i % pl.np;
-    bw[j * ldw + n] *= w[j];
   }
   __syncthreads();
 
@@ -310,8 +314,8 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int u = warp; u < pl.np / 16 * units_n; u += kWarps) {
     const int m0 = u / units_n * 16, n0 = u % units_n * 16;
     float acc[2][4] = {};
-    unit_product<T, false, false, 1>(acc, bw, ldw, xs, ldx, m0, n0, pl.qp,
-                                     lane);
+    unit_product<T, 1>(acc, ScaledRows<T>{bs, pl.b1_ld(), w},
+                       Mat<T, false>{xs, pl.x_ld()}, m0, n0, pl.qp, lane);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -365,73 +369,59 @@ ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ states, float* __restrict__ y,
                   int H, int L, int P, int N, int Q, int C, Strides sx,
                   Strides sdt, Strides sb, Strides sc, Strides sy) {
-  const Plan pl(Q, N, P);
-  const int ldc = pl.np + 8, ldb = pl.np + 8, lds = pl.pp + 4;
-  const int ldt = pl.qp + 8, ldx = pl.pp + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* cs = smem;                 // Qp x ldc: c, read n-contiguous (k)
-  float* bs = cs + pl.qp * ldc;     // Qp x ldb: b (k-contiguous); then
-  float* ss = bs;                   //   Np x lds: S entering the chunk
-  float* att = bs + pl.bs_floats(); // Qp x ldt
-  float* xs = att + pl.qp * ldt;    // Qp x ldx
-  float* dts = xs + pl.qp * ldx;    // Qp
-  float* cum = dts + pl.qp;         // Qp
-  float* ecum = cum + pl.qp;        // Qp: exp(cum)
+  const Plan<T> pl(Q, N, P);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cs = reinterpret_cast<T*>(smem_raw);  // Qp x cb_ld: c, k-contiguous
+  T* bs = cs + pl.qp * pl.cb_ld();          // Qp x cb_ld: b, k-contiguous
+  T* xs = bs + pl.qp * pl.cb_ld();          // Qp x x_ld: x, p-contiguous
+  float* ss = reinterpret_cast<float*>(xs + pl.qp * pl.x_ld());  // S
+  float* att = ss + pl.np * pl.s_ld();     // Qp x att_ld
+  float* dts = att + pl.qp * pl.att_ld();  // Qp
+  float* cum = dts + pl.qp;                // Qp
+  float* ecum = cum + pl.qp;               // Qp: exp(cum)
 
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int l0 = c * Q;
   const int rows = min(Q, L - l0);
-  const T* xb = x + b * sx.b + h * sx.h + l0 * sx.l;
-  const T* bb = bmat + b * sb.b + h * sb.h + l0 * sb.l;
-  const T* cb = cmat + b * sc.b + h * sc.h + l0 * sc.l;
   const float* dtb = dt + b * sdt.b + h * sdt.h + l0 * sdt.l;
 
+  // every load in flight at once: c, b, x and the state entering the chunk
+  stage_rows(cs, pl.cb_ld(), cmat + b * sc.b + h * sc.h + l0 * sc.l, sc.l,
+             rows, N, pl.qp, pl.np, tid);
+  stage_rows(bs, pl.cb_ld(), bmat + b * sb.b + h * sb.h + l0 * sb.l, sb.l,
+             rows, N, pl.qp, pl.np, tid);
+  stage_rows(xs, pl.x_ld(), x + b * sx.b + h * sx.h + l0 * sx.l, sx.l, rows,
+             P, pl.qp, pl.pp, tid);
+  stage_rows(ss, pl.s_ld(),
+             states + ((static_cast<long long>(b) * H + h) * C + c) * N * P,
+             P, N, P, pl.np, pl.pp, tid);
+  warp_mma::cp_async_commit();
   for (int j = tid; j < pl.qp; j += kThreads) {
     dts[j] = j < rows ? dtb[j * sdt.l] : 0.f;
   }
-  stage_rows(cs, ldc, cb, sc.l, rows, N, pl.qp, pl.np, tid);
-  stage_rows(bs, ldb, bb, sb.l, rows, N, pl.qp, pl.np, tid);
-  stage_rows(xs, ldx, xb, sx.l, rows, P, pl.qp, pl.pp, tid);
+  warp_mma::cp_async_wait<0>();
   __syncthreads();
   if (warp == 0) chunk_cumsum(dts, a[h], cum, nullptr, pl.qp, lane);
   __syncthreads();
   for (int j = tid; j < pl.qp; j += kThreads) ecum[j] = expf(cum[j]);
 
-  // scores c b^T: at most 16 units (Qp <= 64), at most 2 a warp, held in
-  // registers until every warp is done with b
+  // att = (c b^T) exp(cum_i - cum_j) dt_j for j <= i, else 0
   const int units_q = pl.qp / 16;
-  float sc_acc[2][2][4] = {};
+  for (int u = warp; u < units_q * units_q; u += kWarps) {
+    const int m0 = u / units_q * 16, n0 = u % units_q * 16;
+    float acc[2][4] = {};
+    unit_product<T, 0>(acc, Mat<T, true>{cs, pl.cb_ld()},
+                       Mat<T, true>{bs, pl.cb_ld()}, m0, n0, pl.np, lane);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int u = warp + r * kWarps;
-    if (u < units_q * units_q) {
-      unit_product<T, true, true, 0>(sc_acc[r], cs, ldc, bs, ldb,
-                                     u / units_q * 16, u % units_q * 16,
-                                     pl.np, lane);
-    }
-  }
-  __syncthreads();  // b is free: S takes its place
-
-  stage_rows(ss, lds,
-             states + ((static_cast<long long>(b) * H + h) * C + c) * N * P,
-             P, N, P, pl.np, pl.pp, tid);
+    for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int u = warp + r * kWarps;
-    if (u < units_q * units_q) {
-      const int m0 = u / units_q * 16, n0 = u % units_q * 16;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = m0 + g + (e >= 2 ? 8 : 0);
-          const int j = n0 + 8 * nt + 2 * t + (e & 1);
-          att[i * ldt + j] =
-              j <= i ? sc_acc[r][nt][e] * expf(cum[i] - cum[j]) * dts[j]
-                     : 0.f;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int i = m0 + g + (e >= 2 ? 8 : 0);
+        const int j = n0 + 8 * nt + 2 * t + (e & 1);
+        att[i * pl.att_ld() + j] =
+            j <= i ? acc[nt][e] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
       }
     }
   }
@@ -443,10 +433,11 @@ ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int u = warp; u < units_q * units_p; u += kWarps) {
     const int m0 = u / units_p * 16, n0 = u % units_p * 16;
     float intra[2][4] = {}, inter[2][4] = {};
-    unit_product<T, true, false, 1>(intra, att, ldt, xs, ldx, m0, n0, pl.qp,
-                                    lane);
-    unit_product<T, true, false, 2>(inter, cs, ldc, ss, lds, m0, n0, pl.np,
-                                    lane);
+    unit_product<T, 1>(intra, Mat<float, true>{att, pl.att_ld()},
+                       Mat<T, false>{xs, pl.x_ld()}, m0, n0, pl.qp, lane);
+    unit_product<T, 2>(inter, Mat<T, true>{cs, pl.cb_ld()},
+                       Mat<float, false>{ss, pl.s_ld()}, m0, n0, pl.np,
+                       lane);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -467,10 +458,10 @@ int launch(const void* x, const float* dt, const float* a, const void* bmat,
            float* cum_last, int B, int H, int L, int P, int N, int Q,
            Strides sx, Strides sdt, Strides sb, Strides sc, Strides sy,
            cudaStream_t stream) {
-  const Plan pl(Q, N, P);
+  const Plan<T> pl(Q, N, P);
   const int C = (L + Q - 1) / Q;
-  const int smem1 = pl.state_floats() * static_cast<int>(sizeof(float));
-  const int smem3 = pl.output_floats() * static_cast<int>(sizeof(float));
+  const int smem1 = pl.state_bytes();
+  const int smem3 = pl.output_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem1);
@@ -517,7 +508,7 @@ extern "C" int repro_ssd(const void* x, const float* dt, const float* a,
                          long long y_sl, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || P <= 0 || N <= 0 || chunk <= 0 ||
       chunk > kMaxQ || B > 65535 || H > 65535 ||
-      Plan(chunk, N, P).output_floats() * sizeof(float) > 227 * 1024) {
+      Plan<float>(chunk, N, P).output_bytes() > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides sx{x_sb, x_sh, x_sl}, sdt{dt_sb, dt_sh, dt_sl},
