@@ -426,10 +426,10 @@ TENSOR_CORE_KERNELS = ("flash_attention", "ssd")
 
 
 def sass_ops(text: str) -> dict:
-    """Counts of the tensor-core MMAs (HMMA, HGMMA), the shared-memory
-    matrix loads (LDSM) and the asynchronous copies (LDGSTS) in a SASS
+    """Counts of the tensor-core MMAs (HMMA), the shared-memory matrix
+    loads (LDSM) and the asynchronous copies (LDGSTS) in a SASS
     listing."""
-    ops = re.findall(r"\b((?:HMMA|HGMMA|LDSM|LDGSTS)\.[\w.]+)", text)
+    ops = re.findall(r"\b((?:HMMA|LDSM|LDGSTS)\.[\w.]+)", text)
     return dict(sorted(collections.Counter(ops).items()))
 
 
@@ -567,13 +567,16 @@ FLASH_CASES = [
     (2, 4, 4, 64, 64, 32, True, 0),
     (1, 4, 1, 333, 90, 16, False, 0),
 ]
-#: b, h, l, p, n, chunk, b and c shared by the heads (head stride 0)
+#: b, h, l, p, n, chunk, b and c shared by the heads (head stride 0); the
+#: last case's P, N and chunk are off the kernel's 16-padding and its rows
+#: off 16 bytes (staged element by element, not by cp.async)
 SSD_CASES = [
     (1, 24, 1000, 64, 128, 64, True),
     (2, 8, 333, 64, 64, 64, True),
     (1, 24, 4096, 64, 128, 64, True),
     (1, 2, 1, 64, 128, 64, True),
     (2, 3, 128, 64, 128, 16, False),
+    (1, 2, 50, 20, 24, 10, True),
 ]
 
 

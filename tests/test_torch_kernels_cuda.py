@@ -206,7 +206,8 @@ def test_flash_attention_kernel_takes_unaligned_bf16_views(sm90):
 # b, h, l, p, n, chunk, shared: L off the chunk, both state sizes, a
 # short chunk; L = 1, L under one chunk, L a whole number of chunks, the
 # path's L 4096 at H 24; b and c one group shared by the heads (head
-# stride 0) or one per head; B = 2
+# stride 0) or one per head; B = 2; P, N and the chunk off the kernel's
+# 16-padding with rows off 16 bytes (staged without cp.async)
 SSD_CASES = [
     (1, 3, 200, 64, 128, 64, True),
     (2, 2, 130, 64, 64, 64, True),
@@ -216,6 +217,7 @@ SSD_CASES = [
     (1, 2, 128, 64, 128, 64, False),
     (2, 3, 96, 64, 64, 16, False),
     (1, 24, 4096, 64, 128, 64, True),
+    (1, 2, 50, 20, 24, 10, True),
 ]
 
 
