@@ -61,7 +61,7 @@ and serves them through the ``fused_mlp`` kernel.
    64, vocab 50280) the same way; SSD launches = prefills x 24.
 9. The two LM kernels timed on the largest inputs their path gave them,
    beside the plain version, the bound, (flash) SDPA and, as a constant
-   from PERF.md (``earlier_ms``), the time of PR 13's kernel before the
+   from PERF.md (``earlier_ms``), the time of the first kernel, before the
    tensor-core redesign.
 10. Training, default predictor: ``default_predictor(force_retrain=True)``
     trains the four kinds (3 x 256, 30 epochs) on the card from the port's
@@ -1454,8 +1454,8 @@ def main() -> int:
         "largest inputs")
     lm_sources = {"flash_attention": ("flash_attention", 78, flash_bound),
                   "ssd": ("ssd", 72, ssd_bound)}
-    #: the first kernels' times on the same inputs (PERF.md, chip call 5 of
-    #: PR 13, H100 80GB HBM3 at 700 W), before the tensor-core redesign
+    #: the first kernels' times on the same inputs (PERF.md's kernel table,
+    #: H100 80GB HBM3 at 700 W), before the tensor-core redesign
     earlier_ms = {"flash_attention": 3.506, "ssd": 5.662}
     for kmod, kname in ((fa, "flash_attention"), (sk, "ssd")):
         args, kwargs = lm_runs[kname]["args"]
@@ -1482,7 +1482,7 @@ def main() -> int:
             f"{plain_ms:.3f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
             f"bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of "
-            f"peak; PR 13's kernel {earlier_ms[kname]:.3f} ms)")
+            f"peak; the first kernel {earlier_ms[kname]:.3f} ms)")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",

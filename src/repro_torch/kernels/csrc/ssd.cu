@@ -23,12 +23,13 @@
 // by all heads).  chip_smoke.py counts those FLOPs at the rate this kernel
 // runs them (bf16 products as two tensor-core products each, see there).
 //
-// The first kernel (PR 12) ran one CTA per (b, h) over the chunks in order:
+// The port's first kernel ran one CTA per (b, h) over the chunks in order:
 // 24 CTAs on 132 SMs for a batch-1 Mamba2-130M prefill, FFMA products with
 // one thread taking the cumulative sum: 5.662 ms at 1 x 24 x 4096 x 64,
-// N 128.  This design splits the scan at the chunk boundaries, as the
-// port's plain models/ssm.py ssd_chunked does, over grids that fill the
-// card (1,536 CTAs for stages 1 and 3 at that shape):
+// N 128, on an H100 80GB HBM3 at 700 W.  This design splits the scan at
+// the chunk boundaries, as the port's plain models/ssm.py ssd_chunked
+// does, over grids that fill the card (1,536 CTAs for stages 1 and 3 at
+// that shape):
 //   1. chunk states, grid (chunks, H, B): the chunk's cumulative decay (a
 //      warp scan), its local state sum_j exp(cum_last - cum_j) dt_j b_j
 //      x_j^T (N x P) and cum_last, into scratch the wrapper allocates
@@ -51,10 +52,10 @@
 // FFMA in the same register layout.  Inputs are staged in shared memory
 // in their own type by cp.async, all of a CTA's loads in flight at once
 // (the carried state too), rows padded so fragment loads hit 32 banks;
-// b w is scaled as it is read.  Rows past L are
-// staged as zeros with dt = 0 (they add nothing and decay nothing, as the
-// TPU kernel's zero padding), so the host pads nothing; N, P and the chunk
-// are padded to 16 in shared memory.  Inputs are addressed by (batch,
+// b w is scaled as it is read.  Rows past L are staged as zeros with
+// dt = 0 (they add nothing and decay nothing, as the TPU kernel's zero
+// padding), so the host pads nothing; N, P and the chunk are padded to 16
+// in shared memory.  Inputs are addressed by (batch,
 // head, seq) strides, so b and c shared by every head (one group) arrive
 // with a head stride of 0 and are never repeated.
 #include <type_traits>
