@@ -10,7 +10,8 @@ the result against the plain versions within the tolerances
 
 * flash attention, bf16: 64-key tiles with an online softmax in log2
   units, the finite -1e30 mask, P rounded to bf16 for P V, every sum in
-  fp32, the output rounded to bf16: within 8e-3 * max(1, max |plain|);
+  fp32, the output rounded to bf16: each output row within 8e-3 *
+  max(max |plain row|, 1e-3);
 * the SSD scan: chunked as the kernel chunks, every product with one
   operand exact in bf16 (x, b, c) and the fp32 operand (att, b w, the
   carried state) as two bf16 terms, hi = bf16(v), lo = bf16(v - hi):
@@ -31,7 +32,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd as ssd_k
 
 FLASH_TILE = 64     # keys per tile of the bf16 kernel
-FLASH_REL = 8e-3    # chip_smoke.py's bf16 flash gate
+FLASH_REL = 8e-3    # chip_smoke.py's bf16 flash gate, per output row
+FLASH_ROW_FLOOR = 1e-3
 SSD_REL = 1e-4      # chip_smoke.py's SSD gate, both dtypes
 
 
@@ -44,6 +46,16 @@ def _err(got: torch.Tensor, want: torch.Tensor, rel: float):
     want = want.to(torch.float32)
     return (float((got.to(torch.float32) - want).abs().max()),
             rel * max(1.0, float(want.abs().max())))
+
+
+def _row_err(got: torch.Tensor, want: torch.Tensor, rel: float):
+    """The (err, tol) of the output row (b, h, s) with the largest
+    err / tol, each row held to rel * max(max |plain row|, floor)."""
+    want = want.to(torch.float32)
+    err = (got.to(torch.float32) - want).abs().amax(-1).flatten()
+    tol = (rel * want.abs().amax(-1).clamp_min(FLASH_ROW_FLOOR)).flatten()
+    i = int((err / tol).argmax())
+    return float(err[i]), float(tol[i])
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +122,7 @@ def test_flash_bf16_p_rounding_within_the_bf16_gate(case):
     q, k, v = _flash_inputs(b, h, kv, sq, skv, d, seed=sum(case[:6]))
     got = flash_bf16_emulated(q, k, v, causal, window)
     want = fa.flash_attention_plain(q, k, v, causal, window)
-    err, tol = _err(got, want, FLASH_REL)
+    err, tol = _row_err(got, want, FLASH_REL)
     assert err <= tol, (err, tol)
 
 

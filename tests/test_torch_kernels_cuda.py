@@ -8,9 +8,12 @@ so it runs on a machine that has only the port's dependencies:
 
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|) — fp32
 sums over long dot products in another order (across the layers, the
-softmax, the chunks) — except flash attention's bfloat16 output, held to
-8e-3 * max(1, max |plain|): about two bf16 ulps, since kernel and plain
-round their fp32 results to bf16 separately."""
+softmax, the chunks) — except flash attention, held row by row: each
+output row within rel * max(max |plain row|, 1e-3), rel 1e-4 in fp32 and
+8e-3 in bfloat16 (about two bf16 ulps of the row, since kernel and plain
+round their fp32 results to bf16 separately).  Per row, because a long
+causal row averages to a few hundredths while row 0 is v_0: a tolerance
+from the whole tensor's max would let a dropped late tile pass."""
 
 import numpy as np
 import pytest
@@ -47,6 +50,17 @@ def _close(got, want, rel=1e-4):
     tol = rel * max(1.0, want.abs().max().item())
     err = (got.float() - want).abs().max().item()
     assert err <= tol, (err, tol)
+
+
+def _close_rows(got, want, rel):
+    """Flash attention's gate, every row (b, h, s) on its own scale."""
+    torch.cuda.synchronize()
+    want = want.float()
+    err = (got.float() - want).abs().amax(-1)
+    tol = rel * want.abs().amax(-1).clamp_min(1e-3)
+    i = int((err / tol).argmax())
+    assert bool((err <= tol).all()), (err.flatten()[i].item(),
+                                      tol.flatten()[i].item())
 
 
 @pytest.mark.cuda
@@ -173,8 +187,8 @@ def test_flash_attention_kernel_matches_plain(sm90, case, dtype):
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, h, sq, d)
-    _close(got, fa.flash_attention_plain(q, k, v, causal, window),
-           rel=8e-3 if dtype == torch.bfloat16 else 1e-4)
+    _close_rows(got, fa.flash_attention_plain(q, k, v, causal, window),
+                rel=8e-3 if dtype == torch.bfloat16 else 1e-4)
 
 
 @pytest.mark.cuda
@@ -188,7 +202,7 @@ def test_flash_attention_kernel_reads_model_layout_views(sm90):
     got = fa.flash_attention(*views, causal=True, window=50)
     want = fa.flash_attention_plain(*[t.contiguous() for t in views],
                                     True, 50)
-    _close(got, want)
+    _close_rows(got, want, rel=1e-4)
 
 
 @pytest.mark.cuda
@@ -200,7 +214,7 @@ def test_flash_attention_kernel_takes_unaligned_bf16_views(sm90):
     q = base[..., 1:]                 # data pointer 2 bytes off
     k = v = base[:, :2, :, :64]       # row stride 65
     got = fa.flash_attention(q, k, v, causal=True, window=0)
-    _close(got, fa.flash_attention_plain(q, k, v, True, 0), rel=8e-3)
+    _close_rows(got, fa.flash_attention_plain(q, k, v, True, 0), rel=8e-3)
 
 
 # b, h, l, p, n, chunk, shared: L off the chunk, both state sizes, a
