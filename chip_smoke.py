@@ -11,13 +11,16 @@ and serves them through the ``fused_mlp`` kernel.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit.
 2. Build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, in parallel; ptxas's registers and spills,
-   and counts of the tensor-core MMAs, ``ldmatrix`` loads and ``cp.async``
-   copies in each library's SASS (``cuobjdump -sass``): flash attention
-   and the SSD scan must hold bf16 ``HMMA``s.
+   one ``nvcc`` per source, in parallel; ptxas's registers and spills per
+   entry function, and counts of the tensor-core MMAs, ``ldmatrix``
+   loads, ``cp.async`` copies and FFMAs in each library's SASS
+   (``cuobjdump -sass``): flash attention and the SSD scan must hold bf16
+   ``HMMA``s, the block scorer and ``fused_mlp`` tf32 ones (3xTF32).
 3. Kernels against their plain PyTorch versions on the card at the path's
    shapes (K=4, L=9, H=1024): one kind, all kinds mixed, a lone row,
-   bucket padding.  Tolerance: max |kernel - plain| <= 1e-4 * max(1,
+   bucket padding, and the block scorer's first layer over
+   ``in_features`` = 13 (zero W[., 0] rows past it, an x tail that is
+   not zero).  Tolerance: max |kernel - plain| <= 1e-4 * max(1,
    max |plain|) on log-ms (fp32 sums over 1024-long dot products in
    another order, across 9 layers).
 4. Path: ``HabitatPredictor(mlps, device="cuda")`` behind ``FleetPlanner``
@@ -29,7 +32,8 @@ and serves them through the ``fused_mlp`` kernel.
    on the CPU with the plain scorer (rtol 1e-4), and an MLP-free predictor
    on the card against every golden value (rel 1e-6).
 5. Each kernel timed on the inputs the path gave it, beside its plain
-   version and its bound.
+   version and its bound (the block scorer's both: 3xTF32 on the tensor
+   cores, which the kernels line carries, and fp32 FFMA, in the log).
 6. Flash attention and the SSD scan against their plain versions on the
    card: flash in bf16 (the tensor-core kernel) and fp32 (FFMA), causal
    or not, window 0, 100 or 256, GQA rep 1, 2, 4 and 8, D 16 to 128,
@@ -81,12 +85,13 @@ and serves them through the ``fused_mlp`` kernel.
     steps.
 12. ``fused_mlp``: the eight trained MLPs served through the kernel over
     their kinds' 6,000 test rows (every kernel count set to 0 before phase
-    10 and read here: one launch a served MLP), held against the plain
-    chain (1e-4 * max(1, max |plain|) on log-ms) and ``predict_ms`` (rtol
+    10 and read here: one launch a served MLP), the first layer over the
+    features as ``serve_trained`` calls it, held against the plain chain
+    (1e-4 * max(1, max |plain|) on log-ms) and ``predict_ms`` (rtol
     1e-4); then constructed cases, B 1-6000, (L, H) up to (9, 1024), with
     the launches counted exactly.
 13. ``fused_mlp`` timed on the path's largest inputs (L 9, H 1024, 6,000
-    rows) and at the default predictor's L 4, H 256.
+    rows) and at the default predictor's L 4, H 256, with both bounds.
 14. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels, and last {"ok": true, "device": {...}}.
 
@@ -113,10 +118,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside
-#: the tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.  The
-#: kernels run fp32 FFMA; a bound counts the fastest way the card has.
+#: the tensor cores, bf16 and tf32 on the tensor cores (dense), and HBM3
+#: bandwidth.  A bound counts the work at the rate of the units the kernel
+#: runs it on: an fp32 product in 3xTF32 as three tf32 products.
 FP32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
+TF32_PEAK_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 SEED = 0
 N_SYNTHETIC = 29
@@ -353,8 +360,9 @@ def check_golden(device):
 # kernels against their plain versions, timing and bounds
 # ---------------------------------------------------------------------------
 def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
-    """(name, wrapper, plain, args) at the path's shapes: one kind, all
-    kinds mixed, a lone row, bucket padding."""
+    """(name, case, args, kwargs) at the path's shapes: one kind, all
+    kinds mixed, a lone row, bucket padding, and the block scorer's first
+    layer over ``in_features`` = 13."""
     rng = np.random.default_rng(SEED + 7)
     w = torch.from_numpy(rng.standard_normal((K, L, H, H), np.float32)
                          * np.float32(np.sqrt(2.0 / H))).to(device)
@@ -378,14 +386,20 @@ def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
         if case == "lone-row":
             x[1:] = 0.0
         cases.append(("fused_mlp_score", case,
-                      put(x, np.asarray(kinds, np.int32)) + [w, b]))
+                      put(x, np.asarray(kinds, np.int32)) + [w, b], {}))
     nb = fms.bucket_blocks(5)                   # 5 real blocks -> 8
     kinds = np.zeros(nb, np.int32)
     kinds[:5] = [1, 1, 3, 0, 2]
     x = rows(nb * bm)
     x[5 * bm:] = 0.0
     cases.append(("fused_mlp_score", "bucket-padding",
-                  put(x, kinds) + [w, b]))
+                  put(x, kinds) + [w, b], {}))
+    w13 = w.clone()                 # the packing's zero rows past 13
+    w13[:, 0, 13:] = 0.0
+    x = rng.standard_normal((16 * bm, H)).astype(np.float32)
+    cases.append(("fused_mlp_score", "in-features",
+                  put(x, np.arange(16, dtype=np.int32) % K) + [w13, b],
+                  {"in_features": 13}))
 
     row_kinds = {"one-kind": np.full(2 * bm, 1, np.int32),
                  "mixed": rng.integers(0, K, 4 * bm).astype(np.int32)}
@@ -404,7 +418,7 @@ def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
         if case == "bucket-padding":
             x[m:] = 0.0
         cases.append(("fused_mlp_score_rows", case,
-                      put(x, kinds) + [w, b]))
+                      put(x, kinds) + [w, b], {}))
     return cases
 
 
@@ -423,17 +437,42 @@ def compare(torch, fms, name, args, kwargs=None):
 SPIN_CYCLES = 2_000_000
 
 
-#: kernels whose bf16 products run on the tensor cores (phase 2 checks
-#: their SASS for the MMA)
-TENSOR_CORE_KERNELS = ("flash_attention", "ssd")
+#: kernels whose products run on the tensor cores, and the operand type
+#: of the MMA phase 2 requires in their SASS (``HMMA.16816.F32.BF16``,
+#: ``HMMA.1688.F32.TF32``)
+TENSOR_CORE_KERNELS = {"flash_attention": "BF16", "ssd": "BF16",
+                       "fused_mlp_score": "TF32", "fused_mlp": "TF32"}
 
 
 def sass_ops(text: str) -> dict:
     """Counts of the tensor-core MMAs (HMMA), the shared-memory matrix
-    loads (LDSM) and the asynchronous copies (LDGSTS) in a SASS
-    listing."""
-    ops = re.findall(r"\b((?:HMMA|LDSM|LDGSTS)\.[\w.]+)", text)
+    loads (LDSM), the asynchronous copies (LDGSTS) and the fp32 FMAs
+    (FFMA) in a SASS listing."""
+    ops = re.findall(r"\b((?:HMMA|LDSM|LDGSTS)\.[\w.]+|FFMA(?:\.[\w.]+)?)\b",
+                     text)
     return dict(sorted(collections.Counter(ops).items()))
+
+
+def has_mma(ops: dict, operand: str) -> bool:
+    """Does a ``sass_ops`` count hold a tensor-core MMA on ``operand``?"""
+    return any(op.startswith("HMMA.") and op.endswith("." + operand)
+               for op in ops)
+
+
+def ptxas_lines(text: str) -> list:
+    """ptxas's ``-v`` report as (entry function, registers, spill line)."""
+    rows, entry, spill = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows.append((entry, int(m.group(1)), spill))
+    return rows
 
 
 def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
@@ -500,10 +539,30 @@ def roofline(flops: float, nbytes: float,
             else (t_bytes, "bytes"))
 
 
+def chain_bounds(name, flops: float, nbytes: float) -> tuple:
+    """(bound, FFMA bound), each (bound_ms, bound_by): the work at the
+    rate of the units kernel ``name`` runs it on (3xTF32: each fp32
+    product as three tf32 products at the dense tf32 peak), and the same
+    work on fp32 FFMA, the bound of PRs 11-14, for comparison."""
+    ffma = roofline(flops, nbytes)
+    if TENSOR_CORE_KERNELS.get(name) == "TF32":
+        return roofline(3 * flops, nbytes, TF32_PEAK_FLOPS), ffma
+    return ffma, ffma
+
+
+def bound_text(bounds: tuple, ms: float) -> str:
+    """A ``chain_bounds`` pair and the share of each as log text."""
+    (b, by), (f, _) = bounds
+    text = f"bound {b:.4f} ms by {by}: {b / ms:.1%} of peak"
+    if b != f:
+        text += f"; FFMA bound {f:.4f} ms: {f / ms:.1%}"
+    return text
+
+
 def bound(name, args) -> tuple:
-    """(bound_ms, bound_by) of one scorer call (``roofline``) for this
-    call's data: each row through what its own kind's chain needs
-    (``chain_work``), the kinds read once, the output written once."""
+    """``chain_bounds`` of one scorer call for this call's data: each row
+    through what its own kind's chain needs (``chain_work``), the kinds
+    read once, the output written once."""
     x, kinds, w, _ = args
     bsz = x.shape[0]
     row_kinds = (kinds if kinds.numel() == bsz
@@ -512,7 +571,7 @@ def bound(name, args) -> tuple:
     for k in sorted(set(kinds.cpu().tolist())):
         f, nb = chain_work(x[row_kinds == k], w[k])
         flops, nbytes = flops + f, nbytes + nb
-    return roofline(flops, nbytes)
+    return chain_bounds(name, flops, nbytes)
 
 
 def device_rows(torch, prof) -> list:
@@ -1278,7 +1337,8 @@ def fused_mlp_checks(torch, fm, device, inputs, kernel_mods) -> tuple:
     worst = 0.0
     for (label, m, feats, w, b), ms in zip(inputs, served):
         xp = fm.padded_rows(m, feats, w.shape[-1])
-        err, tol = _max_err(torch, fm.fused_mlp(xp, w, b),
+        err, tol = _max_err(torch, fm.fused_mlp(xp, w, b,
+                                                in_features=feats.shape[1]),
                             fm.fused_mlp_plain(xp, w, b), 1e-4)
         rel = float(((ms / m.predict_ms(feats)) - 1.0).abs().max().item())
         worst = max(worst, err)
@@ -1317,27 +1377,39 @@ def fused_mlp_checks(torch, fm, device, inputs, kernel_mods) -> tuple:
 
 
 def fused_mlp_bound(x, w) -> tuple:
-    """(bound_ms, bound_by) of one ``fused_mlp`` call: what the chain needs
+    """``chain_bounds`` of one ``fused_mlp`` call: what the chain needs
     for x's rows (``chain_work``), the output written once."""
     flops, nbytes = chain_work(x, w)
-    return roofline(flops, nbytes + x.shape[0] * 4)
+    return chain_bounds("fused_mlp", flops, nbytes + x.shape[0] * 4)
+
+
+#: the FFMA kernels' device times before the tensor-core redesign
+#: (PERF.md's kernel table, chip call 17 of PR 14: H100 80GB HBM3 at
+#: 700 W); log text only, the kernels line holds what this run measured
+FFMA_KERNEL_MS = {"fused_mlp_score": 23.586, "fused_mlp L 9": 3.973,
+                  "fused_mlp L 4": 0.258}
 
 
 def time_fused_mlp(torch, fm, inputs) -> dict:
     """Phase 13: ``fused_mlp`` on the path's largest inputs (a trained
     8 x 1024 MLP over its 6,000 test rows) and on the default predictor's
-    (L 4, H 256), beside its plain version and its bound."""
+    (L 4, H 256), called as the path calls it (first layer over the
+    features), beside its plain version and its bounds."""
     timed = []
     for label, m, feats, w, b in (inputs[-1], inputs[len(inputs) // 2 - 1]):
         xp = fm.padded_rows(m, feats, w.shape[-1])
-        ms = time_both(torch, lambda: fm.fused_mlp(xp, w, b))
+        n_in = feats.shape[1]
+        ms = time_both(torch, lambda: fm.fused_mlp(xp, w, b,
+                                                   in_features=n_in))
         plain_ms = time_both(torch, lambda: fm.fused_mlp_plain(xp, w, b))
-        bound_ms, bound_by = fused_mlp_bound(xp, w)
+        bounds = fused_mlp_bound(xp, w)
+        earlier = FFMA_KERNEL_MS.get(f"fused_mlp L {w.shape[0]}")
         log(f"  fused_mlp ({label}): rows {xp.shape[0]}, L {w.shape[0]}, H "
             f"{w.shape[-1]}: {ms_text(ms)} (plain {ms_text(plain_ms)}, "
-            f"library none, bound {bound_ms:.4f} ms by {bound_by}: "
-            f"{bound_ms / ms[0]:.1%} of peak)")
-        timed.append((ms[0], plain_ms[0], bound_ms, bound_by))
+            f"library none, {bound_text(bounds, ms[0])}"
+            + ("" if earlier is None else
+               f"; the FFMA kernel {earlier:.3f} ms") + ")")
+        timed.append((ms[0], plain_ms[0], *bounds[0]))
     return timed[0]
 
 
@@ -1375,20 +1447,21 @@ def main() -> int:
     log(f"[2 build] {seconds:.1f} s (nvcc, sm_90a); built now: "
         f"{built or 'none, the libraries were already built'}")
     for kname, text in build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {kname}: {line.strip()}")
+        for entry, regs, spill in ptxas_lines(text):
+            log(f"  {kname}: {entry}: {regs} registers; {spill}")
     for kname in sorted(build.KERNELS):
         ops = sass_ops(build.sass(kname))
         log(f"  {kname} SASS: {ops}")
-        if kname in TENSOR_CORE_KERNELS and not ops.get("HMMA.16816.F32.BF16"):
-            fail(f"{kname}: no bf16 tensor-core MMA in its SASS")
+        operand = TENSOR_CORE_KERNELS.get(kname)
+        if operand and not has_mma(ops, operand):
+            fail(f"{kname}: no {operand} tensor-core MMA in its SASS")
 
     # -- 3. kernels against their plain versions ----------------------------
     log("[3 kernels vs plain] K=4, L=9, H=1024, block_m=128")
     worst = {"fused_mlp_score": 0.0, "fused_mlp_score_rows": 0.0}
-    for kname, case, args in kernel_cases(torch, fms, device):
-        err, tol = compare(torch, fms, kname, args, {"block_m": 128})
+    for kname, case, args, kwargs in kernel_cases(torch, fms, device):
+        err, tol = compare(torch, fms, kname, args,
+                           {"block_m": 128, **kwargs})
         worst[kname] = max(worst[kname], err)
         log(f"  {kname} {case}: rows {args[0].shape[0]}, max |err| "
             f"{err:.3e} (tol {tol:.3e})")
@@ -1463,13 +1536,16 @@ def main() -> int:
         kernel = getattr(fms, kname)
         ms = time_both(torch, lambda: kernel(*args, **kwargs))
         plain_ms = time_both(torch, lambda: plain(*args), iters=5)
-        bound_ms, bound_by = bound(kname, args)
+        bounds = bound(kname, args)
+        bound_ms, bound_by = bounds[0]
         src, line = sources[kname]
-        log(f"  {kname}: rows {args[0].shape[0]}, {ms_text(ms)} (plain "
-            f"{ms_text(plain_ms)}, bound {bound_ms:.3f} ms by {bound_by} at "
-            f"fp32 {FP32_PEAK_FLOPS / 1e12:g} TFLOP/s and HBM "
-            f"{HBM_BYTES_PER_S / 1e12:g} TB/s: {bound_ms / ms[0]:.1%} of "
-            f"peak)")
+        earlier = (f"; the FFMA kernel {FFMA_KERNEL_MS[kname]:.3f} ms"
+                   if kname in FFMA_KERNEL_MS else "")
+        log(f"  {kname}: rows {args[0].shape[0]}, {kwargs}, {ms_text(ms)} "
+            f"(plain {ms_text(plain_ms)}, {bound_text(bounds, ms[0])}, at "
+            f"tf32 {TF32_PEAK_FLOPS / 1e12:g} / fp32 "
+            f"{FP32_PEAK_FLOPS / 1e12:g} TFLOP/s and HBM "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s{earlier})")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -886,7 +886,8 @@ class FusedMLPScorer:
                                                self.biases)
         else:
             log_ms = fms.fused_mlp_score(x, bk, self.weights, self.biases,
-                                         block_m=bm)
+                                         block_m=bm,
+                                         in_features=self.in_features)
         out, offset = {}, 0
         for (kind, feats), nb in zip(feats_by_kind.items(), blocks):
             out[kind] = self.mlps[kind].ms_from_log(

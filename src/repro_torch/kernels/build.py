@@ -30,14 +30,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 #: kernel name -> (source file, C entry point, argtypes)
 KERNELS = {
+    # x, block_kinds, weights, biases, out, 2 x activation scratch;
+    # B, H, L, K, block_m, in_features; stream
     "fused_mlp_score": ("fused_mlp_score.cu", "repro_fused_mlp_score",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                        [_P] * 7 + [_I] * 6 + [_P]),
     "fused_mlp_score_rows": ("fused_mlp_score_rows.cu",
                              "repro_fused_mlp_score_rows",
                              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # x, weights, biases, out; B, H, L; stream
+    # x, weights, biases, out, 2 x activation scratch; B, H, L,
+    # in_features; stream
     "fused_mlp": ("fused_mlp.cu", "repro_fused_mlp",
-                  [_P, _P, _P, _P, _I, _I, _I, _P]),
+                  [_P] * 6 + [_I] * 4 + [_P]),
     # q, k, v, o; dtype, B, H, KV, Sq, Skv, D; 4 x (b, h, s) strides;
     # causal, window, scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",

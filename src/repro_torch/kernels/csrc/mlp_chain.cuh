@@ -1,4 +1,6 @@
-// Shared pieces of the fused MLP kernels (sm_90a, fp32 FFMA).
+// The FFMA pieces of the row-mapped scorer (fused_mlp_score_rows.cu,
+// sm_90a, fp32 FFMA; the block scorer and fused_mlp run on the tensor
+// cores, mlp_gemm.cuh).
 //
 // A CTA owns kRows consecutive rows of x (B, H) and keeps their activation
 // tile h (kRows x H fp32, 64 KB at H = 1024) in shared memory across all L
@@ -73,39 +75,7 @@ __device__ __forceinline__ void layer_product(const float* __restrict__ h,
   }
 }
 
-// One MLP's L-layer chain on the CTA's tile h, in place:
-// h <- relu(h @ w[l] + b[l]) for l < L - 1, no ReLU after the last layer.
-// w is (L, H, H) and b (L, H).  Thread g owns column group g; h is
-// rewritten only once every thread has finished reading it.
-__device__ __forceinline__ void run_chain(float* h,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ b, int H,
-                                          int L) {
-  const int g = threadIdx.x;
-  const int H4 = H >> 2;
-  float4* h4 = reinterpret_cast<float4*>(h);
-  float4 acc[kRows];
-  for (int l = 0; l < L; ++l) {
-    if (g < H4) {
-      layer_product(h, w + static_cast<long long>(l) * H * H, H, g, acc);
-    }
-    __syncthreads();  // every thread has finished reading h
-    if (g < H4) {
-      const float4 bias =
-          reinterpret_cast<const float4*>(b + static_cast<long long>(l) * H)[g];
-      const bool last = l == L - 1;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 z = add4(acc[r], bias);
-        h4[r * H4 + g] = last ? z : relu4(z);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Host-side shape contract shared by the launchers (B in whole kRows
-// tiles: the ragged fused_mlp passes B rounded up).
+// Host-side shape contract of the launcher (B in whole kRows tiles).
 inline bool shapes_ok(int B, int H, int L, int K) {
   return B > 0 && B % kRows == 0 && H > 0 && H % 4 == 0 &&
          H / 4 <= kThreads && L > 0 && K > 0 && K <= 32;

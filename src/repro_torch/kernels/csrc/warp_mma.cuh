@@ -1,5 +1,6 @@
 // Warp-level tensor-core and asynchronous-copy primitives (PTX for sm_80
-// and later, built here for sm_90a), shared by the LM kernels.
+// and later, built here for sm_90a), shared by the LM kernels and the MLP
+// chain kernels.
 //
 // Fragment layouts of mma.sync.m16n8k16 with bf16 operands and fp32
 // accumulators, for lane L of a warp (g = L / 4, t = L % 4):
@@ -10,6 +11,14 @@
 // Each 32-bit register holds two bf16 values, the lower index in the low
 // half.  A C fragment of two neighbouring n-tiles is therefore, element for
 // element, the A fragment of a product over those 16 columns.
+//
+// Fragment layouts of mma.sync.m16n8k8 with tf32 operands and fp32
+// accumulators (one 32-bit element a register; ldmatrix moves 16-bit
+// elements, so these fragments are loaded with plain ld.shared):
+//   A (16 x 8, row-major):  a0 = A[g][t],   a1 = A[g+8][t],
+//                           a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8, k x n):       b0 = B[t][g],   b1 = B[t+4][g]
+//   C (16 x 8, fp32):       c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,6 +77,42 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on the tensor cores: m16n8k8, tf32 operands, fp32 sums.  The
+// operands must be tf32 already (cvt.rna): raw fp32 bits are truncated.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, in a 32-bit register whose low 13 bits are zero: the rounding of
+// cvt.rna.tf32.f32, which ptxas expands on sm_90a into this very add and
+// mask wrapped in a finiteness test and a select.  fp32 bits are sign and
+// magnitude, so adding half of the dropped 13 bits' range rounds the
+// magnitude up at a tie whatever the sign.
+// Without the test an infinity still stays infinite and the canonical NaN
+// a NaN; only a NaN whose payload fills the top mantissa bits carries
+// into the sign and comes out as a zero.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo to about 22 bits: hi = tf32(v), lo = tf32(v - hi) (v - hi is
+// exact in fp32).  Three products into one fp32 sum, lo b_hi + hi b_lo +
+// hi b_hi, keep an fp32 product's accuracy: the dropped lo b_lo is about
+// 2^-22 of it (3xTF32).  The MMA's own sums truncate toward zero, so a
+// long sum should not run in one accumulator (mlp_gemm.cuh)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
 }
 
 // 2^x on the special-function unit (relative error about 2^-22; 0 for

@@ -8,11 +8,13 @@ blocks, is one chain over a row batch:
   last layer -> column 0 of the last layer, (B,)
 
 with weights (L, H, H) and biases (L, H).  :func:`fused_mlp` launches the
-CUDA kernel (``csrc/fused_mlp.cu``, built on first use) for CUDA tensors
-and counts the launch in :data:`LAUNCHES`; for CPU tensors, and only for
-them, it computes the plain PyTorch version beside it.  A CUDA device that
-is not sm_90, a failed build or a failed launch raises.  Any B > 0 is
-taken: the kernel masks the ragged tail itself.
+CUDA kernel (``csrc/fused_mlp.cu``, built on first use: one 3xTF32
+tensor-core GEMM a layer, the L layers launched by one entry point and
+counted as one launch) for CUDA tensors and counts the launch in
+:data:`LAUNCHES`; for CPU tensors, and only for them, it computes the
+plain PyTorch version beside it.  A CUDA device that is not sm_90, a
+failed build or a failed launch raises.  Any B > 0 is taken: the kernel
+masks the ragged tail itself.
 
 :func:`serve_trained` serves a trained predictor through the chain as the
 reference's ``tests/test_kernels.py::test_fused_mlp_serves_trained_predictor``
@@ -22,12 +24,14 @@ log-ms to ms.  ``TrainedMLP.predict_ms`` stays the plain forward.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_mlp_score import (check_cuda_tensors,
+from repro_torch.kernels.fused_mlp_score import (chain_scratch,
+                                                 check_cuda_tensors,
+                                                 check_in_features,
                                                  pack_mlp_params)
 
 #: launches of the kernel, bumped only where the kernel is launched
@@ -40,9 +44,12 @@ def reset_launches() -> None:
 
 
 def fused_mlp_plain(x: torch.Tensor, weights: torch.Tensor,
-                    biases: torch.Tensor) -> torch.Tensor:
+                    biases: torch.Tensor,
+                    in_features: Optional[int] = None) -> torch.Tensor:
     """x (B, H), weights (L, H, H), biases (L, H) -> (B,) float32: the
-    addmm/ReLU chain (mirrors ``repro/kernels/fused_mlp_ref.py``)."""
+    addmm/ReLU chain (mirrors ``repro/kernels/fused_mlp_ref.py``).
+    ``in_features`` is taken and ignored, as by the scorer's plain
+    versions."""
     h = x.to(torch.float32)
     nl = weights.shape[0]
     for li in range(nl):
@@ -52,10 +59,13 @@ def fused_mlp_plain(x: torch.Tensor, weights: torch.Tensor,
     return h[:, 0]
 
 
-def fused_mlp(x: torch.Tensor, weights: torch.Tensor,
-              biases: torch.Tensor) -> torch.Tensor:
+def fused_mlp(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
+              in_features: Optional[int] = None) -> torch.Tensor:
     """x (B, H) padded features; weights (L, H, H); biases (L, H) -> (B,)
-    float32 (column 0 of the last layer)."""
+    float32 (column 0 of the last layer).  Given ``in_features``, rows
+    ``in_features..H`` of ``weights[0]`` must be zero (as
+    :func:`pack_trained` leaves them) and the kernel's first layer reads
+    only that many columns of x; None means H, every column."""
     if x.dim() != 2:
         raise ValueError(f"x must be (B, H), got shape {tuple(x.shape)}")
     bsz, hdim = x.shape
@@ -65,6 +75,7 @@ def fused_mlp(x: torch.Tensor, weights: torch.Tensor,
     if tuple(biases.shape) != tuple(weights.shape[:2]):
         raise ValueError(f"biases shape {tuple(biases.shape)} is not "
                          f"{tuple(weights.shape[:2])}")
+    k_in = check_in_features(in_features, hdim)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, weights, biases)
     check_cuda_tensors("fused_mlp", x, (weights, "weights", torch.float32),
@@ -75,11 +86,14 @@ def fused_mlp(x: torch.Tensor, weights: torch.Tensor,
     if bsz == 0:
         raise ValueError("fused_mlp: empty batch (callers never launch one)")
     out = torch.empty(bsz, dtype=torch.float32, device=x.device)
+    nl = weights.shape[0]
+    scratch = chain_scratch(x, nl)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         build.launch("fused_mlp", x.data_ptr(), weights.data_ptr(),
-                     biases.data_ptr(), out.data_ptr(), bsz, hdim,
-                     weights.shape[0], stream)
+                     biases.data_ptr(), out.data_ptr(),
+                     scratch[0].data_ptr(), scratch[1].data_ptr(), bsz, hdim,
+                     nl, k_in, stream)
     LAUNCHES["fused_mlp"] += 1
     return out
 
@@ -87,7 +101,8 @@ def fused_mlp(x: torch.Tensor, weights: torch.Tensor,
 def pack_trained(trained, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """A trained MLP's layers as (L, H, H) / (L, H) float32 blocks on
     ``device``: H is the hidden size (at least the input width, a multiple
-    of 4), the input and the single output zero-padded to it."""
+    of 4), the input and the single output zero-padded to it (so the rows
+    past the input width of ``W[0]`` are zero, checked as it packs)."""
     n_in = trained.params[0][0].shape[0]
     hdim = -(-max(trained.cfg.hidden_size, n_in) // 4) * 4
     return pack_mlp_params(trained.params, n_in, hdim, torch.device(device))
@@ -105,7 +120,10 @@ def padded_rows(trained, features: torch.Tensor, hdim: int) -> torch.Tensor:
 def serve_trained(trained, features: torch.Tensor, weights: torch.Tensor,
                   biases: torch.Tensor) -> torch.Tensor:
     """Raw feature rows (B, n_in) -> predicted ms (B,) through
-    :func:`fused_mlp`, on the device of ``features``; ``weights`` and
-    ``biases`` come from :func:`pack_trained` on that device."""
+    :func:`fused_mlp`, its first layer over the n_in features only, on the
+    device of ``features``; ``weights`` and ``biases`` come from
+    :func:`pack_trained` on that device."""
     x = padded_rows(trained, features, weights.shape[-1])
-    return trained.ms_from_log(fused_mlp(x, weights, biases))
+    n_in = trained.params[0][0].shape[0]
+    return trained.ms_from_log(fused_mlp(x, weights, biases,
+                                         in_features=n_in))

@@ -21,11 +21,15 @@ Each wrapper launches its CUDA kernel (``csrc/``, built on first use) for
 CUDA tensors and counts the launch in :data:`LAUNCHES`; for CPU tensors,
 and only for them, it computes the plain PyTorch version beside it.  A
 CUDA device that is not sm_90, a failed build or a failed launch raises.
+The block-mapped kernel runs one 3xTF32 tensor-core GEMM a layer (its
+entry point launches the L layers, so a call counts one launch) and, given
+``in_features``, its first layer over those columns only:
+``pack_mlp_params`` leaves the rows past them of every ``W[., 0]`` zero.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +81,12 @@ def pack_mlp_params(params: Sequence[Tuple[np.ndarray, np.ndarray]],
                     device: torch.device) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Pack an MLP's ``[(w, b), ...]`` (w of shape (in, out)) into uniform
-    zero-padded (L, H, H) weights and (L, H) biases, float32."""
+    zero-padded (L, H, H) weights and (L, H) biases, float32.
+
+    Rows ``in_features..H`` of the first layer's block stay zero, the
+    contract under which the kernels' first layer reads ``in_features``
+    columns of x; a first weight with a non-zero row past them raises
+    ``ValueError`` (checked here, on the host, once)."""
     ws = torch.zeros((len(params), hidden, hidden), dtype=torch.float32)
     bs = torch.zeros((len(params), hidden), dtype=torch.float32)
     for li, (w, b) in enumerate(params):
@@ -85,6 +94,9 @@ def pack_mlp_params(params: Sequence[Tuple[np.ndarray, np.ndarray]],
         b = torch.as_tensor(np.asarray(b, np.float32))
         ws[li, :w.shape[0], :w.shape[1]] = w
         bs[li, :b.shape[0]] = b
+    if len(params) and bool(ws[0, in_features:].any()):
+        raise ValueError(f"the first layer has non-zero weights in rows past "
+                         f"in_features={in_features}")
     return ws.to(device), bs.to(device)
 
 
@@ -92,12 +104,14 @@ def pack_mlp_params(params: Sequence[Tuple[np.ndarray, np.ndarray]],
 # Plain PyTorch versions (mirror repro/kernels/fused_mlp_score_ref.py)
 # ---------------------------------------------------------------------------
 def fused_mlp_score_plain(x: torch.Tensor, block_kinds: torch.Tensor,
-                          weights: torch.Tensor,
-                          biases: torch.Tensor) -> torch.Tensor:
+                          weights: torch.Tensor, biases: torch.Tensor,
+                          in_features: Optional[int] = None) -> torch.Tensor:
     """x (B, H); block_kinds (nb,); weights (K, L, H, H); biases (K, L, H)
     -> (B,).  Each kind's blocks go through that kind's chain together
     (the same rows-times-weights products as gathering a weight stack
-    per block, without materializing (nb, L, H, H))."""
+    per block, without materializing (nb, L, H, H)).  ``in_features`` is
+    taken and ignored: every column goes in, and under its contract the
+    columns past it add exact zeros."""
     bsz, hdim = x.shape
     nb = block_kinds.shape[0]
     bm = bsz // nb
@@ -212,16 +226,41 @@ def _ptrs(*tensors) -> list:
     return [t.data_ptr() for t in tensors]
 
 
+def check_in_features(in_features: Optional[int], hdim: int) -> int:
+    """The columns of x a chain's first layer reads: ``in_features``, or
+    all ``hdim`` for None."""
+    if in_features is None:
+        return hdim
+    if not 0 < int(in_features) <= hdim:
+        raise ValueError(f"in_features must be in 1..{hdim}, got "
+                         f"{in_features}")
+    return int(in_features)
+
+
+def chain_scratch(x: torch.Tensor, layers: int) -> torch.Tensor:
+    """The two (B, H) float32 activation buffers a tensor-core chain
+    passes its layers through (none needed for one layer)."""
+    rows = x.shape[0] if layers > 1 else 0
+    return torch.empty((2, rows, x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+
+
 def fused_mlp_score(x: torch.Tensor, block_kinds: torch.Tensor,
                     weights: torch.Tensor, biases: torch.Tensor,
-                    block_m: int = 128) -> torch.Tensor:
+                    block_m: int = 128,
+                    in_features: Optional[int] = None) -> torch.Tensor:
     """x (B, H) kind-grouped rows; block_kinds (B // block_m,);
     weights (K, L, H, H); biases (K, L, H) -> (B,) float32.
 
     ``B`` must be a whole number of ``block_m`` blocks and every row of
-    block ``i`` must belong to kind ``block_kinds[i]``."""
+    block ``i`` must belong to kind ``block_kinds[i]``.  Given
+    ``in_features``, rows ``in_features..H`` of every ``weights[k, 0]``
+    must be zero (as ``pack_mlp_params`` leaves them), and the kernel's
+    first layer reads only the first ``in_features`` columns of x: the same
+    function for any x.  None means H, every column."""
     _check_stack(x, weights, biases)
     bsz, hdim = x.shape
+    k_in = check_in_features(in_features, hdim)
     nb = block_kinds.shape[0]
     if nb * block_m != bsz:
         raise ValueError(f"x rows ({bsz}) != blocks x block_m "
@@ -233,11 +272,13 @@ def fused_mlp_score(x: torch.Tensor, block_kinds: torch.Tensor,
         raise ValueError(f"block_m ({block_m}) must be a multiple of 16")
     out = torch.empty(bsz, dtype=torch.float32, device=x.device)
     nk, nl = weights.shape[0], weights.shape[1]
+    scratch = chain_scratch(x, nl)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         build.launch("fused_mlp_score",
-                     *_ptrs(x, block_kinds, weights, biases, out),
-                     bsz, hdim, nl, nk, block_m, stream)
+                     *_ptrs(x, block_kinds, weights, biases, out,
+                            scratch[0], scratch[1]),
+                     bsz, hdim, nl, nk, block_m, k_in, stream)
     LAUNCHES["fused_mlp_score"] += 1
     return out
 

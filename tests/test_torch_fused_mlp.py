@@ -57,6 +57,27 @@ def test_wrapper_shape_contract():
         fm.fused_mlp(x, ws, bs[:1])
 
 
+def test_plain_ignores_the_x_tail_past_in_features():
+    """``pack_trained``'s zero rows of W[0] make the chain's output, bit for
+    bit, independent of the columns of x past the input width, which the
+    kernel's first layer skips; the CPU wrapper takes ``in_features``."""
+    rng = np.random.default_rng(2)
+    sizes = [13, 64, 64, 1]
+    params = [(rng.standard_normal((a, c)).astype(np.float32),
+               rng.standard_normal(c).astype(np.float32))
+              for a, c in zip(sizes[:-1], sizes[1:])]
+    ws, bs = fm.pack_mlp_params(params, 13, 64, "cpu")
+    x = torch.from_numpy(rng.standard_normal((37, 64)).astype(np.float32))
+    other = x.clone()
+    other[:, 13:] = -7.5
+    want = fm.fused_mlp_plain(x, ws, bs)
+    assert torch.equal(fm.fused_mlp_plain(other, ws, bs), want)
+    assert torch.equal(fm.fused_mlp(other, ws, bs, in_features=13), want)
+    for bad in (0, 65):
+        with pytest.raises(ValueError, match="in_features"):
+            fm.fused_mlp(x, ws, bs, in_features=bad)
+
+
 @pytest.fixture(scope="module")
 def trained():
     ds = pt_dataset.build_dataset("bmm", 150, device_names=["T4"])

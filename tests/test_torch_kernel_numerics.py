@@ -18,10 +18,22 @@ the result against the plain versions within the tolerances
   within 1e-4 * max(1, max |plain|).  One bf16 term instead of two fails
   that gate, which is why the kernel keeps the split.
 
-A product of two bf16 values is exact in fp32, so an fp32 matmul over
-bf16-valued operands is the MMA up to the order of its fp32 sums.
+* the MLP chains (``csrc/mlp_gemm.cuh``: the block scorer and
+  ``fused_mlp``): one GEMM a layer on tf32 MMAs of depth 8, every fp32
+  operand v as hi = tf32(v), lo = tf32(v - hi) rounded as ``cvt.rna``
+  rounds (to nearest, ties away from zero), each product as lo·hi + hi·lo
+  + hi·hi into fp32 sums, the first layer over ``in_features`` rounded up
+  to 8 and the last layer's column 0 only: within 1e-4 * max(1, max
+  |plain|) and within 1e-4 absolute on log-ms (phase 12's rtol 1e-4 on
+  ms = exp(log-ms)).  One tf32 term instead of three fails.
+
+A product of two bf16 values is exact in fp32, and so is a product of two
+tf32 values, so an fp32 matmul over such operands is the MMA up to the
+order of its fp32 sums.
 """
 
+import contextlib
+import functools
 import math
 
 import numpy as np
@@ -29,12 +41,15 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import ssd as ssd_k
 
 FLASH_TILE = 64     # keys per tile of the bf16 kernel
 FLASH_REL = 8e-3    # chip_smoke.py's bf16 flash gate, per output row
 FLASH_ROW_FLOOR = 1e-3
 SSD_REL = 1e-4      # chip_smoke.py's SSD gate, both dtypes
+MLP_REL = 1e-4      # chip_smoke.py's MLP kernel gate on log-ms
+MLP_ABS = 1e-4      # phase 12's rtol 1e-4 on ms, absolute on log-ms
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -227,3 +242,146 @@ def test_ssd_one_bf16_term_fails_the_gate(single):
                               **{f"{single}_terms": 1})
     err, tol = _err(y, ssd_k.ssd_plain(x, dt, a, bm, cm)[0], SSD_REL)
     assert err > 3 * tol, (err, tol)
+
+
+# ---------------------------------------------------------------------------
+# the MLP chains on tf32 tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero.  fp32 bits are sign and
+    magnitude, so adding half of the dropped 13 bits' range to the bits
+    rounds the magnitude up at a tie whatever the sign."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz(v: torch.Tensor) -> torch.Tensor:
+    """float64 rounded toward zero to fp32's 24 significant bits, kept in
+    float64, as a tensor-core MMA rounds its sum (its products are exact,
+    its adder truncates): the 29 low mantissa bits dropped."""
+    return (v.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """Hundreds of small ops in a row: one intra-op thread keeps them cheap
+    beside the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _mma_sums(p: torch.Tensor, q: torch.Tensor, groups: int) -> torch.Tensor:
+    """The exact sum of each depth-8 MMA's products, p (rows, k) by
+    q (k, n), as (groups, k / 8 / groups, rows, n) float64: MMA j of group
+    g is depth chunk g * (k / 8 / groups) + j (zero MMAs pad the last)."""
+    rows, k = p.shape
+    per = -(-k // 8 // groups)
+    sums = torch.bmm(p.double().reshape(rows, k // 8, 8).transpose(0, 1),
+                     q.double().reshape(k // 8, 8, -1))
+    pad = groups * per - k // 8
+    sums = torch.cat([sums, sums.new_zeros((pad,) + sums.shape[1:])])
+    return sums.reshape(groups, per, rows, -1)
+
+
+def mlp_tf32_emulated(x, w, b, in_features: int, terms: int = 3,
+                      step: int = 32):
+    """The tensor-core chain's arithmetic: per layer, MMAs of depth 8,
+    each adding its products lo·hi, hi·lo, hi·hi (``terms`` 3) or hi·hi
+    alone (``terms`` 1) to a partial sum rounded toward zero; a partial
+    starts at zero every ``step`` columns of the depth and is then added
+    to the layer's fp32 sum (``step`` None: one partial over the whole
+    depth); ReLU between layers; the first layer over ``in_features``
+    rounded up to 8, the last over its column 0 (an 8-column tile)."""
+    nl, hdim = w.shape[0], w.shape[-1]
+    h = x.to(torch.float32)
+    with _one_thread():
+        for li in range(nl):
+            last = li == nl - 1
+            k = min(-(-in_features // 8) * 8, hdim) if li == 0 else hdim
+            a, wl = h[:, :k], w[li, :k, :8 if last else hdim]
+            ah, bh = _tf32(a), _tf32(wl)
+            al, bl = _tf32(a - ah), _tf32(wl - bh)
+            pairs = ([(al, bh), (ah, bl)] if terms == 3 else []) + [(ah, bh)]
+            groups = 1 if step is None else -(-k // step)
+            sums = [_mma_sums(p, q, groups) for p, q in pairs]
+            part = torch.zeros(sums[0].shape[:1] + sums[0].shape[2:],
+                               dtype=torch.float64)
+            for j in range(sums[0].shape[1]):      # in order within a group
+                for s in sums:
+                    part = _rz(part + s[:, j])
+            part = part.to(torch.float32)          # exact
+            acc = torch.zeros_like(part[0])
+            for g in range(groups):                # fp32 FADDs, in order
+                acc = acc + part[g]
+            z = acc + b[li, :wl.shape[1]]
+            h = z if last else torch.relu(z)
+    return h[:, 0]
+
+
+def _mlp_chain(nl: int, hdim: int, rows: int, seed: int):
+    """A He-init chain packed as ``pack_mlp_params`` packs it: 13 real
+    inputs (rows 13.. of W[0] zero), x's 13 features normal and, past
+    them, a tail of any values, which the tensor-core chain skips."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((nl, hdim, hdim), np.float32)
+    w[0, :13] = rng.standard_normal((13, hdim)) * np.sqrt(2.0 / 13)
+    w[1:] = rng.standard_normal((nl - 1, hdim, hdim)) * np.sqrt(2.0 / hdim)
+    b = (rng.standard_normal((nl, hdim)) * 0.01).astype(np.float32)
+    x = rng.standard_normal((rows, hdim)).astype(np.float32)
+    return tuple(map(torch.from_numpy, (x, w, b)))
+
+
+# (L, H, rows): the paper's MLPConfig packed and the default predictor's
+MLP_CASES = [(9, 1024, 64), (4, 256, 512)]
+
+
+def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
+    ulp = 2.0 ** -10                  # tf32's spacing in [1, 2)
+    v = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + 3 * ulp / 2,
+                      1 + 0.49 * ulp, -(1 + 0.51 * ulp), 3.0e-3])
+    got = _tf32(v)
+    want = [1 + ulp, -(1 + ulp), 1 + 2 * ulp, 1.0, -(1 + ulp)]
+    assert got[:5].tolist() == want
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+    assert abs(float(got[5]) / 3.0e-3 - 1) <= 2.0 ** -11
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_emulation_err(case, terms: int = 3, step=32):
+    """(max |emulated - plain|, the kernel gate's tolerance) on log-ms for
+    one of MLP_CASES, computed once per arithmetic."""
+    nl, hdim, rows = case
+    x, w, b = _mlp_chain(nl, hdim, rows, seed=nl + hdim)
+    got = mlp_tf32_emulated(x, w, b, in_features=13, terms=terms, step=step)
+    return _err(got, fm.fused_mlp_plain(x, w, b), MLP_REL)
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_mlp_3xtf32_within_the_gates(case):
+    err, tol = _mlp_emulation_err(case)
+    assert err <= tol and err <= MLP_ABS, (err, tol)
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_mlp_one_tf32_term_fails_the_gate(case):
+    """hi·hi alone, the plain TF32 product, moves log-ms by 6-18 times
+    the kernel gate and 31-40 times phase 12's; three terms stay within
+    0.07 of either: the split stays."""
+    err, tol = _mlp_emulation_err(case, terms=1)
+    assert err > 3 * tol and err > 3 * MLP_ABS, (err, tol)
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_mlp_truncated_sums_need_a_partial_per_k_step(case):
+    """The MMA's adder truncates: one partial over the whole depth (1024 at
+    H 1024, 3 MMAs each 8 deep) drifts several times further from the
+    plain chain than partials of one 32-deep k-step added in fp32 (33
+    times at L 9, H 1024, 6 at L 4, H 256)."""
+    stepped, _ = _mlp_emulation_err(case)
+    whole, _ = _mlp_emulation_err(case, step=None)
+    assert whole > 4 * stepped, (whole, stepped)

@@ -63,8 +63,12 @@ def _close_rows(got, want, rel):
                                       tol.flatten()[i].item())
 
 
+# H of the MLP chains: on the 128-column tile and off the 8-column MMA tile
+MLP_WIDTHS = [32, 36, 64, 100, 128, 256, 1020, 1024]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [32, 256, 1024])
+@pytest.mark.parametrize("h", MLP_WIDTHS)
 def test_block_kernel_matches_plain(sm90, h):
     w, b = _stack(4, 4, 3, h, sm90)
     rng = np.random.default_rng(5)
@@ -74,6 +78,53 @@ def test_block_kernel_matches_plain(sm90, h):
         np.float32)).to(sm90)
     before = fms.LAUNCHES["fused_mlp_score"]
     got = fms.fused_mlp_score(x, kinds, w, b, block_m=128)
+    assert fms.LAUNCHES["fused_mlp_score"] == before + 1
+    _close(got, fms.fused_mlp_score_plain(x, kinds, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_m", [16, 64, 128])
+def test_block_kernel_kinds_change_at_every_block(sm90, block_m):
+    """Row tiles of 16, 64 and 128 rows (the largest dividing block_m),
+    every block a new kind, 37 blocks; an out-of-range kind gives NaN."""
+    w, b = _stack(8, 4, 3, 1024, sm90)
+    rng = np.random.default_rng(block_m)
+    kinds = torch.tensor([i % 4 for i in range(37)], dtype=torch.int32,
+                         device=sm90)
+    x = torch.from_numpy(rng.standard_normal((37 * block_m, 1024)).astype(
+        np.float32)).to(sm90)
+    before = fms.LAUNCHES["fused_mlp_score"]
+    got = fms.fused_mlp_score(x, kinds, w, b, block_m=block_m)
+    assert fms.LAUNCHES["fused_mlp_score"] == before + 1
+    _close(got, fms.fused_mlp_score_plain(x, kinds, w, b))
+    kinds[3] = 4
+    got = fms.fused_mlp_score(x, kinds, w, b, block_m=block_m)
+    torch.cuda.synchronize()
+    blocks = got.reshape(37, block_m)
+    assert bool(blocks[3].isnan().all())
+    assert bool(torch.isfinite(blocks[torch.arange(37) != 3]).all())
+
+
+def _zero_tail_rows(w, in_features):
+    """W[..., 0, in_features:, :] = 0, as the packing leaves it."""
+    w = w.clone()
+    w[..., 0, in_features:, :] = 0.0
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [36, 256, 1024])
+def test_block_kernel_first_layer_over_in_features(sm90, h):
+    """in_features = 13 with zero W[., 0] rows past it: the kernel reads 16
+    columns of x and agrees with the plain chain over all of them, for an
+    x whose tail past 13 is not zero."""
+    w, b = _stack(9, 4, 4, h, sm90)
+    w = _zero_tail_rows(w, 13)
+    kinds = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=sm90)
+    x = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (4 * 128, h)).astype(np.float32)).to(sm90)
+    before = fms.LAUNCHES["fused_mlp_score"]
+    got = fms.fused_mlp_score(x, kinds, w, b, block_m=128, in_features=13)
     assert fms.LAUNCHES["fused_mlp_score"] == before + 1
     _close(got, fms.fused_mlp_score_plain(x, kinds, w, b))
 
@@ -297,12 +348,14 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(sm90):
 
 
 # (L, H) of fused_mlp: the reference's test shapes, the default predictor's
-# (4, 256) and the paper's (9, 1024); rows ragged and whole
-FUSED_MLP_SHAPES = [(3, 64), (4, 128), (9, 64), (4, 256), (9, 1024)]
+# (4, 256) and the paper's (9, 1024), one layer alone, and H off the
+# 8-column MMA tile; rows ragged and whole
+FUSED_MLP_SHAPES = [(3, 64), (4, 128), (9, 64), (4, 256), (9, 1024), (1, 64),
+                    (3, 36), (4, 100), (3, 1020)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 37, 256, 6000])
+@pytest.mark.parametrize("rows", [1, 37, 129, 256, 6000])
 @pytest.mark.parametrize("shape", FUSED_MLP_SHAPES)
 def test_fused_mlp_kernel_matches_plain(sm90, shape, rows):
     nl, h = shape
@@ -314,6 +367,21 @@ def test_fused_mlp_kernel_matches_plain(sm90, shape, rows):
     got = fm.fused_mlp(x, w, b)
     assert fm.LAUNCHES["fused_mlp"] == before + 1
     assert tuple(got.shape) == (rows,)
+    _close(got, fm.fused_mlp_plain(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 129, 6000])
+@pytest.mark.parametrize("shape", [(4, 256), (9, 1024), (2, 36)])
+def test_fused_mlp_first_layer_over_in_features(sm90, shape, rows):
+    nl, h = shape
+    w, b = _stack(nl * h + 1, 1, nl, h, sm90)
+    w, b = _zero_tail_rows(w[0], 13).contiguous(), b[0].contiguous()
+    x = torch.from_numpy(np.random.default_rng(rows + 1).standard_normal(
+        (rows, h)).astype(np.float32)).to(sm90)
+    before = fm.LAUNCHES["fused_mlp"]
+    got = fm.fused_mlp(x, w, b, in_features=13)
+    assert fm.LAUNCHES["fused_mlp"] == before + 1
     _close(got, fm.fused_mlp_plain(x, w, b))
 
 

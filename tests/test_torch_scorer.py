@@ -129,6 +129,61 @@ def test_pack_matches_reference():
     np.testing.assert_array_equal(pb.numpy(), np.asarray(rb))
 
 
+def _packed_kinds(seed: int, n_in: int = 13):
+    """K kinds of L-layer MLPs with ``n_in`` inputs, packed to H."""
+    rng = np.random.default_rng(seed)
+    sizes = [n_in] + [H] * (L - 1) + [1]
+    ws, bs = zip(*(fms.pack_mlp_params(
+        [(rng.standard_normal((a, c)).astype(np.float32),
+          rng.standard_normal(c).astype(np.float32))
+         for a, c in zip(sizes[:-1], sizes[1:])], n_in, H, "cpu")
+        for _ in range(K)))
+    return torch.stack(ws), torch.stack(bs)
+
+
+def test_block_plain_ignores_the_x_tail_past_in_features():
+    """With the zero rows ``pack_mlp_params`` leaves in W[., 0], the block
+    chain's output does not depend, bit for bit, on the columns of x past
+    ``in_features``: what the kernel's first layer skips adds nothing.
+    The wrapper on the CPU takes ``in_features`` and computes the same."""
+    w, b = _packed_kinds(3)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4 * BM, H)).astype(
+        np.float32))
+    other = x.clone()
+    other[:, 13:] = torch.from_numpy(
+        rng.standard_normal((4 * BM, H - 13)).astype(np.float32) * 1e3)
+    kinds = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    want = fms.fused_mlp_score_plain(x, kinds, w, b)
+    assert torch.equal(fms.fused_mlp_score_plain(other, kinds, w, b), want)
+    assert torch.equal(fms.fused_mlp_score(other, kinds, w, b, block_m=BM,
+                                           in_features=13), want)
+
+
+def test_packers_refuse_non_zero_rows_past_in_features():
+    rng = np.random.default_rng(5)
+    params = [(rng.standard_normal((13, H)).astype(np.float32),
+               np.zeros(H, np.float32)),
+              (rng.standard_normal((H, 1)).astype(np.float32),
+               np.zeros(1, np.float32))]
+    w, _ = fms.pack_mlp_params(params, 13, H, "cpu")
+    assert not bool(w[0, 13:].any())
+    with pytest.raises(ValueError, match="in_features=10"):
+        fms.pack_mlp_params(params, 10, H, "cpu")
+    params[0][0][10:] = 0.0                 # zero rows pass at any width
+    fms.pack_mlp_params(params, 10, H, "cpu")
+
+
+@pytest.mark.parametrize("in_features", [0, -1, H + 1])
+def test_block_wrapper_refuses_in_features_off_the_width(in_features):
+    w, b = _stack(0)
+    with pytest.raises(ValueError, match="in_features"):
+        fms.fused_mlp_score(torch.zeros((BM, H)),
+                            torch.zeros(1, dtype=torch.int32),
+                            torch.from_numpy(w), torch.from_numpy(b),
+                            block_m=BM, in_features=in_features)
+
+
 def _pair_rows(per_kind: int, seed: int = 0, kinds=None):
     """Interleaved raw feature rows + kind ids (sorted kind order)."""
     rng = np.random.default_rng(seed)
