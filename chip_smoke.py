@@ -543,7 +543,8 @@ def chain_bounds(name, flops: float, nbytes: float) -> tuple:
     """(bound, FFMA bound), each (bound_ms, bound_by): the work at the
     rate of the units kernel ``name`` runs it on (3xTF32: each fp32
     product as three tf32 products at the dense tf32 peak), and the same
-    work on fp32 FFMA, the bound of PRs 11-14, for comparison."""
+    work on fp32 FFMA, the bound of the earlier FFMA kernels, for
+    comparison."""
     ffma = roofline(flops, nbytes)
     if TENSOR_CORE_KERNELS.get(name) == "TF32":
         return roofline(3 * flops, nbytes, TF32_PEAK_FLOPS), ffma
@@ -1384,8 +1385,8 @@ def fused_mlp_bound(x, w) -> tuple:
 
 
 #: the FFMA kernels' device times before the tensor-core redesign
-#: (PERF.md's kernel table, chip call 17 of PR 14: H100 80GB HBM3 at
-#: 700 W); log text only, the kernels line holds what this run measured
+#: (PERF.md's kernel table: H100 80GB HBM3 at 700 W); log text only, the
+#: kernels line holds what this run measured
 FFMA_KERNEL_MS = {"fused_mlp_score": 23.586, "fused_mlp L 9": 3.973,
                   "fused_mlp L 4": 0.258}
 
