@@ -15,14 +15,15 @@ and serves them through the ``fused_mlp`` kernel.
    entry function, and counts of the tensor-core MMAs, ``ldmatrix``
    loads, ``cp.async`` copies and FFMAs in each library's SASS
    (``cuobjdump -sass``): flash attention and the SSD scan must hold bf16
-   ``HMMA``s, the block scorer and ``fused_mlp`` tf32 ones (3xTF32).
+   ``HMMA``s, both scorers and ``fused_mlp`` tf32 ones (3xTF32).
 3. Kernels against their plain PyTorch versions on the card at the path's
    shapes (K=4, L=9, H=1024): one kind, all kinds mixed, a lone row,
-   bucket padding, and the block scorer's first layer over
-   ``in_features`` = 13 (zero W[., 0] rows past it, an x tail that is
-   not zero).  Tolerance: max |kernel - plain| <= 1e-4 * max(1,
-   max |plain|) on log-ms (fp32 sums over 1024-long dot products in
-   another order, across 9 layers).
+   bucket padding, and the first layer over ``in_features`` = 13 (zero
+   W[., 0] rows past it, an x tail that is not zero); for the row scorer
+   also kinds changing within every 16-row MMA tile, and one row of an
+   out-of-range kind (NaN on that row only).  Tolerance: max |kernel -
+   plain| <= 1e-4 * max(1, max |plain|) on log-ms (fp32 sums over
+   1024-long dot products in another order, across 9 layers).
 4. Path: ``HabitatPredictor(mlps, device="cuda")`` behind ``FleetPlanner``
    over the 3 golden traces and 29 synthetic traces of ResNet-50 size:
    (a) rank by throughput and by cost, (b) a cold sweep over the fleet
@@ -32,8 +33,13 @@ and serves them through the ``fused_mlp`` kernel.
    on the CPU with the plain scorer (rtol 1e-4), and an MLP-free predictor
    on the card against every golden value (rel 1e-6).
 5. Each kernel timed on the inputs the path gave it, beside its plain
-   version and its bound (the block scorer's both: 3xTF32 on the tensor
-   cores, which the kernels line carries, and fp32 FFMA, in the log).
+   version and its bound (both: 3xTF32 on the tensor cores, which the
+   kernels line carries, and fp32 FFMA, in the log); sweep (c)'s real and
+   padded row counts and the kind mix of its row tiles, and the row
+   scorer timed again on those rows padded to the engine's earlier
+   ``bucket_blocks`` bucket, the rows its FFMA kernel was timed on; then
+   requests (b) and (c) again under ``torch.profiler`` (device busy time
+   and the kernels that take it).
 6. Flash attention and the SSD scan against their plain versions on the
    card: flash in bf16 (the tensor-core kernel) and fp32 (FFMA), causal
    or not, window 0, 100 or 256, GQA rep 1, 2, 4 and 8, D 16 to 128,
@@ -252,10 +258,12 @@ def golden():
 # ---------------------------------------------------------------------------
 class Recorder:
     """Keeps the inputs each kernel wrapper receives on the path (the
-    wrapper itself counts its launches)."""
+    wrapper itself counts its launches) and, per row-scorer call, the real
+    and padded row counts (``pad_rows_to_blocks``)."""
 
     def __init__(self, fms):
         self.calls = {"fused_mlp_score": [], "fused_mlp_score_rows": []}
+        self.row_counts = []
         self._fms = fms
         self._orig = {}
         for name in self.calls:
@@ -266,6 +274,13 @@ class Recorder:
                 self.calls[_name].append((args, kwargs))
                 return _orig(*args, **kwargs)
             setattr(fms, name, wrapped)
+        pad = self._orig["pad_rows_to_blocks"] = fms.pad_rows_to_blocks
+
+        def padded(xn, *args, **kwargs):
+            out = pad(xn, *args, **kwargs)
+            self.row_counts.append((xn.shape[0], out[0].shape[0]))
+            return out
+        fms.pad_rows_to_blocks = padded
 
     def restore(self) -> None:
         for name, orig in self._orig.items():
@@ -361,8 +376,9 @@ def check_golden(device):
 # ---------------------------------------------------------------------------
 def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
     """(name, case, args, kwargs) at the path's shapes: one kind, all
-    kinds mixed, a lone row, bucket padding, and the block scorer's first
-    layer over ``in_features`` = 13."""
+    kinds mixed, a lone row, bucket padding and the first layer over
+    ``in_features`` = 13 for both scorers; for the row scorer also kinds
+    changing within every 16-row MMA tile (all four kinds in each)."""
     rng = np.random.default_rng(SEED + 7)
     w = torch.from_numpy(rng.standard_normal((K, L, H, H), np.float32)
                          * np.float32(np.sqrt(2.0 / H))).to(device)
@@ -411,6 +427,10 @@ def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
     pad = np.zeros(padded, np.int32)
     pad[:m] = rng.integers(0, K, m)
     row_kinds["bucket-padding"] = pad
+    # every 16-row MMA tile a shuffle of four rows of each kind
+    row_kinds["every-mma-tile-mixed"] = rng.permuted(
+        np.tile(np.arange(16, dtype=np.int32) % K, (2 * bm // 16, 1)),
+        axis=1).reshape(-1)
     for case, kinds in row_kinds.items():
         x = rows(len(kinds))
         if case == "lone-row":
@@ -419,7 +439,38 @@ def kernel_cases(torch, fms, device, K=4, L=9, H=1024, bm=128):
             x[m:] = 0.0
         cases.append(("fused_mlp_score_rows", case,
                       put(x, kinds) + [w, b], {}))
+    x = rng.standard_normal((4 * bm, H)).astype(np.float32)
+    cases.append(("fused_mlp_score_rows", "in-features",
+                  put(x, rng.integers(0, K, 4 * bm).astype(np.int32))
+                  + [w13, b], {"in_features": 13}))
     return cases
+
+
+def out_of_range_kind_case(torch, fms, device, K=4, L=9, H=1024, bm=128):
+    """The row kernel with one row of kind K among 2 * bm rows: NaN on that
+    row, every other row within the kernel gate of the plain version (run
+    with that row's kind set to 0).  Returns (max |err|, tolerance)."""
+    rng = np.random.default_rng(SEED + 8)
+    w = torch.from_numpy(rng.standard_normal((K, L, H, H), np.float32)
+                         * np.float32(np.sqrt(2.0 / H))).to(device)
+    b = torch.from_numpy(rng.standard_normal((K, L, H), np.float32)
+                         * np.float32(0.01)).to(device)
+    x = torch.from_numpy(rng.standard_normal((2 * bm, H), np.float32)
+                         ).to(device)
+    kinds = torch.from_numpy(rng.integers(0, K, 2 * bm).astype(np.int32)
+                             ).to(device)
+    bad = 37
+    kinds[bad] = K
+    got = fms.fused_mlp_score_rows(x, kinds, w, b, block_m=bm)
+    kinds[bad] = 0
+    want = fms.fused_mlp_score_rows_plain(x, kinds, w, b)
+    torch.cuda.synchronize()
+    others = torch.arange(2 * bm, device=device) != bad
+    if not bool(got[bad].isnan()):
+        fail(f"fused_mlp_score_rows: row {bad} of kind {K} gave "
+             f"{float(got[bad])}, not NaN")
+    err = float((got[others] - want[others]).abs().max().item())
+    return err, 1e-4 * max(1.0, float(want[others].abs().max().item()))
 
 
 def compare(torch, fms, name, args, kwargs=None):
@@ -441,7 +492,8 @@ SPIN_CYCLES = 2_000_000
 #: of the MMA phase 2 requires in their SASS (``HMMA.16816.F32.BF16``,
 #: ``HMMA.1688.F32.TF32``)
 TENSOR_CORE_KERNELS = {"flash_attention": "BF16", "ssd": "BF16",
-                       "fused_mlp_score": "TF32", "fused_mlp": "TF32"}
+                       "fused_mlp_score": "TF32",
+                       "fused_mlp_score_rows": "TF32", "fused_mlp": "TF32"}
 
 
 def sass_ops(text: str) -> dict:
@@ -575,6 +627,39 @@ def bound(name, args) -> tuple:
     return chain_bounds(name, flops, nbytes)
 
 
+def rows_on_the_old_bucket(torch, fms, recorder) -> None:
+    """Phase 5, the row scorer on sweep (c): its real and padded row
+    counts, how many of its row tiles hold 1, 2, 3 and 4 kinds, and the
+    kernel timed again on the same real rows padded as the engine padded
+    them before (a ``bucket_blocks`` bucket of zero rows of kind 0), the
+    rows the FFMA kernel was timed on; log text only."""
+    args, kwargs = recorder.calls["fused_mlp_score_rows"][-1]
+    m, padded = recorder.row_counts[-1]
+    x, kinds, w, b = args
+    bm = kwargs["block_m"]
+    mix = collections.Counter(
+        len(np.unique(tile)) for tile in kinds.reshape(-1, bm).cpu().numpy())
+    log(f"  sweep (c): {m} real rows padded to {padded}; its {padded // bm} "
+        f"tiles of {bm} rows holding 1, 2, 3, 4 kinds: "
+        f"{[mix.get(n, 0) for n in range(1, 5)]}")
+    nb = fms.bucket_blocks(-(-m // bm)) * bm
+    xb = torch.zeros((nb, x.shape[1]), dtype=x.dtype, device=x.device)
+    kb = torch.zeros(nb, dtype=kinds.dtype, device=x.device)
+    xb[:m], kb[:m] = x[:m], kinds[:m]
+    bucketed = (xb, kb, w, b)
+    err, tol = compare(torch, fms, "fused_mlp_score_rows", bucketed, kwargs)
+    if not err <= tol:
+        fail(f"fused_mlp_score_rows on the bucketed rows: |err| {err:.3e} > "
+             f"{tol:.3e}")
+    ms = time_both(torch, lambda: fms.fused_mlp_score_rows(*bucketed,
+                                                           **kwargs))
+    ffma = FFMA_KERNEL_MS["fused_mlp_score_rows"]
+    log(f"  fused_mlp_score_rows on those rows in the old bucket: rows {nb}, "
+        f"max |err| {err:.3e} (tol {tol:.3e}), {ms_text(ms)} "
+        f"({bound_text(bound('fused_mlp_score_rows', bucketed), ms[0])}; "
+        f"the FFMA kernel {ffma:.3f} ms on such rows, {ffma / ms[0]:.2f}x)")
+
+
 def device_rows(torch, prof) -> list:
     """(device ms, name, count) of each device op the profiler recorded.
     User annotations (``Optimizer.step#AdamW.step``) span the kernels they
@@ -592,13 +677,14 @@ def device_rows(torch, prof) -> list:
     return rows
 
 
-def breakdown(torch, batched, planner, traces, dests) -> None:
-    """Where request (b)'s time goes: the host time of the traces' first
-    touch (per-op extraction, memoized on each trace), then the same cold
-    sweep again (fresh result, stack and factor caches; the scorer and
-    libraries warm) under ``torch.profiler``, printing wall time,
-    device-busy time and the device ops that take it.  It runs after the
-    path's launches were read."""
+def breakdown(torch, batched, planner, traces, new_traces, dests) -> None:
+    """Where requests (b) and (c) spend their time: the host time of the
+    traces' first touch (per-op extraction, memoized on each trace), then
+    the same cold sweep (b) again (fresh result, stack and factor caches;
+    the scorer and libraries warm) and after it the same cell-masked sweep
+    (c), each under ``torch.profiler``, printing wall time, device-busy
+    time and the device ops that take it.  It runs after the path's
+    launches were read."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     for t in traces:        # a trace's first touch: per-op extraction
@@ -610,23 +696,28 @@ def breakdown(torch, batched, planner, traces, dests) -> None:
     planner.clear_cache()
     batched.STACK_CACHE.clear()
     batched.WAVE_FACTOR_CACHE.clear()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        planner.sweep(traces, dests=dests)
+    for name, fn in (("a cold sweep (b)",
+                      lambda: planner.sweep(traces, dests=dests)),
+                     ("a cell-masked sweep (c)",
+                      lambda: planner.sweep(traces + new_traces))):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(torch, prof)
-    busy_ms = sum(r[0] for r in rows)
-    if not rows:
-        log("  breakdown: the profiler recorded no device time")
-        return
-    log(f"  breakdown of a cold sweep (b) under the profiler: wall "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
-    for ms, key, count in sorted(rows, reverse=True)[:8]:
-        log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(torch, prof)
+        busy_ms = sum(r[0] for r in rows)
+        if not rows:
+            log(f"  breakdown of {name}: the profiler recorded no device "
+                f"time")
+            continue
+        log(f"  breakdown of {name} under the profiler: wall "
+            f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+        for ms, key, count in sorted(rows, reverse=True)[:8]:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1385,10 +1476,11 @@ def fused_mlp_bound(x, w) -> tuple:
 
 
 #: the FFMA kernels' device times before the tensor-core redesign
-#: (PERF.md's kernel table: H100 80GB HBM3 at 700 W); log text only, the
-#: kernels line holds what this run measured
-FFMA_KERNEL_MS = {"fused_mlp_score": 23.586, "fused_mlp L 9": 3.973,
-                  "fused_mlp L 4": 0.258}
+#: (PERF.md's kernel table: H100 80GB HBM3 at 700 W; the row scorer's on
+#: sweep (c)'s rows padded to a ``bucket_blocks`` bucket, 36,864 rows);
+#: log text only, the kernels line holds what this run measured
+FFMA_KERNEL_MS = {"fused_mlp_score": 23.586, "fused_mlp_score_rows": 26.743,
+                  "fused_mlp L 9": 3.973, "fused_mlp L 4": 0.258}
 
 
 def time_fused_mlp(torch, fm, inputs) -> dict:
@@ -1468,6 +1560,13 @@ def main() -> int:
             f"{err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             fail(f"{kname} {case} disagrees with its plain version")
+    err, tol = out_of_range_kind_case(torch, fms, device)
+    worst["fused_mlp_score_rows"] = max(worst["fused_mlp_score_rows"], err)
+    log(f"  fused_mlp_score_rows out-of-range-kind: rows 256, NaN on "
+        f"that row only, the others max |err| {err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        fail("fused_mlp_score_rows out-of-range-kind: the other rows "
+             "disagree with the plain version")
 
     # -- 4. the main path ---------------------------------------------------
     from repro_torch.core import batched, devices
@@ -1541,7 +1640,7 @@ def main() -> int:
         bound_ms, bound_by = bounds[0]
         src, line = sources[kname]
         earlier = (f"; the FFMA kernel {FFMA_KERNEL_MS[kname]:.3f} ms"
-                   if kname in FFMA_KERNEL_MS else "")
+                   if kname == "fused_mlp_score" else "")
         log(f"  {kname}: rows {args[0].shape[0]}, {kwargs}, {ms_text(ms)} "
             f"(plain {ms_text(plain_ms)}, {bound_text(bounds, ms[0])}, at "
             f"tf32 {TF32_PEAK_FLOPS / 1e12:g} / fp32 "
@@ -1555,7 +1654,8 @@ def main() -> int:
             "ms": ms[0], "plain_ms": plain_ms[0], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
 
-    breakdown(torch, batched, planner, traces, fleet_minus)
+    rows_on_the_old_bucket(torch, fms, recorder)
+    breakdown(torch, batched, planner, traces, new_traces, fleet_minus)
 
     # -- 6. the LM path's kernels against their plain versions --------------
     from repro_torch.kernels import flash_attention as fa

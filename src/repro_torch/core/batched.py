@@ -926,9 +926,12 @@ class FusedMLPScorer:
         """Raw feature rows in ANY kind order -> predicted ms (float64),
         one launch.  ``kind_ids[i]`` indexes ``self.kinds`` for row
         ``i``.  On CUDA the row-mapped kernel scores the rows in caller
-        order, padded to a ``bucket_blocks`` bucket (padding rides kind
-        0, garbage by contract, sliced off); on the CPU rows are
-        regrouped by kind into a (K, bucket_rows(max), H) stack."""
+        order, padded to whole ``block_m`` blocks
+        (:func:`~repro_torch.kernels.fused_mlp_score.pad_rows_to_blocks`:
+        padding rides the last row's kind, garbage by contract, sliced
+        off), its first layer over the ``in_features`` columns; on the CPU
+        rows are regrouped by kind into a (K, bucket_rows(max), H)
+        stack."""
         m = feats.shape[0]
         if m == 0:
             return torch.zeros(0, dtype=F64, device=self.device)
@@ -951,21 +954,16 @@ class FusedMLPScorer:
             for ki, rows in enumerate(rows_by_kind):
                 log_ms[rows] = log_grid[ki, :len(rows)]
         else:
-            bm = self.block_m
-            padded = fms.bucket_blocks(-(-m // bm)) * bm
-            xp = torch.zeros((padded, self.hidden), dtype=torch.float32,
-                             device=self.device)
-            row_kinds = torch.zeros(padded, dtype=torch.int32,
-                                    device=self.device)
-            row_kinds[:m] = kind_ids
-            xp[:m, :xn.shape[1]] = xn
+            xp, row_kinds = fms.pad_rows_to_blocks(xn, kind_ids,
+                                                   self.hidden, self.block_m)
             if self.impl == "plain":
                 log_ms = fms.fused_mlp_score_rows_plain(
                     xp, row_kinds, self.weights, self.biases)[:m]
             else:
                 log_ms = fms.fused_mlp_score_rows(
                     xp, row_kinds, self.weights, self.biases,
-                    block_m=bm)[:m]
+                    block_m=self.block_m,
+                    in_features=self.in_features)[:m]
         return self._ms_from_log_rows(log_ms, kind_ids).to(F64)
 
 

@@ -34,9 +34,11 @@ KERNELS = {
     # B, H, L, K, block_m, in_features; stream
     "fused_mlp_score": ("fused_mlp_score.cu", "repro_fused_mlp_score",
                         [_P] * 7 + [_I] * 6 + [_P]),
+    # x, row_kinds, weights, biases, out, 2 x activation scratch;
+    # B, H, L, K, in_features; stream
     "fused_mlp_score_rows": ("fused_mlp_score_rows.cu",
                              "repro_fused_mlp_score_rows",
-                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                             [_P] * 7 + [_I] * 5 + [_P]),
     # x, weights, biases, out, 2 x activation scratch; B, H, L,
     # in_features; stream
     "fused_mlp": ("fused_mlp.cu", "repro_fused_mlp",

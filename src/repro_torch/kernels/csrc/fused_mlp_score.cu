@@ -20,8 +20,9 @@
 //
 // What the design does about it (mlp_gemm.cuh): each layer is one tiled
 // GEMM over all rows on mma.sync.m16n8k8 in 3xTF32, 128-row tiles of one
-// kind by 128 columns, each weight byte feeding 64 FLOP; activations pass
-// between the layers through two (B, H) scratch buffers.  No padded work:
+// kind (one pass of the GEMM's loop over the kinds in a tile) by 128
+// columns, each weight byte feeding 64 FLOP; activations pass between the
+// layers through two (B, H) scratch buffers.  No padded work:
 // the first layer runs over in_features columns (rounded up to 8) and the
 // last over one 8-column tile.  The port's first kernel looped over the
 // layers with 16 rows a CTA on fp32 FFMA and ran every packed layer whole.
@@ -38,8 +39,9 @@ extern "C" int repro_fused_mlp_score(const float* x, const int* block_kinds,
                                      float* scratch0, float* scratch1, int B,
                                      int H, int L, int K, int block_m,
                                      int in_features, void* stream) {
-  if (B <= 0 || H <= 0 || H % 4 || L <= 0 || K <= 0 || block_m <= 0 ||
-      block_m % 16 || B % block_m || in_features <= 0 || in_features > H) {
+  if (B <= 0 || H <= 0 || H % 4 || L <= 0 || K <= 0 || K > 32 ||
+      block_m <= 0 || block_m % 16 || B % block_m || in_features <= 0 ||
+      in_features > H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const repro_mlp_tc::Chain chain{x, block_kinds, weights, biases, out,

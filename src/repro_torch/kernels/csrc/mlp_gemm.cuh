@@ -1,10 +1,12 @@
 // An MLP's layer chain on Hopper's tensor cores (sm_90a): one tiled GEMM a
 // layer, fp32 accuracy from three tf32 products (3xTF32).
 //
-// Shared by the block-mapped scorer (fused_mlp_score.cu) and the single-MLP
-// chain (fused_mlp.cu).  The chain h <- relu(h @ W[l] + b[l]) for l < L - 1,
-// no ReLU after the last layer, returns column 0 of the last layer.  It
-// runs as L launches of one kernel on the caller's stream:
+// Shared by the three MLP kernels: the block-mapped scorer
+// (fused_mlp_score.cu, a kind per block_m rows), the row-mapped scorer
+// (fused_mlp_score_rows.cu, a kind a row) and the single-MLP chain
+// (fused_mlp.cu, one kind).  The chain h <- relu(h @ W[l] + b[l]) for
+// l < L - 1, no ReLU after the last layer, returns column 0 of the last
+// layer.  It runs as L launches of one kernel on the caller's stream:
 //   - layer 0 reads x over its first k_in columns only (k_in = in_features
 //     rounded up to the MMA depth of 8: the packing leaves rows
 //     in_features.. of W[0] zero, so the columns skipped add nothing);
@@ -21,13 +23,20 @@
 // cp.async ring of an A tile (BM x 32) and a B tile (32 x BN) in shared
 // memory.  The edges of K and N and the rows past B are zero-filled in
 // shared memory (cp.async with 0 source bytes), so every H that is a
-// multiple of 4 and any B run the same code.  A row tile never crosses a
-// kind boundary: the host takes a BM that divides block_m, and the CTA
-// reads its kind once.  Hidden layers take BN = 128 with 8 warps; a warp
-// owns a (16 MT) x (8 NT) sub-tile, 64 x 32 at BM = 128.  The CTAs of one
-// row tile are adjacent in the grid, so its A tile is read from L2 by all
-// of them, and a layer of weights (4 MB at H = 1024, 16 MB for four
-// kinds) stays in the 50 MB L2.
+// multiple of 4 and any B run the same code.  Hidden layers take BN = 128
+// with 8 warps; a warp owns a (16 MT) x (8 NT) sub-tile, 64 x 32 at
+// BM = 128.  The CTAs of one row tile are adjacent in the grid, so its A
+// tile is read from L2 by all of them, and a layer of weights (4 MB at
+// H = 1024, 16 MB for four kinds) stays in the 50 MB L2.
+//
+// Kinds: a CTA stages its BM rows' kinds in shared memory and ORs them
+// into a presence mask, then runs the whole k loop once per kind present,
+// over that kind's W[k, l], and its epilogue writes a row only in the pass
+// of the row's own kind.  A tile of one kind (every block-scorer tile: the
+// host takes a BM that divides block_m; every single-MLP tile) runs one
+// pass.  A row whose kind lies outside [0, n_kinds) is in no pass: the
+// hidden layers never write its scratch row, and the last layer writes
+// NaN for it, never a wild read; the other rows of its tile are unchanged.
 //
 // Each fp32 operand v goes into mma.sync.m16n8k8 as hi = tf32(v) and
 // lo = tf32(v - hi) (round to nearest, ties away from zero, as cvt.rna
@@ -70,7 +79,8 @@ struct LayerArgs {
   const float* b;     // (N,)
   float* dst;         // activations out, (B, N) of row stride H; the last
                       // layer: out (B,), column 0
-  const int* kinds;   // a kind per block_m rows, or nullptr: kind 0
+  const int* kinds;   // a kind per block_m rows (block_m 1: a kind a
+                      // row), or nullptr: kind 0
   long long w_kind, b_kind;
   int B, H, K, N;
   int block_m, n_kinds;
@@ -89,6 +99,7 @@ struct Tile {
   static_assert(!kLast || BN == 8, "the last layer computes one n-tile");
   static_assert((kAStride * 4) % 16 == 0 && (kBStride * 4) % 16 == 0,
                 "cp.async needs 16-byte rows");
+  static_assert(kThreads >= BM, "a thread stages each row's kind");
 };
 
 // The tiles of each row-tile size: hidden layers (BN = 128, 8 warps) and
@@ -208,35 +219,23 @@ __device__ __forceinline__ void mma_stage(const float* stage, int m_warp,
   }
 }
 
+// One kind's pass over a CTA's tile: the whole k loop over W[kind, l],
+// then the tile's rows of that kind written (their kinds read from shared
+// memory after the k loop, not held in registers through it).  A call, not inlined: inlined into the
+// loop over the kinds, ptxas keeps values live across the loop's back
+// edge, and the 128-row hidden tile needs 255 registers and spills (the
+// 64-row one 124 bytes); as a call with its arguments by value, each tile
+// compiles as one pass does, with no spill (ptxas -v, chip_smoke phase 2).
 template <int WM, int WN, int MT, int NT, bool kLast>
-__global__ void __launch_bounds__(32 * WM * WN,
-                                  (Tile<WM, WN, MT, NT, kLast>::kMinBlocks))
-layer_kernel(const LayerArgs p) {
+__device__ __noinline__ void layer_pass(const LayerArgs p, float* smem,
+                                        const int* s_kind, int kind,
+                                        long long row0, int n0) {
   using T = Tile<WM, WN, MT, NT, kLast>;
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  const int n_tiles = (p.N + T::BN - 1) / T::BN;
-  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * T::BN;
-  const long long row0 = static_cast<long long>(blockIdx.x / n_tiles) * T::BM;
-  int kind = 0;
-  if (p.kinds != nullptr) {
-    kind = p.kinds[row0 / p.block_m];
-    if (kind < 0 || kind >= p.n_kinds) {  // NaN out, never a wild read
-      if (kLast) {
-        for (int r = threadIdx.x; r < T::BM && row0 + r < p.B;
-             r += T::kThreads) {
-          p.dst[row0 + r] = __int_as_float(0x7fc00000);
-        }
-      }
-      return;
-    }
-  }
-  const float* w = p.w + kind * p.w_kind;
-  const float* bias = p.b + kind * p.b_kind;
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int m_warp = (warp / WN) * 16 * MT, n_warp = (warp % WN) * 8 * NT;
+  const float* w = p.w + kind * p.w_kind;
+  const float* bias = p.b + kind * p.b_kind;
   float acc[MT][NT][4];  // the layer's sums, in fp32 FADDs
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -283,6 +282,17 @@ layer_kernel(const LayerArgs p) {
     }
   }
 
+  // bit 2 i + h: this thread's row m_warp + 16 i + 8 h + g is of this
+  // kind, read from shared memory once, before the stores
+  unsigned own = 0u;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m_warp + 16 * i + 8 * h + g;
+      if (row0 + r < p.B && s_kind[r] == kind) own |= 1u << (2 * i + h);
+    }
+  }
   if (kLast) {  // lanes with t = 0 hold column 0 of rows g and g + 8
     if (t == 0) {
       const float b0 = bias[0];
@@ -290,8 +300,10 @@ layer_kernel(const LayerArgs p) {
       for (int i = 0; i < MT; ++i) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const long long row = row0 + m_warp + 16 * i + 8 * h + g;
-          if (row < p.B) p.dst[row] = acc[i][0][2 * h] + b0;
+          if (own >> (2 * i + h) & 1u) {
+            p.dst[row0 + m_warp + 16 * i + 8 * h + g] =
+                acc[i][0][2 * h] + b0;
+          }
         }
       }
     }
@@ -306,14 +318,60 @@ layer_kernel(const LayerArgs p) {
     for (int i = 0; i < MT; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const long long row = row0 + m_warp + 16 * i + 8 * h + g;
-        if (row < p.B) {
+        if (own >> (2 * i + h) & 1u) {
+          const long long row = row0 + m_warp + 16 * i + 8 * h + g;
           *reinterpret_cast<float2*>(p.dst + row * p.H + col) =
               make_float2(fmaxf(acc[i][j][2 * h] + bb.x, 0.f),
                           fmaxf(acc[i][j][2 * h + 1] + bb.y, 0.f));
         }
       }
     }
+  }
+}
+
+template <int WM, int WN, int MT, int NT, bool kLast>
+__global__ void __launch_bounds__(32 * WM * WN,
+                                  (Tile<WM, WN, MT, NT, kLast>::kMinBlocks))
+layer_kernel(const LayerArgs p) {
+  using T = Tile<WM, WN, MT, NT, kLast>;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  __shared__ int s_kind[T::BM];                 // each row's kind
+  __shared__ unsigned s_bits[T::kThreads / 32];  // each warp's kinds
+  const int n_tiles = (p.N + T::BN - 1) / T::BN;
+  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * T::BN;
+  const long long row0 = static_cast<long long>(blockIdx.x / n_tiles) * T::BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  unsigned bit = 0u;  // this thread's row's kind, as a presence bit
+  if (threadIdx.x < T::BM) {
+    const long long row = row0 + threadIdx.x;
+    int kind = -1;  // rows past B are in no pass
+    if (row < p.B) {
+      kind = p.kinds == nullptr
+                 ? 0
+                 : p.kinds[static_cast<int>(row) / p.block_m];
+      if (kind >= 0 && kind < p.n_kinds) {
+        bit = 1u << kind;
+      } else if (kLast) {  // NaN out, never a wild read
+        p.dst[row] = __int_as_float(0x7fc00000);
+      }
+    }
+    s_kind[threadIdx.x] = kind;
+  }
+  bit = __reduce_or_sync(0xffffffffu, bit);
+  if (lane == 0) s_bits[warp] = bit;
+  __syncthreads();
+  unsigned present = 0u;
+#pragma unroll
+  for (int w = 0; w < T::kThreads / 32; ++w) present |= s_bits[w];
+  for (; present != 0u; present &= present - 1u) {
+    layer_pass<WM, WN, MT, NT, kLast>(p, smem, s_kind,
+                                      __ffs(static_cast<int>(present)) - 1,
+                                      row0, n0);
+    // no warp may still read the ring when the next pass's prologue
+    // refills it
+    if (present & (present - 1u)) __syncthreads();
   }
 }
 
@@ -337,7 +395,8 @@ cudaError_t launch_layer(Tile<WM, WN, MT, NT, kLast>, const LayerArgs& p,
 }
 
 // One chain: x (B, H); weights (n_kinds, L, H, H), biases (n_kinds, L, H);
-// kinds a kind per block_m rows, or nullptr for one MLP; out (B,).
+// kinds a kind per block_m rows (block_m 1: a kind a row), or nullptr for
+// one MLP (block_m 0); out (B,).
 struct Chain {
   const float* x;
   const int* kinds;
@@ -379,10 +438,12 @@ cudaError_t launch_layers(const Chain& c, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-// The row tile: the largest of 128, 64, 32 and 16 that divides block_m (a
-// kind's rows; 0 for one MLP) and still gives the hidden layers at least
-// one CTA per SM (at 6,000 rows and H = 256, 128-row tiles would give 94
-// CTAs for 132 SMs, and 64-row tiles 188).
+// The row tile: the largest of 128, 64, 32 and 16 that still gives the
+// hidden layers at least one CTA per SM (at 6,000 rows and H = 256,
+// 128-row tiles would give 94 CTAs for 132 SMs, and 64-row tiles 188) and,
+// for the block scorer (block_m a multiple of 16), divides block_m, so a
+// tile holds one kind and runs one pass.  One MLP (block_m 0) and kinds
+// per row (block_m 1) choose by the CTA count alone.
 inline int row_tile(const Chain& c) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -392,7 +453,8 @@ inline int row_tile(const Chain& c) {
   }
   const long long n_tiles = (c.H + 127) / 128;
   for (int bm = 128; bm > 16; bm /= 2) {
-    if (c.block_m % bm == 0 && (c.B + bm - 1) / bm * n_tiles >= sms) {
+    if ((c.block_m < 16 || c.block_m % bm == 0) &&
+        (c.B + bm - 1) / bm * n_tiles >= sms) {
       return bm;
     }
   }

@@ -15,16 +15,17 @@ layers, none after the last).  Two spellings of which kind a row takes:
   block's kind (full sweeps);
 * :func:`fused_mlp_score_rows` — row-mapped: ``row_kinds`` gives each
   row's own kind, so any kind mix scores in one launch (cell-masked
-  sweeps).  Padding rows carry kind 0; their outputs are garbage.
+  sweeps).  Padding rows carry a valid kind; their outputs are garbage.
 
 Each wrapper launches its CUDA kernel (``csrc/``, built on first use) for
 CUDA tensors and counts the launch in :data:`LAUNCHES`; for CPU tensors,
 and only for them, it computes the plain PyTorch version beside it.  A
 CUDA device that is not sm_90, a failed build or a failed launch raises.
-The block-mapped kernel runs one 3xTF32 tensor-core GEMM a layer (its
-entry point launches the L layers, so a call counts one launch) and, given
-``in_features``, its first layer over those columns only:
-``pack_mlp_params`` leaves the rows past them of every ``W[., 0]`` zero.
+Both kernels run one 3xTF32 tensor-core GEMM a layer (``csrc/mlp_gemm.cuh``;
+the entry point launches the L layers, so a call counts one launch), each
+row tile once per kind present in it, and, given ``in_features``, their
+first layer over those columns only: ``pack_mlp_params`` leaves the rows
+past them of every ``W[., 0]`` zero.
 """
 
 from __future__ import annotations
@@ -74,6 +75,25 @@ def bucket_rows(n_rows: int) -> int:
     if n_rows <= 512:
         return 1 << max(n_rows - 1, 0).bit_length()
     return -(-n_rows // 512) * 512
+
+
+def pad_rows_to_blocks(xn: torch.Tensor, kind_ids: torch.Tensor,
+                       hidden: int, block_m: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """m >= 1 rows ``xn`` (m, F) of kinds ``kind_ids`` (m,) -> the
+    row-mapped kernel's input: x (P, hidden) float32 and row_kinds (P,)
+    int32, P = m rounded up to a multiple of ``block_m``.  Real rows keep
+    their values, zero-padded to ``hidden``; padding rows are zero and
+    carry the last real row's kind, so the tail tile holds one kind.  No
+    bucket: a CUDA kernel compiles nothing per shape."""
+    m = xn.shape[0]
+    padded = -(-m // block_m) * block_m
+    x = torch.zeros((padded, hidden), dtype=torch.float32, device=xn.device)
+    x[:m, :xn.shape[1]] = xn
+    row_kinds = torch.empty(padded, dtype=torch.int32, device=xn.device)
+    row_kinds[:m] = kind_ids
+    row_kinds[m:] = kind_ids[m - 1]
+    return x, row_kinds
 
 
 def pack_mlp_params(params: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -285,15 +305,21 @@ def fused_mlp_score(x: torch.Tensor, block_kinds: torch.Tensor,
 
 def fused_mlp_score_rows(x: torch.Tensor, row_kinds: torch.Tensor,
                          weights: torch.Tensor, biases: torch.Tensor,
-                         block_m: int = 128) -> torch.Tensor:
+                         block_m: int = 128,
+                         in_features: Optional[int] = None) -> torch.Tensor:
     """x (B, H) rows in ANY kind order; row_kinds (B,) int32;
     weights (K, L, H, H); biases (K, L, H) -> (B,) float32.
 
     ``B`` must be a whole number of ``block_m`` blocks; padding rows must
-    carry a valid kind (the engine uses 0) and their outputs are garbage
-    by contract."""
+    carry a valid kind and their outputs are garbage by contract.  Given
+    ``in_features``, rows ``in_features..H`` of every ``weights[k, 0]``
+    must be zero and the kernel's first layer reads only that many columns
+    of x, as in :func:`fused_mlp_score`.  Beyond the reference's contract,
+    the kernel gives NaN for a row whose kind lies outside ``[0, K)`` and
+    leaves the other rows as they are."""
     _check_stack(x, weights, biases)
     bsz, hdim = x.shape
+    k_in = check_in_features(in_features, hdim)
     if tuple(row_kinds.shape) != (bsz,):
         raise ValueError(f"row_kinds shape {tuple(row_kinds.shape)} != "
                          f"({bsz},)")
@@ -303,14 +329,14 @@ def fused_mlp_score_rows(x: torch.Tensor, row_kinds: torch.Tensor,
     if x.device.type == "cpu":
         return fused_mlp_score_rows_plain(x, row_kinds, weights, biases)
     _check_cuda("fused_mlp_score_rows", x, row_kinds, weights, biases)
-    if block_m % 16:
-        raise ValueError(f"block_m ({block_m}) must be a multiple of 16")
     out = torch.empty(bsz, dtype=torch.float32, device=x.device)
     nk, nl = weights.shape[0], weights.shape[1]
+    scratch = chain_scratch(x, nl)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         build.launch("fused_mlp_score_rows",
-                     *_ptrs(x, row_kinds, weights, biases, out),
-                     bsz, hdim, nl, nk, stream)
+                     *_ptrs(x, row_kinds, weights, biases, out,
+                            scratch[0], scratch[1]),
+                     bsz, hdim, nl, nk, k_in, stream)
     LAUNCHES["fused_mlp_score_rows"] += 1
     return out

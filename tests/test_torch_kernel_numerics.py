@@ -18,14 +18,16 @@ the result against the plain versions within the tolerances
   within 1e-4 * max(1, max |plain|).  One bf16 term instead of two fails
   that gate, which is why the kernel keeps the split.
 
-* the MLP chains (``csrc/mlp_gemm.cuh``: the block scorer and
+* the MLP chains (``csrc/mlp_gemm.cuh``: both scorers and
   ``fused_mlp``): one GEMM a layer on tf32 MMAs of depth 8, every fp32
   operand v as hi = tf32(v), lo = tf32(v - hi) rounded as ``cvt.rna``
   rounds (to nearest, ties away from zero), each product as lo·hi + hi·lo
   + hi·hi into fp32 sums, the first layer over ``in_features`` rounded up
   to 8 and the last layer's column 0 only: within 1e-4 * max(1, max
   |plain|) and within 1e-4 absolute on log-ms (phase 12's rtol 1e-4 on
-  ms = exp(log-ms)).  One tf32 term instead of three fails.
+  ms = exp(log-ms)).  One tf32 term instead of three fails.  The row
+  scorer runs that chain once per kind in a row tile and keeps each row's
+  own kind's output.
 
 A product of two bf16 values is exact in fp32, and so is a product of two
 tf32 values, so an fp32 matmul over such operands is the MMA up to the
@@ -42,6 +44,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp as fm
+from repro_torch.kernels import fused_mlp_score as fms
 from repro_torch.kernels import ssd as ssd_k
 
 FLASH_TILE = 64     # keys per tile of the bf16 kernel
@@ -385,3 +388,27 @@ def test_mlp_truncated_sums_need_a_partial_per_k_step(case):
     stepped, _ = _mlp_emulation_err(case)
     whole, _ = _mlp_emulation_err(case, step=None)
     assert whole > 4 * stepped, (whole, stepped)
+
+
+def test_rows_tile_of_all_kinds_within_the_gates():
+    """The row scorer's arithmetic on one 128-row tile whose 16-row MMA
+    tiles each hold rows of all four kinds, at L 9, H 1024: each kind's
+    pass is the 3xTF32 chain above, and each row keeps its own kind's
+    output.  A row's output depends on that row alone, so each kind's pass
+    is emulated on its own rows and selected per row."""
+    nk, nl, hdim, rows = 4, 9, 1024, 128
+    chains = [_mlp_chain(nl, hdim, rows, seed=100 + k) for k in range(nk)]
+    x = chains[0][0]
+    w = torch.stack([c[1] for c in chains])
+    b = torch.stack([c[2] for c in chains])
+    rng = np.random.default_rng(11)
+    kinds = torch.from_numpy(rng.permuted(
+        np.tile(np.arange(16, dtype=np.int32) % nk, (rows // 16, 1)),
+        axis=1).reshape(-1))
+    got = torch.empty(rows)
+    for k in range(nk):
+        sel = torch.nonzero(kinds == k).flatten()
+        got[sel] = mlp_tf32_emulated(x[sel], w[k], b[k], in_features=13)
+    err, tol = _err(got, fms.fused_mlp_score_rows_plain(x, kinds, w, b),
+                    MLP_REL)
+    assert err <= tol and err <= MLP_ABS, (err, tol)

@@ -144,6 +144,92 @@ def test_rows_kernel_matches_plain(sm90, h):
     _close(got, fms.fused_mlp_score_rows_plain(x, kinds, w, b))
 
 
+def _rows_launch(x, kinds, w, b, **kwargs):
+    """One row-kernel call, asserting it counts exactly one launch."""
+    before = fms.LAUNCHES["fused_mlp_score_rows"]
+    got = fms.fused_mlp_score_rows(x, kinds, w, b, **kwargs)
+    assert fms.LAUNCHES["fused_mlp_score_rows"] == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [32, 256, 1024])
+def test_rows_kernel_kinds_change_at_every_row(sm90, h):
+    """Row i of kind i % 4: every 16-row MMA tile and every row tile runs
+    four passes, each row written in its own kind's."""
+    w, b = _stack(10, 4, 3, h, sm90)
+    x = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (3 * 128, h)).astype(np.float32)).to(sm90)
+    kinds = (torch.arange(3 * 128, device=sm90) % 4).to(torch.int32)
+    _close(_rows_launch(x, kinds, w, b, block_m=128),
+           fms.fused_mlp_score_rows_plain(x, kinds, w, b))
+
+
+@pytest.mark.cuda
+def test_rows_kernel_all_kinds_in_one_mma_tile(sm90):
+    """K = 16 kinds, every 16-row MMA tile a shuffle of all 16: sixteen
+    passes a row tile."""
+    w, b = _stack(11, 16, 3, 64, sm90)
+    rng = np.random.default_rng(12)
+    kinds = torch.from_numpy(rng.permuted(
+        np.tile(np.arange(16, dtype=np.int32), (16, 1)), axis=1
+    ).reshape(-1)).to(sm90)
+    x = torch.from_numpy(rng.standard_normal((256, 64)).astype(
+        np.float32)).to(sm90)
+    _close(_rows_launch(x, kinds, w, b, block_m=128),
+           fms.fused_mlp_score_rows_plain(x, kinds, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [36, 256, 1024])
+def test_rows_kernel_first_layer_over_in_features(sm90, h):
+    """in_features = 13 with zero W[., 0] rows past it and an x tail that
+    is not zero, kinds in any order."""
+    w, b = _stack(13, 4, 4, h, sm90)
+    w = _zero_tail_rows(w, 13)
+    rng = np.random.default_rng(h + 1)
+    x = torch.from_numpy(rng.standard_normal((4 * 128, h)).astype(
+        np.float32)).to(sm90)
+    kinds = torch.from_numpy(rng.integers(0, 4, 4 * 128).astype(
+        np.int32)).to(sm90)
+    _close(_rows_launch(x, kinds, w, b, block_m=128, in_features=13),
+           fms.fused_mlp_score_rows_plain(x, kinds, w, b))
+
+
+@pytest.mark.cuda
+def test_rows_kernel_out_of_range_kind_is_nan_on_its_row_alone(sm90):
+    w, b = _stack(14, 4, 3, 256, sm90)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((256, 256)).astype(
+        np.float32)).to(sm90)
+    kinds = torch.from_numpy(rng.integers(0, 4, 256).astype(np.int32)).to(
+        sm90)
+    bad = torch.tensor([5, 200], device=sm90)
+    kinds[5], kinds[200] = 4, -1
+    got = _rows_launch(x, kinds, w, b, block_m=128)
+    torch.cuda.synchronize()
+    assert bool(got[bad].isnan().all())
+    kinds[bad] = 0
+    keep = torch.ones(256, dtype=torch.bool, device=sm90)
+    keep[bad] = False
+    _close(got[keep], fms.fused_mlp_score_rows_plain(x, kinds, w, b)[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [128, 256, 32896])
+def test_rows_kernel_batch_sizes(sm90, rows):
+    """One row tile, two, and 257 (the masked sweep's size) with the rows
+    grouped by kind as the engine appends them."""
+    w, b = _stack(16, 4, 3, 1024, sm90)
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((rows, 1024)).astype(
+        np.float32)).to(sm90)
+    kinds = torch.from_numpy(np.sort(rng.integers(0, 4, rows)).astype(
+        np.int32)).to(sm90)
+    _close(_rows_launch(x, kinds, w, b, block_m=128),
+           fms.fused_mlp_score_rows_plain(x, kinds, w, b))
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(sm90):
     w, b = _stack(1, 2, 2, 32, sm90)

@@ -184,6 +184,54 @@ def test_block_wrapper_refuses_in_features_off_the_width(in_features):
                             block_m=BM, in_features=in_features)
 
 
+def test_rows_wrapper_ignores_the_x_tail_past_in_features():
+    """The row wrapper on the CPU takes ``in_features`` and computes the
+    same as without it, bit for bit, for an x whose tail past 13 is not
+    zero under the zero W[., 0] rows ``pack_mlp_params`` leaves."""
+    w, b = _packed_kinds(6)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4 * BM, H)).astype(
+        np.float32))
+    other = x.clone()
+    other[:, 13:] = torch.from_numpy(
+        rng.standard_normal((4 * BM, H - 13)).astype(np.float32) * 1e3)
+    kinds = torch.from_numpy(rng.integers(0, K, 4 * BM).astype(np.int32))
+    want = fms.fused_mlp_score_rows(x, kinds, w, b, block_m=BM)
+    assert torch.equal(fms.fused_mlp_score_rows_plain(other, kinds, w, b),
+                       want)
+    assert torch.equal(fms.fused_mlp_score_rows(other, kinds, w, b,
+                                                block_m=BM, in_features=13),
+                       want)
+
+
+@pytest.mark.parametrize("in_features", [0, -1, H + 1])
+def test_rows_wrapper_refuses_in_features_off_the_width(in_features):
+    w, b = _stack(0)
+    with pytest.raises(ValueError, match="in_features"):
+        fms.fused_mlp_score_rows(torch.zeros((BM, H)),
+                                 torch.zeros(BM, dtype=torch.int32),
+                                 torch.from_numpy(w), torch.from_numpy(b),
+                                 block_m=BM, in_features=in_features)
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 32850])
+def test_pad_rows_to_blocks(m):
+    """``score_rows_ms``'s padding on CUDA: whole blocks, no bucket, real
+    rows untouched, padding rows zero and of the last real row's kind."""
+    rng = np.random.default_rng(m)
+    xn = torch.from_numpy(rng.standard_normal((m, 13)))
+    kind_ids = torch.from_numpy(np.sort(rng.integers(0, K, m)).astype(
+        np.int32))
+    x, row_kinds = fms.pad_rows_to_blocks(xn, kind_ids, H, 128)
+    padded = -(-m // 128) * 128
+    assert x.shape == (padded, H) and row_kinds.shape == (padded,)
+    assert x.dtype == torch.float32 and row_kinds.dtype == torch.int32
+    assert torch.equal(x[:m, :13], xn.to(torch.float32))
+    assert not bool(x[:m, 13:].any()) and not bool(x[m:].any())
+    assert torch.equal(row_kinds[:m], kind_ids)
+    assert bool((row_kinds[m:] == kind_ids[-1]).all())
+
+
 def _pair_rows(per_kind: int, seed: int = 0, kinds=None):
     """Interleaved raw feature rows + kind ids (sorted kind order)."""
     rng = np.random.default_rng(seed)
