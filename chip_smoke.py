@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's three paths on the card and checks every phase; any
+Drives the port's four paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
 published configs (every layer, every width, bf16); the training path
 trains the default predictor and the paper's full-width MLPs on the card
-and serves them through the ``fused_mlp`` kernel.
+and serves them through the ``fused_mlp`` kernel; the tracking path
+records a training iteration of each of the paper's five Table-4 nets on
+the card, times every op there, and predicts the iterations on the
+registry through both scorer kernels (the paper's Listing 1).
 
-1. Device: a CUDA GPU of capability (9, 0); its name and power limit.
+1. Device: a CUDA GPU of capability (9, 0); its name and power limit;
+   ``calibrate_spec("cuda")``'s achieved fp32 GEMM rate and copy
+   bandwidth beside the ``H100-SXM`` spec's datasheet values.
 2. Build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, in parallel; ptxas's registers and spills per
    entry function, and counts of the tensor-core MMAs, ``ldmatrix``
@@ -98,7 +103,34 @@ and serves them through the ``fused_mlp`` kernel.
     the launches counted exactly.
 13. ``fused_mlp`` timed on the path's largest inputs (L 9, H 1024, 6,000
     rows) and at the default predictor's L 4, H 256, with both bounds.
-14. A line with the card's name and power limit, a ``{"kernels": [...]}``
+14. Tracking: ``make_train_iteration`` of ResNet-50 (batch 32 at 224),
+    the Inception-style net (32 at 224), DCGAN (128), GNMT (64 x 50,
+    hidden 512, vocab 32000, 4 layers) and the Transformer (32 x 128,
+    d_model 512, 6 layers, vocab 32000), each tracked once with
+    ``OperationTracker("H100-SXM", measure="wallclock")``: every op timed
+    on the card by CUDA events (3 warm-ups, the mean of 3).  Gates: more
+    than 20 ops and at least one kernel-varying op a net, every
+    ``measured_ms`` finite and > 0, and the card's op list equal to the
+    CPU's for the same net at the CPU tests' small widths (names, kinds,
+    params, FLOPs and shapes, exactly: the backward ops, which autograd
+    runs on its device thread on the card, included).  Logged: ops per
+    kind, the covered fraction, the sum of op ms x multiplicity beside the
+    iteration's own time on the card (CUDA events, median of 5 after 2
+    warm-ups), tracking seconds and peak memory.
+15. The five tracked traces through ``FleetPlanner(HabitatPredictor(
+    mlps, device="cuda"))`` with phase 4's full-width MLPs: (a) each
+    ranked by throughput and by cost on the registry, (b) a cold sweep of
+    the five over the fleet minus 5 devices, (c) a sweep of the five plus
+    DCGAN tracked at batch 64 over the whole fleet (cell-masked).  Gates:
+    each scorer kernel launched at least once (counts set to 0 before (a)
+    and read after (c)), every answer within rtol 1e-4 of the same
+    predictor on the CPU with the plain scorer, and a ``SqliteCache``
+    planner in a temporary directory answering the sweep twice, the
+    second time all hits with equal answers.  Then the CLI,
+    ``repro_torch.launch.serve.main(["--arch", "qwen3-0.6b", "--fleet",
+    "--sweep", ...])`` on the card at the published config with four
+    short requests.
+16. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels, and last {"ok": true, "device": {...}}.
 
 Weights are random (He init from a numpy seed for the serving MLPs, a
@@ -173,6 +205,20 @@ FULL_WIDTH_EPOCHS = 80
 #: fused_mlp's constructed cases: (L, H) by rows, ragged and whole tiles
 FUSED_MLP_SHAPES = ((3, 64), (4, 128), (9, 64), (4, 256), (9, 1024))
 FUSED_MLP_ROWS = (1, 37, 256, 6000)
+#: the five Table-4 nets at the widths of the CPU parity tests (which
+#: read them here: tests/test_torch_evalzoo.py), where the card's op list
+#: must equal the CPU's; phase 14 tracks them at the reference's sizes
+TRACK_SMALL = {
+    "resnet50": dict(batch=2, image=32, width=8, blocks=(1, 1, 1, 1),
+                     classes=10),
+    "inception_v3": dict(batch=2, image=32, width=8, n_blocks=2,
+                         classes=10),
+    "dcgan": dict(batch=2, width=8, z_dim=16),
+    "gnmt": dict(batch=2, seq=5, hidden=16, vocab=64, layers=2),
+    "transformer": dict(batch=2, seq=8, d_model=32, n_layers=2, vocab=64),
+}
+#: phase 15's extra tracked batch size, which makes sweep (c) cell-masked
+TRACK_EXTRA = ("dcgan", dict(batch=64))
 
 
 def fail(msg: str) -> None:
@@ -1506,6 +1552,220 @@ def time_fused_mlp(torch, fm, inputs) -> dict:
     return timed[0]
 
 
+# ---------------------------------------------------------------------------
+# tracking a training iteration on the card (phases 14-15)
+# ---------------------------------------------------------------------------
+def op_list(trace) -> list:
+    """Everything a tracked op records but its time: the card's list must
+    equal the CPU's."""
+    return [(op.name, op.kind, sorted(op.params.items()), op.cost.flops,
+             op.in_shapes, op.out_shapes, op.dtype, op.multiplicity)
+            for op in trace.ops]
+
+
+def card_matches_cpu(torch, device) -> None:
+    """Each net at the test widths, tracked on ``device`` and on the CPU:
+    equal op lists."""
+    from repro_torch.core.trace import OperationTracker
+    from repro_torch.models import evalzoo
+    for name, kw in TRACK_SMALL.items():
+        lists = []
+        for dev in (device, "cpu"):
+            it, params, batch = evalzoo.make_train_iteration(
+                name, device=dev, **kw)
+            lists.append(op_list(OperationTracker().track(it, params,
+                                                          batch)))
+        if lists[0] != lists[1]:
+            names = [collections.Counter(op[:2] for op in ops)
+                     for ops in lists]
+            at = next((i for i, (a, b) in enumerate(zip(*lists)) if a != b),
+                      min(map(len, lists)))
+            fail(f"{name}: the op list on {device} differs from the CPU's "
+                 f"({len(lists[0])} vs {len(lists[1])} ops; only on "
+                 f"{device}: {dict(names[0] - names[1])}, only on the CPU: "
+                 f"{dict(names[1] - names[0])}; first difference at op "
+                 f"{at}: {lists[0][at:at + 1]} vs {lists[1][at:at + 1]})")
+        log(f"  {name} at the test widths: {len(lists[0])} ops, the same "
+            f"list on {device} and the CPU")
+
+
+def iteration_ms(torch, it, params, batch, device) -> float:
+    """The iteration's own time: CUDA events, median of 5 after 2
+    warm-ups (the host clock on a CPU rehearsal)."""
+    if torch.device(device).type == "cuda":
+        return time_ms(torch, lambda: it(params, batch), iters=5, warmup=2,
+                       spin=False)
+    it(params, batch)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        it(params, batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def track_net(torch, name, device, origin="H100-SXM", **kw):
+    """One training iteration of ``name`` tracked with ``wallclock`` on
+    ``device``, gated and logged (phase 14).  Returns the trace."""
+    from repro_torch.core.trace import OperationTracker
+    from repro_torch.models import evalzoo
+    on_card = torch.device(device).type == "cuda"
+    it, params, batch = evalzoo.make_train_iteration(name, device=device,
+                                                     **kw)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trace = OperationTracker(origin, measure="wallclock").track(
+        it, params, batch, label=f"{name}" + "".join(
+            f"-{k}{v}" for k, v in kw.items()))
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    kinds = collections.Counter(op.kind for op in trace.ops)
+    varying = {k: kinds[k] for k in KINDS if kinds[k]}
+    if len(trace.ops) <= 20 or not varying:
+        fail(f"{trace.label}: {len(trace.ops)} ops, kernel-varying "
+             f"{varying}: not a training iteration")
+    ms = np.asarray([op.measured_ms for op in trace.ops], np.float64)
+    if not (np.isfinite(ms).all() and (ms > 0).all()):
+        fail(f"{trace.label}: measured_ms not all finite and > 0")
+    own = iteration_ms(torch, it, params, batch, device)
+    top = sorted(trace.breakdown().items(), key=lambda kv: -kv[1])[:4]
+    log(f"  {trace.label}: {len(trace.ops)} ops ({varying}, "
+        f"{len(trace.ops) - sum(varying.values())} kernel-alike over "
+        f"{len(kinds) - len(varying)} kinds), covered "
+        f"{trace.covered_fraction:.1%}, sum of op ms {trace.run_time_ms:.3f} "
+        f"ms vs the iteration's own {own:.3f} ms "
+        f"({trace.run_time_ms / own:.2f}x; most by kind: "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in top)} ms), tracked in "
+        f"{seconds:.1f} s, peak {peak:.2f} GiB")
+    del it, params, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return trace
+
+
+def check_tracked_answers(ranks, cold, warm, traces, fleet_minus, mlps,
+                          devs) -> None:
+    """Phase 15's answers against the same predictor on the CPU with the
+    plain scorer: every cell at rtol 1e-4."""
+    from repro_torch.core.predictor import HabitatPredictor
+    cpu = HabitatPredictor(mlps, device="cpu", sweep_scorer="plain")
+    want = cpu.predict_sweep(traces, devs).total_ms
+    got = np.asarray([[row[d] for d in devs] for row in warm])
+    if not np.isfinite(got).all() or (got <= 0).any():
+        fail("tracked sweep (c) returned non-finite or non-positive times")
+    worst = float(np.max(np.abs(got / want - 1.0)))
+    cols = [devs.index(d) for d in fleet_minus]
+    got_b = np.asarray([[row[d] for d in fleet_minus] for row in cold])
+    worst = max(worst, float(np.max(np.abs(
+        got_b / want[:len(cold)][:, cols] - 1.0))))
+    for trace, (rank_t, rank_c) in zip(traces, ranks):
+        fleet = cpu.predict_fleet(trace, devs).as_dict()
+        for c in rank_t + rank_c:
+            worst = max(worst, abs(c.iter_ms / fleet[c.device] - 1.0))
+        times = [c.iter_ms for c in rank_t]
+        if times != sorted(times) or len(rank_t) != len(devs):
+            fail(f"{trace.label}: rank by throughput is not the whole "
+                 f"fleet, fastest first")
+    log(f"  answers vs the CPU plain path: max rel err {worst:.3e} (ranks, "
+        f"sweep (b) and (c))")
+    if worst > 1e-4:
+        fail(f"tracked answers disagree with the CPU plain path: {worst:.3e}")
+
+
+def fleet_from_tracked(torch, fms, batched, mlps, traces, extra,
+                       trained=None, device="cuda", **predictor_kw) -> dict:
+    """Phase 15: the tracked traces through the planner on ``device``;
+    with ``trained`` (phase 10's MLPs) also logs what a trained predictor
+    makes of them.  Returns the scorer launches of requests (a)-(c)."""
+    import tempfile
+
+    from repro_torch.core import devices
+    from repro_torch.core.predictor import HabitatPredictor
+    from repro_torch.serve.fleet import FleetPlanner
+    devs = sorted(devices.all_devices())
+    fleet_minus = [d for d in devs if d not in DROPPED]
+    planner = FleetPlanner(HabitatPredictor(mlps, device=device,
+                                            **predictor_kw))
+    fms.reset_launches()
+    batched.SCORER_DISPATCHES.reset()
+    t0 = time.perf_counter()
+    ranks = [(planner.rank(t, 32, by="throughput"),
+              planner.rank(t, 32, by="cost")) for t in traces]
+    t1 = time.perf_counter()
+    cold = planner.sweep(traces, dests=fleet_minus)
+    t2 = time.perf_counter()
+    warm = planner.sweep(traces + [extra])
+    t3 = time.perf_counter()
+    launches = dict(fms.LAUNCHES)
+    log(f"  (a) 5 traces ranked twice: {(t1 - t0) * 1e3:.1f} ms; (b) cold "
+        f"sweep 5 x {len(fleet_minus)}: {(t2 - t1) * 1e3:.1f} ms; (c) "
+        f"masked sweep 6 x {len(devs)}: {(t3 - t2) * 1e3:.1f} ms; "
+        f"launches {launches}, dispatches "
+        f"{batched.SCORER_DISPATCHES.snapshot()}")
+    for kname, n in launches.items():
+        if n < 1:
+            fail(f"{kname} was never launched on the tracked traces")
+    for trace, (rank_t, rank_c) in zip(traces, ranks):
+        rentable = [c for c in rank_c if c.cost_per_hour]
+        log(f"  {trace.label}: {trace.run_time_ms:.2f} ms on "
+            f"{trace.origin_device} (sum of op ms); "
+            f"fastest {rank_t[0].device} {rank_t[0].iter_ms:.2f} ms, "
+            f"slowest {rank_t[-1].device} {rank_t[-1].iter_ms:.2f} ms, best "
+            f"samples/$ {rentable[0].device if rentable else 'none'}")
+    check_tracked_answers(ranks, cold, warm, traces + [extra], fleet_minus,
+                          mlps, devs)
+    with tempfile.TemporaryDirectory() as tmp:
+        shared = FleetPlanner(HabitatPredictor(mlps, device=device,
+                                               **predictor_kw),
+                              cache=Path(tmp) / "fleet.sqlite")
+        first = shared.sweep(traces)
+        misses = shared.stats.misses
+        second = shared.sweep(traces)
+        hits = shared.stats.hits
+        shared.cache.close()
+    if second != first or hits != len(traces) * len(devs) or \
+            shared.stats.misses != misses:
+        fail(f"sqlite planner: second sweep hits {hits}, misses "
+             f"{shared.stats.misses - misses} more, equal {second == first}")
+    log(f"  sqlite planner: sweep twice, the second {hits} hits and equal "
+        f"answers")
+    if trained is not None:
+        pred = HabitatPredictor(trained, device=device, **predictor_kw)
+        grid = pred.predict_sweep(traces, devs).total_ms
+        show = ("V100", "T4", "P100", "tpu-v5e")
+        log("  phase 10's trained default MLPs (3 x 256), predicted "
+            "iteration ms from the H100-SXM traces (log only):")
+        for trace, row in zip(traces, grid):
+            log(f"    {trace.label}: " + ", ".join(
+                f"{d} {row[devs.index(d)]:.2f}" for d in show))
+    return launches
+
+
+def cli_fleet(torch) -> None:
+    """Phase 15's CLI run: Qwen3-0.6B served at its published config,
+    then ``--fleet --sweep`` on the tracked decode step."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "qwen3-0.6b", "--requests", "4",
+                    "--prompt-len", "32", "--max-new", "4", "--batch", "4",
+                    "--max-seq", "64", "--fleet", "--sweep"])
+    text = out.getvalue()
+    for want in ("served 4/4 requests", "fleet ranking for one decode step",
+                 "origin H100-SXM", "what-if sweep: 3 traces"):
+        if want not in text:
+            fail(f"launch.serve --fleet --sweep: no {want!r} in its output")
+    log(f"  launch.serve --arch qwen3-0.6b --fleet --sweep on the card in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    for line in text.splitlines():
+        log(f"    {line}")
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1531,6 +1791,15 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
     if smi.returncode != 0 or not smi_line:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    from repro_torch.core import calibration
+    from repro_torch.core import devices as devices_mod
+    measured = calibration.calibrate_spec(device)
+    spec = devices_mod.get("H100-SXM")
+    log(f"  calibrate_spec: fp32 GEMM (4096, TF32 off) "
+        f"{measured['peak_flops'] / 1e12:.1f} TFLOP/s, copy "
+        f"{measured['mem_bandwidth'] / 1e12:.3f} TB/s; H100-SXM spec "
+        f"(datasheet) {spec.peak_flops / 1e12:.1f} TFLOP/s fp32, "
+        f"{spec.mem_bandwidth / 1e12:.3f} TB/s (80% of 3.35); {smi_line}")
 
     # -- 2. build -----------------------------------------------------------
     from repro_torch.kernels import build
@@ -1760,7 +2029,27 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None})
 
-    # -- 14. result lines ---------------------------------------------------
+    # -- 14. tracking the five Table-4 nets on the card ---------------------
+    from repro_torch.models import evalzoo
+    log("[14 track] one training iteration of each Table-4 net at the "
+        "reference's default sizes, OperationTracker(\"H100-SXM\", "
+        "measure=\"wallclock\")")
+    t0 = time.perf_counter()
+    card_matches_cpu(torch, device)
+    tracked = [track_net(torch, name, device) for name in evalzoo.ZOO]
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the tracked iterations through the fleet planner --------------
+    log("[15 fleet from tracked steps] the five traces (and DCGAN at batch "
+        "64) through FleetPlanner(HabitatPredictor(mlps, device=cuda))")
+    t0 = time.perf_counter()
+    extra = track_net(torch, TRACK_EXTRA[0], device, **TRACK_EXTRA[1])
+    fleet_from_tracked(torch, fms, batched, mlps, tracked, extra,
+                       trained=default_mlps)
+    cli_fleet(torch)
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,21 +89,25 @@ class DeviceSpec:
 
 GB = 1024.0**3
 _REGISTRY: Dict[str, DeviceSpec] = {}
+#: origin-only specs: devices a trace is measured on (``get`` resolves
+#: them) that are not destinations (``all_devices`` leaves them out, so
+#: the default fleet, golden key sets and artifact keys are unchanged)
+_ORIGINS: Dict[str, DeviceSpec] = {}
 
 
-def register(spec: DeviceSpec) -> DeviceSpec:
-    if spec.name in _REGISTRY:
+def register(spec: DeviceSpec, origin_only: bool = False) -> DeviceSpec:
+    if spec.name in _REGISTRY or spec.name in _ORIGINS:
         raise ValueError(f"duplicate device spec {spec.name!r}")
-    _REGISTRY[spec.name] = spec
+    (_ORIGINS if origin_only else _REGISTRY)[spec.name] = spec
     return spec
 
 
 def get(name: str) -> DeviceSpec:
-    try:
-        return _REGISTRY[name]
-    except KeyError:
-        raise KeyError(
-            f"unknown device {name!r}; known: {sorted(_REGISTRY)}") from None
+    spec = _REGISTRY.get(name) or _ORIGINS.get(name)
+    if spec is None:
+        raise KeyError(f"unknown device {name!r}; known: "
+                       f"{sorted(_REGISTRY) + sorted(_ORIGINS)}")
+    return spec
 
 
 def all_devices() -> Dict[str, DeviceSpec]:
@@ -340,6 +344,18 @@ CPU_HOST = register(DeviceSpec(
     peak_flops=0.4e12, mem_bandwidth=30e9, mem_capacity=64 * GB,
     num_units=8, clock_hz=3.0e9, tiles_per_unit=2,
     link_bandwidth=0.0, num_links=0, cost_per_hour=None))
+
+# The GPU the port runs on: the origin that ``measure("wallclock")`` times
+# CUDA tensors on, as ``CPU_HOST`` is for host tensors.  Origin only, not a
+# destination.  Datasheet values of the SXM part (NVIDIA): 132 SMs, 1.98
+# GHz boost clock, 80 GB of HBM3 at 3.35 TB/s (achieved taken as 80%, as
+# for the paper's GPUs above) and 66.9 TFLOP/s fp32 outside the tensor
+# cores (the paper's GPU rows count fp32).
+H100_SXM = register(DeviceSpec(
+    "H100-SXM", "nvidia", "hopper", "gpu",
+    peak_flops=66.9e12, mem_bandwidth=0.80 * 3.35e12, mem_capacity=80 * GB,
+    num_units=132, clock_hz=1.98e9, tiles_per_unit=8,
+    link_bandwidth=0.0, num_links=0, cost_per_hour=None), origin_only=True)
 
 #: The six paper GPUs, used by paper-parity benchmarks (Figs. 3/4, Sec. 5).
 PAPER_GPUS = ["P4000", "P100", "V100", "RTX2070", "RTX2080Ti", "T4"]

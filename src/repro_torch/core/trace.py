@@ -1,13 +1,44 @@
-"""Trace data model and wire format (``repro.core.trace`` without JAX).
+"""Operation tracking: the port of ``repro.core.trace``.
 
 A :class:`TrackedTrace` is an ordered list of :class:`Op` records, each
 carrying its analytical cost (flops/bytes), its MLP feature vector, its
-kernel-alike/kernel-varying classification and its origin-measured time.
-This module ports the records, the strict JSON codec
-(:class:`TraceValidationError`) and the content fingerprint; recording a
-training step (the tracker) comes in a later part of the port.  Arrays
-stay host numpy and the fingerprint is a sha1 over their bytes, so the
-two packages agree on result-cache keys and router shards.
+kernel-alike/kernel-varying classification and its origin-measured time,
+with the reference's strict JSON codec (:class:`TraceValidationError`)
+and content fingerprint.  Arrays stay host numpy and the fingerprint is a
+sha1 over their bytes, so the two packages agree on result-cache keys and
+router shards.
+
+:class:`OperationTracker` records a step as the paper's tracker does
+(Sec. 4.1, Listing 1)::
+
+    tracker = OperationTracker("H100-SXM", measure="wallclock")
+    trace = tracker.track(iteration, params, batch)
+    print(trace.to_device("V100").run_time_ms)
+
+The reference walks a jaxpr; eager PyTorch has none, so ``track`` runs
+the step once under a ``TorchDispatchMode`` on the device of its tensors
+and records one :class:`Op` per aten call the mode sees, below autograd,
+so a training iteration's backward ops are recorded too (on CUDA the
+autograd engine runs them on its device thread, which carries the mode).
+Kinds follow the reference: ``mm``/``addmm`` (2-D after folding) are
+``linear``, ``bmm``/``baddbmm`` are ``bmm`` (a batch of 1 is ``linear``,
+as ``_classify_dot`` has it), ``convolution`` and each gradient of
+``convolution_backward`` are ``conv2d`` with the reference's params (the
+gradients' as JAX's transposed convolutions record them), and every
+other op is its own kind, named with the reference's primitive name
+(:func:`repro_torch.core.costmodel.prim_name`).  Autograd's bookkeeping
+(``detach``, ``alias``) launches nothing and is not recorded.
+
+A ``lax.scan`` whose body holds a matmul is one ``recurrent`` op in the
+reference; its counterpart here is :func:`recurrent_scan`, whose forward
+and backward each run inside a region the tracker collapses into one
+``recurrent`` op with the region's summed cost and the reference's
+``_recurrent_params``.
+
+The port's own kernels are ``ctypes`` calls (``kernels/build.py``), which
+no dispatch mode sees, so a step tracked here must run plain ops: the
+evalzoo nets do, the Transformer runs with ``use_flash=False`` (dense
+attention) and ``decode_step`` uses plain decode attention.
 """
 
 from __future__ import annotations
@@ -17,11 +48,14 @@ import hashlib
 import math
 import numbers
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 
-from repro_torch.core import devices
+from repro_torch.core import costmodel, devices
 from repro_torch.core.costmodel import OpCost
 
 # Operation kinds.  The first four match the paper's kernel-varying set
@@ -44,6 +78,11 @@ class Op:
     dtype: str = "float32"
     measured_ms: Optional[float] = None   # T_o on the origin device
     predicted_ms: Optional[float] = None  # T_d after scaling
+    #: the aten calls this op ran, as the tracker recorded them
+    #: (:class:`AtenCall`; a ``recurrent`` op's region holds several),
+    #: which ``wallclock`` replays; not part of the wire format
+    calls: Tuple["AtenCall", ...] = dataclasses.field(
+        default=(), repr=False, compare=False)
 
     @property
     def kernel_varying(self) -> bool:
@@ -304,6 +343,14 @@ class TrackedTrace:
     ops: List[Op]
     origin_device: str
     label: str = "iteration"
+    #: share of the iteration's time ``measure("wallclock")`` timed for
+    #: real (the rest fell back to the simulator); None otherwise
+    covered_fraction: Optional[float] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    #: device type of the tracked tensors ("cpu" / "cuda"), None for a
+    #: decoded trace: ``measure("wallclock")`` checks it against the origin
+    device_type: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
     _arrays: Optional[TraceArrays] = dataclasses.field(
         default=None, repr=False, compare=False)
     _fp: Optional[str] = dataclasses.field(
@@ -443,7 +490,11 @@ class TrackedTrace:
         return TrackedTrace.from_dict(doc)
 
     def measure(self, method: str = "simulate") -> "TrackedTrace":
-        """Fill ``measured_ms`` for every op on the origin device."""
+        """Fill ``measured_ms`` for every op on the origin device:
+        ``"simulate"`` with the origin's spec, ``"wallclock"`` by timing
+        each op on the device the origin names (``cpu-host``: the host;
+        ``H100-SXM``: the card), which must be the device the trace was
+        tracked on (``calibration.measure_trace_inplace``)."""
         self._arrays = None  # measured_ms changes under the SoA cache
         self._fp = None
         if method == "simulate":
@@ -451,6 +502,9 @@ class TrackedTrace:
             dev = devices.get(self.origin_device)
             for op in self.ops:
                 op.measured_ms = simulator.op_time_ms(op, dev)
+        elif method == "wallclock":
+            from repro_torch.core import calibration
+            self.covered_fraction = calibration.measure_trace_inplace(self)
         else:
             raise ValueError(f"unknown measure method {method!r}")
         return self
@@ -462,3 +516,311 @@ class TrackedTrace:
         from repro_torch.core import predictor as predictor_mod
         pred = predictor or predictor_mod.default_predictor(device=device)
         return pred.predict_trace(self, dest)
+
+
+# ---------------------------------------------------------------------------
+# The tracker
+# ---------------------------------------------------------------------------
+#: aten calls that are autograd's bookkeeping, not computation: they
+#: launch nothing and the reference's jaxprs have no counterpart
+_UNTRACKED = {"detach", "alias", "lift_fresh"}
+
+
+def _shapes(x) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(t.shape) for t in costmodel.tensors_of(x))
+
+
+def _dtype_name(out) -> str:
+    ts = costmodel.tensors_of(out)
+    return str(ts[0].dtype).replace("torch.", "") if ts else "float32"
+
+
+def _classify_dot(cost_params) -> Tuple[str, Dict[str, Any]]:
+    b = cost_params.get("b", 1)
+    m, n, k = (cost_params.get(x, 1) for x in ("m", "n", "k"))
+    if b > 1:
+        return "bmm", {"b": b, "m": m, "n": n, "k": k}
+    return "linear", {"batch": m, "in_f": k, "out_f": n, "bias": 0,
+                      "b": b, "m": m, "n": n, "k": k}
+
+
+def _conv_geometry(args):
+    """(stride, padding, dilation, transposed, dilated kernel extent) of
+    a convolution's args (``aten.convolution`` and
+    ``aten.convolution_backward`` both carry ``stride, padding, dilation,
+    transposed`` in that order, behind two or three tensors)."""
+    w = args[2] if len(args) == 11 else args[1]
+    at = 4 if len(args) == 11 else 3
+    stride, padding, dilation = (int(args[at][0]), int(args[at + 1][0]),
+                                 int(args[at + 2][0]))
+    kd = dilation * (w.shape[2] - 1) + 1
+    return stride, padding, dilation, bool(args[at + 3]), kd
+
+
+def _classify_conv(args) -> Dict[str, Any]:
+    """The reference's ``_classify_conv`` params of ``aten.convolution``.
+
+    A transposed convolution is recorded as JAX's ``conv_transpose``
+    records it: the convolution of the stride-dilated input with the
+    flipped kernel, so stride 1 and padding ``kd - 1 - padding``."""
+    x, w = args[0], args[1]
+    stride, padding, _, transposed, kd = _conv_geometry(args)
+    groups = int(args[8])
+    if transposed:
+        return {"batch": x.shape[0], "in_ch": x.shape[1],
+                "out_ch": w.shape[1] * groups, "kernel": w.shape[2],
+                "stride": 1, "padding": kd - 1 - padding,
+                "image": x.shape[2]}
+    return {"batch": x.shape[0], "in_ch": x.shape[1], "out_ch": w.shape[0],
+            "kernel": w.shape[2], "stride": stride, "padding": padding,
+            "image": x.shape[2]}
+
+
+def _conv_grad_params(which: str, args) -> Dict[str, Any]:
+    """Params of one gradient of ``aten.convolution_backward``, as the
+    reference's ``_classify_conv`` records the convolution JAX's VJP runs
+    for it (``_conv_general_dilated_transpose_lhs`` / ``_rhs``): the grad
+    input convolves the grad output with the kernel (stride 1 and padding
+    ``kd - 1 - p`` for a plain convolution, the forward stride and
+    padding for a transposed one); the grad weight convolves the input,
+    batch and channels swapped, with the grad output as its kernel."""
+    go, x = args[0], args[1]
+    stride, padding, dilation, transposed, kd = _conv_geometry(args)
+    if which == "input":
+        return {"batch": go.shape[0], "in_ch": go.shape[1],
+                "out_ch": x.shape[1], "kernel": args[2].shape[2],
+                "stride": stride if transposed else 1,
+                "padding": padding if transposed else kd - 1 - padding,
+                "image": go.shape[2]}
+    return {"batch": x.shape[1], "in_ch": x.shape[0], "out_ch": go.shape[1],
+            "kernel": go.shape[2], "stride": 1 if transposed else dilation,
+            "padding": kd - 1 - padding if transposed else padding,
+            "image": x.shape[2]}
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor operand of a recorded aten call: what a replay needs to
+    make one like it (the values are drawn anew)."""
+    shape: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class AtenCall:
+    """One aten call as the tracker saw it, tensors as
+    :class:`TensorSpec`: ``func(*args, **kwargs)`` again on fresh
+    operands times the kernel the iteration ran."""
+    func: Any
+    args: Tuple[Any, ...]
+    kwargs: Dict[str, Any]
+
+
+def _spec(x):
+    if isinstance(x, torch.Tensor):
+        return TensorSpec(tuple(x.shape), tuple(x.stride()), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_spec(v) for v in x)
+    return x
+
+
+def _ops_of(func, args, kwargs, out) -> List[Op]:
+    """The Op records of one aten call (one, or one per gradient of a
+    ``convolution_backward``, each replaying that gradient alone)."""
+    operands = tuple(args) + tuple(kwargs.values())
+    spec_args = _spec(tuple(args))
+    spec_kwargs = {k: _spec(v) for k, v in kwargs.items()}
+    if costmodel.packet_name(func) == "convolution_backward":
+        ops = []
+        for which, cost, _ in costmodel.conv_grad_costs(args, out):
+            slot = ("input", "weight", "bias").index(which)
+            grad = out[slot]
+            mask = [i == slot for i in range(3)]
+            call = AtenCall(func, spec_args[:10] + (mask,), spec_kwargs)
+            if which == "bias":
+                ops.append(Op(name="reduce_sum", kind="reduce_sum",
+                              cost=cost, in_shapes=_shapes(args[0]),
+                              out_shapes=_shapes(grad),
+                              dtype=_dtype_name(grad), calls=(call,)))
+                continue
+            reads = (args[0], args[2]) if which == "input" \
+                else (args[1], args[0])
+            ops.append(Op(name="conv_general_dilated", kind="conv2d",
+                          cost=cost, params=_conv_grad_params(which, args),
+                          in_shapes=_shapes(reads), out_shapes=_shapes(grad),
+                          dtype=_dtype_name(grad), calls=(call,)))
+        return ops
+    cost, cparams = costmodel.op_cost(func, operands, out)
+    name = costmodel.prim_name(func)
+    if name == "dot_general":
+        kind, params = _classify_dot(cparams)
+        if costmodel.packet_name(func).rstrip("_") in ("addmm", "addmv"):
+            params["bias"] = 1
+    elif name == "conv_general_dilated":
+        kind, params = "conv2d", _classify_conv(args)
+    else:
+        kind, params = name, dict(cparams)
+    return [Op(name=name, kind=kind, cost=cost, params=params,
+               in_shapes=_shapes(operands), out_shapes=_shapes(out),
+               dtype=_dtype_name(out),
+               calls=(AtenCall(func, spec_args, spec_kwargs),))]
+
+
+def _recurrent_params(region: Sequence[Op], seq: int) -> Dict[str, Any]:
+    """The reference's ``_recurrent_params`` over a region's matmuls:
+    the largest m, k and n of its dot products."""
+    hidden = batch = in_f = 1
+    for op in region:
+        if op.name == "dot_general":
+            batch = max(batch, op.params.get("m", 1))
+            in_f = max(in_f, op.params.get("k", 1))
+            hidden = max(hidden, op.params.get("n", 1))
+    return {"batch": batch, "in_f": in_f, "hidden": hidden, "seq": seq,
+            "layers": 1, "bidir": 0, "bias": 0}
+
+
+class _Recorder(TorchDispatchMode):
+    """The dispatch mode behind :class:`OperationTracker`: appends the Op
+    records of every aten call, or of an open :func:`recurrent_scan`
+    region, which closes into one ``recurrent`` op."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: List[Op] = []
+        self.device_types: set = set()
+        self._regions: List[List[Op]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if costmodel.packet_name(func) not in _UNTRACKED:
+            for t in costmodel.tensors_of(out):
+                self.device_types.add(t.device.type)
+            sink = self._regions[-1] if self._regions else self.ops
+            sink.extend(_ops_of(func, args, kwargs, out))
+        return out
+
+    def open_region(self) -> None:
+        self._regions.append([])
+
+    def close_region(self, seq: int, inputs, outputs) -> None:
+        region = self._regions.pop()
+        cost = OpCost()
+        for op in region:
+            cost = cost + op.cost
+        sink = self._regions[-1] if self._regions else self.ops
+        sink.append(Op(name="scan", kind="recurrent", cost=cost,
+                       params=_recurrent_params(region, seq),
+                       in_shapes=_shapes(inputs), out_shapes=_shapes(outputs),
+                       dtype=_dtype_name(outputs),
+                       calls=tuple(c for op in region for c in op.calls)))
+
+
+def _active_recorder() -> Optional[_Recorder]:
+    for mode in _get_current_dispatch_mode_stack():
+        if isinstance(mode, _Recorder):
+            return mode
+    return None
+
+
+def _scan_loop(cell, carry, xs, consts):
+    ys = []
+    for t in range(xs.shape[0]):
+        carry, y = cell(carry, xs[t], *consts)
+        ys.append(y)
+    return tuple(carry), torch.stack(ys)
+
+
+class _RecurrentScan(torch.autograd.Function):
+    """One recurrent region forward, one backward.  The forward keeps
+    the cell loop's own autograd graph (as JAX keeps a scan's residuals)
+    and the backward differentiates through it: recomputing the loop
+    there would add the forward's matmuls to the backward region, which
+    JAX's transposed scan does not run."""
+
+    @staticmethod
+    def forward(ctx, cell, n_carry, xs, *tensors):
+        ctx.set_materialize_grads(False)
+        rec = _active_recorder()
+        if rec is not None:
+            rec.open_region()
+        inputs = (xs,) + tensors
+        if any(ctx.needs_input_grad[2:]):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(t.requires_grad)
+                          for t in inputs]
+                carry, ys = _scan_loop(cell, tuple(leaves[1:1 + n_carry]),
+                                       leaves[0], leaves[1 + n_carry:])
+            ctx.leaves, ctx.outs = leaves, carry + (ys,)
+            outs = tuple(o.detach() for o in ctx.outs)
+        else:
+            carry, ys = _scan_loop(cell, tensors[:n_carry], xs,
+                                   tensors[n_carry:])
+            outs = carry + (ys,)
+        if rec is not None:
+            rec.close_region(xs.shape[0], inputs, outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rec = _active_recorder()
+        if rec is not None:
+            rec.open_region()
+        pairs = [(o, g) for o, g in zip(ctx.outs, grads)
+                 if g is not None and o.requires_grad]
+        wanted = [i for i, t in enumerate(ctx.leaves) if t.requires_grad
+                  and ctx.needs_input_grad[2 + i]]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [ctx.leaves[i] for i in wanted],
+                                  [g for _, g in pairs], allow_unused=True)
+        out: List[Optional[torch.Tensor]] = [None] * len(ctx.leaves)
+        for i, g in zip(wanted, got):
+            out[i] = g
+        if rec is not None:
+            rec.close_region(ctx.outs[-1].shape[0], grads,
+                             [g for g in out if g is not None])
+        del ctx.leaves, ctx.outs
+        return (None, None, *out)
+
+
+def recurrent_scan(cell: Callable, carry: Sequence[torch.Tensor],
+                   xs: torch.Tensor,
+                   consts: Sequence[torch.Tensor] = ()):
+    """``lax.scan`` for a cell that holds a matmul: the port's
+    ``recurrent`` op.
+
+    ``cell(carry, x_t, *consts) -> (carry, y_t)`` runs for each
+    ``x_t = xs[t]``; returns ``(final carry, ys)`` with ``ys`` stacked on
+    a leading axis.  ``carry`` is a tuple of tensors and ``consts`` the
+    tensors the cell reads at every step (weights), both differentiable.
+    Under :class:`OperationTracker` the forward loop is one ``recurrent``
+    op, and its backward another, as the reference records a scan and its
+    transpose.  Eager PyTorch's ``nn.LSTM`` is not used: on CUDA it runs
+    cuDNN's fused RNN, on the CPU a loop of matmuls, so the card and the
+    CPU would give different traces."""
+    carry = tuple(carry)
+    outs = _RecurrentScan.apply(cell, len(carry), xs, *carry, *consts)
+    return tuple(outs[:-1]), outs[-1]
+
+
+class OperationTracker:
+    """Tracks a step function and measures per-op times on the origin
+    (see the module docstring)."""
+
+    def __init__(self, origin_device: str = "cpu-host",
+                 measure: str = "simulate"):
+        self.origin_device = origin_device
+        self.measure_method = measure
+
+    def track(self, fn, *args, label: str = "iteration",
+              **kwargs) -> TrackedTrace:
+        """Run ``fn(*args, **kwargs)`` once, recording its aten calls."""
+        with _Recorder() as rec:
+            fn(*args, **kwargs)
+        kinds = rec.device_types
+        trace = TrackedTrace(
+            ops=rec.ops, origin_device=self.origin_device, label=label,
+            device_type=("cuda" if "cuda" in kinds else
+                         "cpu" if kinds else None))
+        return trace.measure(self.measure_method)

@@ -49,7 +49,10 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = _mask(qpos, kpos, causal, int(window))
     s = s.masked_fill(~m, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkrqs,bskd->bqkrd", p, v.to(torch.float32))
+    # the product in the layout JAX's einsum computes it (v's free dim
+    # first), so a tracked step records the reference's (m, n) orientation
+    out = torch.einsum("bskd,bkrqs->bkdrq", v.to(torch.float32), p)
+    out = out.permute(0, 4, 1, 3, 2)
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 

@@ -3,9 +3,10 @@
 A copy of ``repro.models.config`` (same fields, defaults and properties,
 so a config means the same model in both packages).  One
 :class:`ModelConfig` per architecture (see ``repro_torch.configs``), one
-:class:`ShapeConfig` per assigned input-shape cell.  Execution fields the
-port does not read (``remat``, the sharding profiles, ``use_flash``,
-``attn_chunk_*``, ``train_accum_steps``) are kept as data.
+:class:`ShapeConfig` per assigned input-shape cell.  ``use_flash`` picks
+the prefill attention (kernel 1, or the dense score matrix when off);
+execution fields the port does not read (``remat``, the sharding
+profiles, ``attn_chunk_*``, ``train_accum_steps``) are kept as data.
 """
 
 from __future__ import annotations

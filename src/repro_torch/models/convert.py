@@ -4,14 +4,15 @@
 arrays (``jax.tree.map(np.asarray, params)``: layers stacked on a leading
 axis, as ``lax.scan`` wants them) and returns the port's
 :class:`~repro_torch.models.transformer.LMParams` holding the same
-numbers, so both packages compute the same function.  It imports no JAX:
-bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are reinterpreted
-bit for bit.
+numbers, so both packages compute the same function;
+:func:`evalzoo_params_from_jax` does the same for the Table-4 nets of
+``models.evalzoo``.  It imports no JAX: bfloat16 arrays (numpy's
+``ml_dtypes`` extension type) are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -51,3 +52,27 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         {k: _tensor(np.asarray(v)[i], dev) for k, v in stacked.items()}
         for i in range(n)]
     return LMParams(top, layers)
+
+
+def evalzoo_params_from_jax(name: str, tree: Mapping, cfg=None,
+                            device=None) -> Any:
+    """The reference evalzoo net ``name``'s parameter tree, as numpy, in
+    the port's layout on ``device`` (default ``cuda``), requiring grad.
+
+    The vision nets and GNMT keep the reference's nested dicts, names
+    and layouts (OIHW kernels, ``(in, out)`` dense weights), so each leaf
+    converts as it is; the Transformer's stacked layers go through
+    :func:`params_from_jax` with its ``cfg``
+    (``evalzoo.transformer_config``)."""
+    dev = torch_device(device)
+    if name == "transformer":
+        params = params_from_jax(cfg, tree, dev)
+        for t in params.parameters():
+            t.requires_grad_(True)
+        return params
+
+    def go(v):
+        if isinstance(v, Mapping):
+            return {k: go(x) for k, x in v.items()}
+        return _tensor(v, dev).requires_grad_(True)
+    return go(tree)

@@ -59,3 +59,14 @@ def init_dense(shape: Sequence[int], dtype: torch.dtype,
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * scale).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Token-level CE in fp32 (the reference's, whose z-loss term no
+    caller turns on)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(
+        logits, -1, labels.to(torch.long)[..., None])[..., 0]
+    return torch.mean(logz - label_logits)

@@ -11,10 +11,13 @@
 Parameters are an :class:`LMParams` module: the top-level tensors as
 attributes and one ``nn.ParameterDict`` per layer in an
 ``nn.ModuleList`` (the reference stacks layers for ``lax.scan``; here a
-Python loop walks them).  Prefill attention always runs kernel 1 (the
-reference picks dense or chunked jnp attention by length; all three
-compute the same function), and the Mamba2 scan kernel 2.  The moe,
-hybrid, vlm and audio families raise ``NotImplementedError``.
+Python loop walks them).  Prefill attention runs kernel 1 (the reference
+picks dense or chunked jnp attention by length; all three compute the
+same function) unless ``cfg.use_flash`` is off, which selects the dense
+score-matrix attention (the evalzoo Transformer's: a tracked training
+step must run plain ops); the Mamba2 scan runs kernel 2.  ``loss_fn``
+is the training loss of the dense family.  The moe, hybrid, vlm and
+audio families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from repro_torch.core.devices import torch_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, init_dense, rms_norm, swiglu
+from repro_torch.models.layers import (apply_rope, cross_entropy, init_dense,
+                                       rms_norm, swiglu)
 
 FAMILIES = ("dense", "ssm")
 
@@ -39,7 +43,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"(ported: {FAMILIES}; see ROADMAP.md, queue 1 item 7)")
+            f"(ported: {FAMILIES}; see ROADMAP.md, queue 1 item 4)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,7 +55,8 @@ class LMParams(nn.Module):
     ``final_norm``, ``lm_head`` unless tied) by name, and ``layers``, one
     ``nn.ParameterDict`` per layer (for ssm layers, ``ln`` beside the
     Mamba2 block's tensors).  ``params["embed"]`` reads like the
-    reference's parameter dict.  Inference only: no tensor needs grad."""
+    reference's parameter dict.  No tensor needs grad; a trainer turns
+    it on (``models.evalzoo``)."""
 
     def __init__(self, top: Dict[str, torch.Tensor],
                  layers: Sequence[Dict[str, torch.Tensor]]):
@@ -161,7 +166,9 @@ def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
                     positions: torch.Tensor):
     b, s, _ = x.shape
     q, k, v = _qkv(blk, x, cfg, positions)
-    o = attn_mod.flash_attention(q, k, v, causal=True, window=window)
+    attend = (attn_mod.flash_attention if cfg.use_flash
+              else attn_mod.dense_attention)
+    o = attend(q, k, v, causal=True, window=window)
     x = x + o.reshape(b, s, -1) @ blk["wo"]
     hn = rms_norm(x, blk["ln2"], cfg.norm_eps)
     x = x + swiglu(hn, blk["w_gate"], blk["w_up"], blk["w_down"])
@@ -212,6 +219,15 @@ def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor
             x, _ = _attn_mlp_block(layer, x, cfg, int(window), positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: LMParams, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` plus the aux loss: ``(loss, {"ce", "aux"})``."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

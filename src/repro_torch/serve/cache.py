@@ -2,18 +2,31 @@
 
 :class:`LRUCache` is the in-process ``OrderedDict`` LRU (hit moves to
 tail, plain assignment appends, overflow pops the head, every probe
-counted).  The shared sqlite and network backends of the reference come
-with the serving-stack part of the port.  Keys are the planner's
+counted).  :class:`SqliteCache` is the cross-process shared store (one
+sqlite file in WAL mode): a (trace, device) cell priced by one worker is
+a hit for the next, while hit/miss/eviction accounting stays per worker.
+Its table, key encoding (``repr`` of the key tuple) and sealed value
+digest (column ``d``) are the reference's, so a database file written by
+either package reads back in the other.  The network backend
+(``tcp://``) comes with the serving stack.  Keys are the planner's
 ``(fingerprint, device, config_key, fleet_token)`` tuples; values are
-float64 milliseconds.
+float64 milliseconds (sqlite REAL is an IEEE double, so round trips are
+bitwise exact).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sqlite3
+import struct
+import sys
 import threading
 from collections import OrderedDict
-from typing import Iterable, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
+
+from repro_torch.core import integrity
+from repro_torch.serve import faults
 
 #: a planner cache key: (trace fingerprint, device, config_key, fleet_token)
 Key = Tuple
@@ -115,6 +128,181 @@ class LRUCache:
         return len(self.data)
 
 
+class SqliteCache:
+    """Cross-process shared backend: one sqlite file, N workers.
+
+    * WAL journaling + a busy timeout make concurrent reader/writer
+      workers safe without any cross-process lock of our own.
+    * Reads are PURE reads (no tick refresh): WAL allows any number of
+      concurrent readers but only one writer, so a hit must never queue
+      on the write lock — the hot path this cache exists to serve.
+      Eviction order is therefore write-recency (a monotone ``tick``
+      bumped on insert/overwrite), not strict LRU.  Ticks are minted
+      **in SQL, inside the insert's own write transaction**
+      (``MAX(tick) + 1`` evaluated under the writer lock), so N
+      concurrent workers always mint disjoint, globally increasing
+      ticks.  A per-connection counter seeded at open — the previous
+      scheme — let workers that opened early mint ticks far below the
+      table's current max, and eviction (``ORDER BY tick``) would then
+      drop another worker's *freshest* entries.
+    * ``stats`` counts only THIS worker's probes/evictions; the shared
+      entry count is ``len(backend)``.
+    """
+
+    _SCHEMA = ("CREATE TABLE IF NOT EXISTS cache ("
+               "k TEXT PRIMARY KEY, ms REAL NOT NULL, "
+               "tick INTEGER NOT NULL, d BLOB)")
+
+    def __init__(self, path: Union[str, Path], capacity: int = 262144):
+        self.path = Path(path)
+        self.capacity = capacity
+        self.stats = CacheStats()
+        self.recreated = 0              # corrupt DB files replaced at open
+        self._lock = threading.Lock()   # serializes this worker's conn
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        try:
+            self._conn = self._open()
+        except sqlite3.DatabaseError as e:
+            # a corrupt/truncated DB file must cost this worker its
+            # persisted warmth, never its startup: recreate a fresh
+            # store in place (the shared entries are a cache, not a
+            # source of truth) and carry on
+            print(f"sqlite cache at {self.path} is corrupt ({e}); "
+                  f"recreating a fresh store", file=sys.stderr)
+            integrity.COUNTERS.bump("sqlite")
+            self.recreated += 1
+            for suffix in ("", "-wal", "-shm"):
+                Path(str(self.path) + suffix).unlink(missing_ok=True)
+            self._conn = self._open()
+
+    def _open(self) -> sqlite3.Connection:
+        """Connect + PRAGMAs + schema; raises ``sqlite3.DatabaseError``
+        on a corrupt file (``connect`` succeeds lazily — the first
+        statement is where garbage bytes surface)."""
+        conn = sqlite3.connect(self.path, timeout=30.0,
+                               check_same_thread=False)
+        try:
+            with self._lock:
+                conn.execute("PRAGMA journal_mode=WAL")
+                conn.execute("PRAGMA synchronous=NORMAL")
+                conn.execute(self._SCHEMA)
+                cols = [r[1] for r in conn.execute(
+                    "PRAGMA table_info(cache)")]
+                if "d" not in cols:     # pre-integrity stores: add the
+                    conn.execute(       # digest column, legacy rows NULL
+                        "ALTER TABLE cache ADD COLUMN d BLOB")
+                conn.commit()
+        except sqlite3.DatabaseError:
+            conn.close()
+            raise
+        return conn
+
+    def describe(self) -> str:
+        return f"sqlite({self.path}, capacity={self.capacity})"
+
+    @staticmethod
+    def _encode(key: Key) -> str:
+        # planner keys hold only str/bool/int/tuple primitives, whose repr
+        # is deterministic and identical across worker processes
+        return repr(key)
+
+    @staticmethod
+    def _digest(enc_key: str, ms: float) -> bytes:
+        """Row checksum binding the value to ITS key: a torn write or a
+        bit flip in either breaks verification, and the row degrades to
+        a miss rather than serving a wrong cell into the planner."""
+        return integrity.digest(
+            enc_key.encode() + struct.pack("!d", float(ms)))
+
+    def _decode(self, enc_key: str, row) -> Optional[float]:
+        """Verify-and-decode one fetched row; None (a miss) when the
+        checksum fails.  Legacy rows (NULL digest, written before the
+        integrity column existed) are served unverified."""
+        ms, d = float(row[0]), row[1]
+        try:
+            faults.inject("cache.corrupt")
+        except OSError:
+            d = b"\x00" * integrity.DIGEST_BYTES    # simulate a bad row
+        if d is not None and bytes(d) != self._digest(enc_key, ms):
+            integrity.COUNTERS.bump("sqlite")
+            return None
+        return ms
+
+    def get(self, key: Key) -> Optional[float]:
+        enc = self._encode(key)
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT ms, d FROM cache WHERE k = ?", (enc,)).fetchone()
+        ms = None if row is None else self._decode(enc, row)
+        if ms is None:
+            self.stats.misses += 1
+            return None
+        self.stats.hits += 1
+        return ms
+
+    def get_many(self, keys: Sequence[Key]) -> List[Optional[float]]:
+        """Batched :meth:`get` (pure reads, one lock hold)."""
+        out: List[Optional[float]] = []
+        with self._lock:
+            rows = [self._conn.execute(
+                "SELECT ms, d FROM cache WHERE k = ?",
+                (self._encode(key),)).fetchone() for key in keys]
+        for key, row in zip(keys, rows):
+            ms = None if row is None else \
+                self._decode(self._encode(key), row)
+            if ms is None:
+                self.stats.misses += 1
+                out.append(None)
+            else:
+                self.stats.hits += 1
+                out.append(ms)
+        return out
+
+    def put_many(self, items: Sequence[Tuple[Key, float]]) -> None:
+        items = list(items)
+        if not items:
+            return
+        with self._lock:
+            rows = []
+            for key, ms in items:
+                enc = self._encode(key)
+                rows.append((enc, float(ms), self._digest(enc, ms)))
+            # the tick subquery runs inside this statement's write
+            # transaction, so it sees every committed write from every
+            # worker (and this batch's earlier rows): ticks are globally
+            # monotone and collision-free without any cross-process
+            # coordination of our own
+            self._conn.executemany(
+                "INSERT INTO cache (k, ms, tick, d) VALUES (?, ?, "
+                "(SELECT COALESCE(MAX(tick), 0) + 1 FROM cache), ?) "
+                "ON CONFLICT(k) DO UPDATE SET ms=excluded.ms, "
+                "tick=excluded.tick, d=excluded.d", rows)
+            over = (self._conn.execute(
+                "SELECT COUNT(*) FROM cache").fetchone()[0] - self.capacity)
+            if over > 0:
+                cur = self._conn.execute(
+                    "DELETE FROM cache WHERE k IN (SELECT k FROM cache "
+                    "ORDER BY tick LIMIT ?)", (over,))
+                self.stats.evictions += cur.rowcount
+            self._conn.commit()
+
+    def clear(self) -> None:
+        """Drop all SHARED entries and reset this worker's counters."""
+        with self._lock:
+            self._conn.execute("DELETE FROM cache")
+            self._conn.commit()
+            self.stats = CacheStats()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return int(self._conn.execute(
+                "SELECT COUNT(*) FROM cache").fetchone()[0])
+
+    def close(self) -> None:
+        with self._lock:
+            self._conn.close()
+
+
 #: the full backend protocol every consumer relies on: the planner probes
 #: with ``get``/``get_many`` and fills with ``put_many``; ``stats``,
 #: ``describe``, ``clear`` and ``__len__`` serve accounting and tooling.
@@ -125,20 +313,23 @@ BACKEND_PROTOCOL = ("get", "get_many", "put_many", "stats", "describe",
 def make_backend(cache=None, capacity: int = 4096):
     """Resolve a cache spelling to a backend instance.
 
-    ``None`` -> fresh in-process LRU of ``capacity`` entries; a ready
-    backend passes through after full-protocol validation.  Paths and
-    ``tcp://`` addresses (the reference's shared backends) are not
-    ported yet and raise."""
+    ``None`` -> fresh in-process LRU of ``capacity`` entries; a str/Path
+    -> sqlite shared backend at that file (``capacity`` honored exactly);
+    a ready backend passes through after full-protocol validation.  A
+    ``tcp://`` address (the reference's network backend) is not ported
+    yet and raises."""
     if cache is None:
         return LRUCache(capacity)
-    if isinstance(cache, str) or hasattr(cache, "__fspath__"):
+    if isinstance(cache, str) and cache.startswith("tcp://"):
         raise NotImplementedError(
-            f"shared cache backend {cache!r}: the sqlite and network "
-            f"backends are not ported yet; pass None or a backend object")
+            f"network cache backend {cache!r}: netcache comes with the "
+            f"serving stack; pass None, a sqlite path or a backend object")
+    if isinstance(cache, (str, Path)):
+        return SqliteCache(cache, capacity=capacity)
     missing = [name for name in BACKEND_PROTOCOL
                if not hasattr(cache, name)]
     if not missing:
         return cache
     raise TypeError(
-        f"not a cache backend: {cache!r} (missing "
+        f"not a cache backend or path: {cache!r} (missing "
         f"{', '.join(missing)} of the protocol {BACKEND_PROTOCOL})")

@@ -28,7 +28,7 @@ from repro_torch.core.trace import TrackedTrace
 from repro_torch.serve.cache import CacheStats, make_backend
 
 __all__ = ["CacheStats", "FleetChoice", "FleetPlanner", "format_fleet",
-           "rank_rows"]
+           "format_sweep", "rank_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,3 +383,27 @@ class FleetPlanner:
 def format_fleet(choices: Sequence[FleetChoice]) -> str:
     """Human-readable ranking table (same layout as ``cost.format_ranking``)."""
     return cost_mod.format_ranking(choices)
+
+
+def format_sweep(labels: Sequence[str], times: Sequence[Dict[str, float]],
+                 top: int = 5) -> str:
+    """Human-readable sweep grid: one row per trace, fastest devices first.
+
+    Columns are the union of each trace's ``top`` fastest devices, so the
+    table stays readable even against the full registry."""
+    cols: List[str] = []
+    for row in times:
+        for name in sorted(row, key=row.get)[:top]:
+            if name not in cols:
+                cols.append(name)
+    label_w = max([len("trace")] + [len(lb) for lb in labels])
+    col_w = max([10] + [len(c) + 1 for c in cols])
+    lines = [" ".join([f"{'trace':<{label_w}}"]
+                      + [f"{c:>{col_w}}" for c in cols] + ["   best"])]
+    for lb, row in zip(labels, times):
+        best = min(row, key=row.get)
+        cells = [f"{row[c]:>{col_w}.3f}" if c in row
+                 else f"{'-':>{col_w}}" for c in cols]
+        lines.append(" ".join([f"{lb:<{label_w}}"] + cells
+                              + [f"   {best}"]))
+    return "\n".join(lines)

@@ -126,14 +126,17 @@ def test_zero_price_is_free_not_unpriced(monkeypatch):
     assert cost.cost_normalized_throughput(16, 1.0, 0.0) == float("inf")
 
 
-def test_make_backend_contract():
+def test_make_backend_contract(tmp_path):
     assert isinstance(pt_cache.make_backend(None, 8), pt_cache.LRUCache)
     lru = pt_cache.LRUCache(2)
     assert pt_cache.make_backend(lru) is lru
     with pytest.raises(TypeError, match="protocol"):
         pt_cache.make_backend(object())
-    with pytest.raises(NotImplementedError):
-        pt_cache.make_backend("cache.sqlite")
+    with pytest.raises(NotImplementedError, match="netcache"):
+        pt_cache.make_backend("tcp://127.0.0.1:1")
+    sq = pt_cache.make_backend(tmp_path / "cache.sqlite", 8)
+    assert isinstance(sq, pt_cache.SqliteCache) and sq.capacity == 8
+    sq.close()
     lru.put_many([(("a",), 1.0), (("b",), 2.0), (("c",), 3.0)])
     assert len(lru) == 2 and lru.stats.evictions == 1
     assert lru.get_many([("a",), ("c",)]) == [None, 3.0]
