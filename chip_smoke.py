@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's four paths on the card and checks every phase; any
+Drives the port's five paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
@@ -10,7 +10,10 @@ trains the default predictor and the paper's full-width MLPs on the card
 and serves them through the ``fused_mlp`` kernel; the tracking path
 records a training iteration of each of the paper's five Table-4 nets on
 the card, times every op there, and predicts the iterations on the
-registry through both scorer kernels (the paper's Listing 1).
+registry through both scorer kernels (the paper's Listing 1); the
+serving path answers rank, sweep and what-if requests through the
+coalescing prediction service, its HTTP front ends, the router and the
+network cache, on the scorer kernels.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit;
    ``calibrate_spec("cuda")``'s achieved fp32 GEMM rate and copy
@@ -130,7 +133,38 @@ registry through both scorer kernels (the paper's Listing 1).
     ``repro_torch.launch.serve.main(["--arch", "qwen3-0.6b", "--fleet",
     "--sweep", ...])`` on the card at the published config with four
     short requests.
-16. A line with the card's name and power limit, a ``{"kernels": [...]}``
+16. The prediction service: ``PredictionService(predictor=
+    HabitatPredictor(phase 4's mlps, device="cuda"))`` behind the threaded
+    ``PredictionServer`` and the ``AsyncPredictionServer``, both in
+    process on port 0.  Each takes a cold burst and then the same burst
+    warm: 64 concurrent ``/rank`` clients over the 37 traces (phase 4's 32
+    and phase 14's 5) with the fleet minus five or the registry's six
+    GPUs, then 8 ``/sweep``s of 4-6 traces (the 37 and phase 4's 4 new
+    ones), 16 ``/rank``s and 2 ``/optimize``s over the whole registry,
+    and on the asyncio server one ``/sweep/stream``; a shed request is
+    sent again after its ``Retry-After``.  Gates: every answer 200 and
+    within rtol 1e-4 of the CPU plain path, engine passes fewer than
+    requests, each scorer kernel launched by the served union passes
+    (counts set to 0 before the first burst, read after the cold ones),
+    the warm burst all result-cache hits with 0 launches and equal
+    answers, the SSE rows equal to ``/sweep``'s, a burst over an
+    admission limit shed with 429/503 and ``Retry-After`` (never 500),
+    ``deadline_ms`` 1 answered 504, a ``SnapshotManager`` snapshot
+    restored into a fresh service answering the first round again with
+    0 engine passes and equal bytes, and a drain quiescing.  Logged:
+    requests/s and p50/p99 latency per route, engine passes per request,
+    union and split counts, the fitted pass model, one cold and one
+    cell-masked coalesced union pass under ``torch.profiler`` (the
+    scorer's launches, its layer GEMMs' device ms, the device busy
+    share), snapshot bytes and restore seconds.  Then as processes:
+    ``launch.serve --cache-server`` and ``launch.serve --serve --router
+    --workers 2 --fleet-mlps --cache tcp://...`` (phase 10's trained
+    MLPs): 16 ``/rank`` through the router, each trace on one worker,
+    each worker's ``scorer_dispatches.fused`` at least 1, a SIGKILLed
+    worker failed over and restarted by the supervisor (meanwhile
+    ``launch.serve --optimize`` prints a frontier), and exit 0 on
+    SIGTERM.
+17. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels, and last {"ok": true, "device": {...}}.
 
 Weights are random (He init from a numpy seed for the serving MLPs, a
@@ -365,7 +399,9 @@ def drive_path(planner, traces, new_traces, golden_mixed, fleet_minus,
 def check_answers(answers, traces, new_traces, golden_mixed, fleet_minus,
                   mlps, devs):
     """Hold the card's answers against the same predictor on the CPU with
-    the plain scorer: every cell at rtol 1e-4."""
+    the plain scorer: every cell at rtol 1e-4.  Returns that CPU grid of
+    ``traces + new_traces`` over ``devs`` (phase 16 holds its answers to
+    it too)."""
     from repro_torch.core.predictor import HabitatPredictor
     rank_t, rank_c, cold, warm = answers
     cpu = HabitatPredictor(mlps, device="cpu", sweep_scorer="plain")
@@ -393,6 +429,7 @@ def check_answers(answers, traces, new_traces, golden_mixed, fleet_minus,
     times = [c.iter_ms for c in rank_t]
     if times != sorted(times) or len(rank_t) != len(devs):
         fail("rank by throughput is not the whole fleet, fastest first")
+    return want
 
 
 def check_golden(device):
@@ -1766,6 +1803,649 @@ def cli_fleet(torch) -> None:
         log(f"    {line}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the prediction service on the card
+# ---------------------------------------------------------------------------
+#: the registry's six GPUs: one of phase 16's rank fleets
+SERVE_GPUS = ("P100", "P4000", "RTX2070", "RTX2080Ti", "T4", "V100")
+SERVE_RANK_CLIENTS = 64
+#: a front end's admission limit in the overload gate (requests in flight)
+SERVE_OVERLOAD_QUEUE = 8
+#: how long a burst client keeps sending a shed request (429/503) again
+#: after its Retry-After, as the wire protocol asks a client to
+SERVE_PATIENCE_S = 60.0
+#: most sheds a cold burst may take, a request on average: 64 cold
+#: clients at once exceed the 4 s in-flight budget, so some are shed and
+#: sent again; a warm burst, which runs no engine work, may take none
+SERVE_COLD_SHEDS_A_REQUEST = 1.0
+
+
+def _http(url: str, path: str, payload=None, timeout: float = 300.0):
+    """(status, decoded body, headers, seconds) of one request; an HTTP
+    error status is an answer, not an exception.  ``/sweep/stream``'s
+    body is its list of SSE events."""
+    import urllib.error
+    import urllib.request
+    from repro_torch.serve.aserver import iter_sse
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url + path, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = (list(iter_sse(resp)) if path == "/sweep/stream"
+                    else json.loads(resp.read()))
+            out = resp.status, body, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        with e:
+            out = e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+    return (*out, time.perf_counter() - t0)
+
+
+def _burst(url: str, calls: list, patience_s: float = SERVE_PATIENCE_S):
+    """Fire ``calls`` ((route, payload)) from one thread each,
+    barrier-started.  A client whose request is shed (429/503 with
+    ``Retry-After``) waits that long, or longer as its sheds repeat
+    (0.2 s doubling to 4 s), and sends it again, for up to
+    ``patience_s`` seconds.  Returns, in call order, the last answer of
+    each call with its seconds over all attempts and its sheds (status,
+    body, headers, seconds, sheds), and the burst's wall seconds.
+    ``patience_s`` 0 takes the first answer."""
+    import threading
+    results = [None] * len(calls)
+    barrier = threading.Barrier(len(calls))
+
+    def run(i):
+        route, payload = calls[i]
+        barrier.wait()
+        t0, sheds = time.perf_counter(), []
+        try:
+            while True:
+                out = _http(url, route, payload)
+                if out[0] not in (429, 503) or "Retry-After" not in out[2] \
+                        or time.perf_counter() - t0 > patience_s:
+                    break
+                sheds.append(out[0])    # Retry-After, backing off
+                time.sleep(max(float(out[1].get("retry_after_s", 1.0)),
+                               min(0.1 * 2 ** len(sheds), 4.0)))
+            results[i] = (*out[:3], time.perf_counter() - t0, sheds)
+        except Exception as e:          # surfaced by the gates
+            results[i] = (-1, repr(e), {}, time.perf_counter() - t0, sheds)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def serve_traffic(everyone, new_traces, tracked, extra, fleet_minus, doc,
+                  stream: bool):
+    """Phase 16's cold burst in two rounds, as lists of (route, payload).
+
+    Round 1: ``SERVE_RANK_CLIENTS`` ``/rank`` clients, one of the 37
+    traces each, over the registry minus phase 4's five dropped devices
+    or its six GPUs: their union pass misses every cell, so it runs the
+    block scorer.  Round 2, once round 1 has answered: 8 ``/sweep``s of
+    4-6 traces (the 37 between them, and phase 4's 4 new ones), 16
+    ``/rank``s and 2 ``/optimize``s over the whole registry (and one
+    ``/sweep/stream`` where the front end has it): traces warm on round
+    1's devices meet the three it left out, so the union pass is
+    cell-masked and runs the row scorer.  After round 2 every trace is
+    warm on every device: a union pass also prices the cells its
+    co-batched requests did not ask for, so a replay batched otherwise
+    would miss on a trace round 1 priced on a subset alone."""
+    n = len(everyone)
+    round1 = [("/rank", {"trace": doc(everyone[k % n]),
+                         "batch_size": 32,
+                         "by": ("throughput", "cost")[k // 2 % 2],
+                         "dests": (fleet_minus if k % 2 == 0
+                                   else list(SERVE_GPUS))})
+              for k in range(SERVE_RANK_CLIENTS)]
+    round2 = []
+    for j, part in enumerate(np.array_split(np.arange(n), 8)):
+        members = [everyone[i] for i in part] + list(new_traces[j:j + 1])
+        round2.append(("/sweep", {"traces": [doc(t) for t in members]}))
+    round2 += [("/rank", {"trace": doc(everyone[3 * k % n]),
+                          "batch_size": 32}) for k in range(16)]
+    dcgan = next(t for t in tracked if t.label.split("-")[0] == "dcgan")
+    round2 += [("/optimize", {"traces": [doc(extra), doc(dcgan)],
+                              "batch_sizes": [64, 128], "max_replicas": 8,
+                              "seed": 1}),
+               ("/optimize", {"traces": [doc(t) for t in everyone[3:6]],
+                              "batch_sizes": [16, 32, 64], "max_replicas": 8,
+                              "seed": 2})]
+    if stream:
+        round2.append(("/sweep/stream",
+                       {"traces": [doc(t) for t in everyone[8:12]]}))
+    return round1, round2
+
+
+def _percentile_ms(seconds: list, q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def check_served(calls, results, want_of, devs, by_label) -> float:
+    """Every served answer against the CPU plain grid: each (trace,
+    device) cell within rtol 1e-4; the worst relative error."""
+    worst = 0.0
+    for (route, payload), (status, body, *_) in zip(calls, results):
+        if status != 200:
+            fail(f"{route} answered {status}: {str(body)[:300]}")
+        if route == "/rank":
+            want = want_of(payload["trace"])
+            rows = body["ranking"]
+            if len(rows) != len(payload.get("dests") or devs):
+                fail(f"/rank answered {len(rows)} devices")
+            for r in rows:
+                if type(r["iter_ms"]) is not float:
+                    fail(f"/rank iter_ms is not a float: {r}")
+                worst = max(worst, abs(r["iter_ms"] / want[r["device"]] - 1))
+        elif route == "/sweep":
+            for tdoc, row in zip(payload["traces"], body["times"]):
+                want = want_of(tdoc)
+                if sorted(row) != sorted(devs):
+                    fail("/sweep answered another fleet")
+                for d, ms in row.items():
+                    worst = max(worst, abs(ms / want[d] - 1))
+        elif route == "/optimize":
+            if not body["frontier"]:
+                fail("/optimize answered an empty frontier")
+            for c in body["frontier"]:
+                want = by_label[c["label"]]
+                worst = max(worst, abs(c["iter_ms"] / want[c["device"]] - 1))
+        elif route == "/sweep/stream":
+            rows = [p for e, p in body if e == "row"]
+            if body[-1] != ("done", {"count": len(payload["traces"]),
+                                     "errors": 0}):
+                fail(f"/sweep/stream did not finish cleanly: {body[-1]}")
+            for r in rows:
+                want = want_of(payload["traces"][r["index"]])
+                for d, ms in r["times"].items():
+                    worst = max(worst, abs(ms / want[d] - 1))
+    return worst
+
+
+def _answer(body):
+    """A response body, SSE events keyed by row index (they arrive in
+    completion order)."""
+    if isinstance(body, list):
+        return {p.get("index", -1): p for _, p in body}
+    return body
+
+
+def front_end_bursts(fms, kind, server, service, rounds, check) -> dict:
+    """Phase 16 (a) on one front end: the cold burst (``rounds``, one
+    after the other), then the same burst again warm; gates and logs.
+    Returns the cold results, a list a round, and their scorer
+    launches."""
+    out = {}
+    for phase in ("cold", "warm"):
+        before_l, before_s = dict(fms.LAUNCHES), service.stats()
+        results, wall, n = [], 0.0, 0
+        for calls in rounds:
+            res, sec = _burst(server.url, calls)
+            results.append(res)
+            wall += sec
+            n += len(calls)
+        after_l, after_s = dict(fms.LAUNCHES), service.stats()
+        launches = {k: after_l[k] - before_l[k] for k in after_l}
+        passes = after_s["engine_passes"] - before_s["engine_passes"]
+        misses = after_s["cache"]["misses"] - before_s["cache"]["misses"]
+        hits = after_s["cache"]["hits"] - before_s["cache"]["hits"]
+        co_a, co_b = after_s["coalescing"], before_s["coalescing"]
+        co = {k: co_a[k] - co_b[k] for k in ("batches", "union_batches",
+                                             "split_batches", "split_passes",
+                                             "sliced_columns")}
+        by_route = collections.defaultdict(list)
+        for calls, res in zip(rounds, results):
+            for (route, _), r in zip(calls, res):
+                by_route[route].append(r[3])
+        lat = ", ".join(
+            f"{route} x{len(s)} p50 {_percentile_ms(s, 50):.1f} / p99 "
+            f"{_percentile_ms(s, 99):.1f} ms"
+            for route, s in sorted(by_route.items()))
+        log(f"  {kind} {phase}: {n} requests in {wall:.2f} s "
+            f"({n / wall:.1f} req/s); {lat}")
+        sheds = collections.Counter(
+            code for res in results for r in res for code in r[4])
+        log(f"    engine passes {passes} ({passes / n:.3f} a request), "
+            f"coalescing {co}, result cache +{hits} hits +{misses} misses, "
+            f"scorer launches {launches}; shed and retried after "
+            f"Retry-After: {dict(sheds) or 'none'}")
+        n_shed = sum(sheds.values())
+        if n_shed > (SERVE_COLD_SHEDS_A_REQUEST * n if phase == "cold"
+                     else 0):
+            fail(f"{kind} {phase} burst: {n_shed} sheds for {n} requests")
+        worst = max(check(c, r) for c, r in zip(rounds, results))
+        log(f"    answers vs the CPU plain path: max rel err {worst:.3e}")
+        if worst > 1e-4:
+            fail(f"{kind} {phase}: answers off the CPU plain path by "
+                 f"{worst:.3e}")
+        if phase == "cold":
+            if not passes < n:
+                fail(f"{kind}: {passes} engine passes for {n} requests")
+            out["cold"], out["launches"] = results, launches
+        else:
+            if misses or passes or any(launches.values()):
+                fail(f"{kind} warm burst: {misses} misses, {passes} passes, "
+                     f"launches {launches}")
+            for cold, warm in zip(out["cold"], results):
+                for c, w in zip(cold, warm):
+                    if c[0] != w[0] or _answer(c[1]) != _answer(w[1]):
+                        fail(f"{kind}: a warm answer differs from the cold")
+    samples = np.asarray(service.export_pass_samples(),
+                         np.float64).reshape(-1, 3)
+    cold, warm = samples[samples[:, 0] > 0], samples[samples[:, 0] == 0]
+    log(f"    its last {len(samples)} engine passes: {len(cold)} cold, p50 "
+        f"{np.median(cold[:, 2]) * 1e3 if len(cold) else 0:.1f} ms for "
+        f"p50 {np.median(cold[:, 0]) if len(cold) else 0:.0f} cold "
+        f"op-cells; {len(warm)} warm, p50 "
+        f"{np.median(warm[:, 2]) * 1e3 if len(warm) else 0:.1f} ms")
+    sm = service.stats()["split_model"]
+    log(f"    fitted pass model: {sm['pass_overhead_ms']:.3f} ms a pass + "
+        f"{sm['cell_cost_ns']:.2f} ns an op-cell (warm discount "
+        f"{sm['warm_discount']:.3f}, {sm['samples']} samples; seeds 1.5 ms "
+        f"and 40 ns)")
+    return out
+
+
+def profile_union_passes(torch, fms, predictor, everyone,
+                         fleet_minus) -> None:
+    """One coalesced cold union pass (16 ranks over the fleet minus five:
+    the block scorer) and one cell-masked union pass (the same traces
+    and 4 cold ones swept over the registry: the row scorer), each under
+    ``torch.profiler``: wall, device busy share, the scorer's layer GEMMs
+    and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.service import PredictionService
+    service = PredictionService(predictor=predictor,
+                                coalesce_window_ms=1000.0, flush_at=16,
+                                adaptive_window=False)
+    batch = everyone[:16]
+    steps = (("cold union pass, 16 /rank", 16, "fused_mlp_score",
+              lambda: [service.submit_rank(t, 32, dests=fleet_minus)
+                       for t in batch]),
+             ("cell-masked union pass, 4 /sweep", 4, "fused_mlp_score_rows",
+              lambda: [service.submit_sweep(batch[4 * i:4 * i + 4]
+                                            + [everyone[16 + i]])
+                       for i in range(4)]))
+    for name, flush, kname, submit in steps:
+        service.flush_at = flush
+        before = dict(fms.LAUNCHES)
+        passes = service.stats()["engine_passes"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for h in submit():
+                h.get(timeout=300)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in fms.LAUNCHES.items()}
+        rows = device_rows(torch, prof)
+        busy = sum(r[0] for r in rows)
+        gemm = [r for r in rows if "layer_kernel" in r[1]]
+        log(f"  profile, {name}: {service.stats()['engine_passes'] - passes}"
+            f" engine pass, launches {launched}; wall {wall_ms:.1f} ms, "
+            f"device busy {busy:.1f} ms ({busy / wall_ms:.1%}), scorer "
+            f"layer GEMMs {sum(r[0] for r in gemm):.3f} ms in "
+            f"{sum(r[2] for r in gemm)} kernels")
+        for ms, key, count in sorted(rows, reverse=True)[:5]:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        if launched != {k: int(k == kname) for k in launched}:
+            fail(f"the {name} launched {launched}, not {kname} once")
+
+
+def overload_and_deadline(predictor, everyone, cold_doc) -> None:
+    """A burst over an admission limit sheds with 429/503 and
+    ``Retry-After``, never 500; ``deadline_ms`` 1 answers 504."""
+    from repro_torch.serve.admission import AdmissionController
+    from repro_torch.serve.http import PredictionServer
+    from repro_torch.serve.service import PredictionService
+    service = PredictionService(
+        predictor=predictor,
+        admission=AdmissionController(max_queue=SERVE_OVERLOAD_QUEUE))
+    server = PredictionServer(service).start()
+    try:
+        calls = [("/sweep", {"traces": [everyone[k % len(everyone)]
+                                        .to_dict()]})
+                 for k in range(SERVE_RANK_CLIENTS)]
+        results, wall = _burst(server.url, calls, patience_s=0.0)
+        codes = collections.Counter(r[0] for r in results)
+        shed = [r for r in results if r[0] in (429, 503)]
+        log(f"  overload: {len(calls)} concurrent /sweep against max_queue "
+            f"{SERVE_OVERLOAD_QUEUE}: statuses {dict(codes)} in {wall:.2f} s")
+        if not shed or set(codes) - {200, 429, 503}:
+            fail(f"overload burst: statuses {dict(codes)}")
+        if any("Retry-After" not in r[2] for r in shed):
+            fail("a shed answer carries no Retry-After")
+        status, body, _, sec = _http(server.url, "/rank", {
+            "trace": cold_doc, "batch_size": 32, "deadline_ms": 1})
+        log(f"  deadline_ms 1 on a cold trace: {status} in {sec * 1e3:.1f} "
+            f"ms ({body.get('error', '')[:80]})")
+        if status != 504:
+            fail(f"deadline_ms 1 answered {status}, not 504")
+    finally:
+        server.shutdown()
+
+
+def snapshot_round_trip(predictor, service, calls, results) -> None:
+    """Snapshot the warm service, restore into a fresh one: the repeat of
+    the burst's first round runs 0 engine passes, bitwise equal."""
+    import tempfile
+    from repro_torch.serve.service import PredictionService
+    from repro_torch.serve.snapshot import SnapshotManager
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "worker.snap"
+        t0 = time.perf_counter()
+        if not SnapshotManager(path, service, interval_s=0).save():
+            fail("snapshot save failed")
+        save_s = time.perf_counter() - t0
+        fresh = PredictionService(predictor=predictor)
+        manager = SnapshotManager(path, fresh, interval_s=0)
+        t0 = time.perf_counter()
+        if not manager.restore():
+            fail("snapshot restore failed")
+        restore_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+    for (route, payload), (_, body, *_) in zip(calls, results):
+        if fresh.rank_request(json.dumps(payload)) != body:
+            fail("a restored answer differs from the served one")
+    passes = fresh.stats()["engine_passes"]
+    log(f"  snapshot: {nbytes} bytes, saved in {save_s:.3f} s, restored "
+        f"{manager.restored_entries} entries in {restore_s:.3f} s; "
+        f"{len(calls)} repeat /rank: {passes} engine passes, bitwise equal")
+    if passes:
+        fail(f"the restored service ran {passes} engine passes")
+
+
+def check_stream(url, calls, results) -> None:
+    """The SSE rows of the burst's ``/sweep/stream`` equal ``/sweep``'s
+    answer to the same payload."""
+    (_, payload), (_, events, *_) = next(
+        (c, r) for c, r in zip(calls, results) if c[0] == "/sweep/stream")
+    status, body, *_ = _http(url, "/sweep", payload)
+    rows = {p["index"]: p["times"] for e, p in events if e == "row"}
+    if status != 200 or [rows[i] for i in range(len(rows))] != body["times"]:
+        fail("the SSE rows differ from /sweep's answer")
+    log(f"  /sweep/stream: {len(rows)} rows equal to /sweep's")
+
+
+def serve_in_process(torch, fms, batched, mlps, everyone, new_traces,
+                     tracked, extra, doc, want_of, by_label, devs,
+                     fleet_minus, cold_doc, device="cuda") -> None:
+    """Phase 16 (a): both front ends in process at full width."""
+    from repro_torch.core.predictor import HabitatPredictor
+    from repro_torch.serve.aserver import AsyncPredictionServer
+    from repro_torch.serve.http import PredictionServer
+    from repro_torch.serve.service import PredictionService
+    predictor = HabitatPredictor(mlps, device=device)
+    check = lambda calls, res: check_served(calls, res, want_of, devs,
+                                            by_label)
+    fms.reset_launches()
+    batched.SCORER_DISPATCHES.reset()
+    launched = collections.Counter()
+    services = []
+    for kind, cls in (("threaded", PredictionServer),
+                      ("asyncio", AsyncPredictionServer)):
+        service = PredictionService(predictor=predictor)
+        server = cls(service).start()
+        services.append((server, service))
+        rounds = serve_traffic(everyone, new_traces, tracked, extra,
+                               fleet_minus, doc,
+                               stream=cls is AsyncPredictionServer)
+        out = front_end_bursts(fms, kind, server, service, rounds, check)
+        launched.update(out["launches"])
+        if cls is AsyncPredictionServer:
+            check_stream(server.url, rounds[1], out["cold"][1])
+        else:
+            served = (service, rounds[0], out["cold"][0])
+    log(f"  scorer launches over both cold bursts: {dict(launched)}")
+    for kname in ("fused_mlp_score", "fused_mlp_score_rows"):
+        if launched[kname] < 1:
+            fail(f"{kname} was never launched by a served union pass")
+    if device == "cuda":
+        profile_union_passes(torch, fms, predictor, everyone, fleet_minus)
+    overload_and_deadline(predictor, everyone, cold_doc)
+    snapshot_round_trip(predictor, *served)
+    for server, service in services:
+        t0 = time.perf_counter()
+        quiesced = service.drain(timeout=10.0)
+        log(f"  drain: quiesced={quiesced} in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        if not quiesced:
+            fail("a front end did not quiesce on drain")
+        server.shutdown()
+
+
+def _readiness(proc, lines: list, timeout: float = 300.0) -> str:
+    """The url of a ``serving on <url>`` line, keeping the lines before
+    it; fails when the process exits first."""
+    deadline = time.monotonic() + timeout
+    for line in proc.stdout:
+        lines.append(line)
+        if line.startswith("serving on "):
+            return line.split("serving on ", 1)[1].strip()
+        if time.monotonic() > deadline:
+            break
+    fail(f"no readiness line from {proc.args[2:5]}: {''.join(lines)[-2000:]}")
+
+
+def _child_pids(parent: int, marker: bytes) -> list:
+    """Processes whose parent is ``parent`` and whose command line holds
+    ``marker`` (read from ``/proc``: each pid's ``stat`` names its
+    parent)."""
+    pids = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+            if ppid == parent and marker in (d / "cmdline").read_bytes():
+                pids.append(int(d.name))
+        except (OSError, IndexError, ValueError):
+            continue            # gone, or not ours to read
+    return pids
+
+
+class Cluster:
+    """Phase 16 (b): ``launch.serve --cache-server`` and a routed,
+    supervised pair of workers (``launch.serve --serve --router``) as
+    processes on the card.  :meth:`start` spawns them and returns at
+    once (a worker takes seconds to load torch, CUDA and its MLPs, which
+    phase 16 (a) overlaps); :meth:`drive` waits for the router, sends the
+    traffic and kills a worker; :meth:`finish` waits for its restart and
+    ends the launcher; :meth:`stop` ends every process this started."""
+
+    def __init__(self, device="cuda"):
+        import os
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(SRC), self.env.get("PYTHONPATH")) if p)
+        self.device = device
+        self.procs, self.lines = [], {"cache": [], "fleet": []}
+        self.url, self.t0 = None, 0.0
+
+    def start(self) -> "Cluster":
+        import threading
+        launcher = [sys.executable, "-m", "repro_torch.launch.serve"]
+        self.t0 = time.perf_counter()
+        cache = subprocess.Popen(launcher + ["--cache-server", "--port", "0"],
+                                 stdout=subprocess.PIPE, text=True,
+                                 env=self.env)
+        self.procs.append(cache)
+        self.address = _readiness(cache, self.lines["cache"])
+        self.fleet = subprocess.Popen(
+            launcher + ["--serve", "--router", "--workers", "2", "--port",
+                        "0", "--device", self.device, "--fleet-mlps",
+                        "--cache", self.address],
+            stdout=subprocess.PIPE, text=True, env=self.env)
+        self.procs.append(self.fleet)
+        self.ready = threading.Event()
+
+        def pump():
+            for line in self.fleet.stdout:
+                self.lines["fleet"].append(line)
+                if self.url is None and line.startswith("serving on "):
+                    self.url = line.split("serving on ", 1)[1].strip()
+                    self.ready_s = time.perf_counter() - self.t0
+                    self.ready.set()
+            self.ready.set()            # exited: drive() reports it
+        threading.Thread(target=pump, daemon=True).start()
+        return self
+
+    def drive(self, everyone) -> None:
+        import os
+        import signal
+        from repro_torch.serve.router import FingerprintRouter
+        self.ready.wait(timeout=300)
+        url = self.url
+        if url is None:
+            fail(f"the router never came up: "
+                 f"{''.join(self.lines['fleet'])[-2000:]}")
+        log(f"  cluster: cache server {self.address}; router {url} and 2 "
+            f"workers ready {self.ready_s:.1f} s after they were started")
+        workers = sorted(_http(url, "/stats")[1]["router"]["workers"])
+        ring = FingerprintRouter(workers)
+        owned = {w: [t for t in everyone
+                     if ring.owner(t.fingerprint()) == w][:4]
+                 for w in workers}
+        ring.close()
+        picked = [t for w in workers for t in owned[w]]
+        forwarded = lambda: [v["forwarded"] for v in _http(url, "/stats")[1]
+                             ["router"]["workers"].values()]
+        seconds = []
+        for t in picked:            # 16 /rank: each trace twice
+            before = forwarded()
+            for _ in range(2):
+                status, body, _, sec = _http(url, "/rank", {
+                    "trace": t.to_dict(), "batch_size": 32})
+                seconds.append(sec)
+                if status != 200:
+                    fail(f"router /rank answered {status}: {body}")
+            if sorted(a - b for a, b in zip(forwarded(), before)) != [0, 2]:
+                fail(f"{t.label} did not stay on one worker")
+        for w in workers:
+            fused = _http(w, "/stats")[1]["engine_caches"][
+                "scorer_dispatches"]["fused"]
+            log(f"  worker {w}: scorer_dispatches.fused {fused}")
+            if fused < 1:
+                fail(f"worker {w} never ran the fused scorer")
+        log(f"  {len(seconds)} /rank through the router, each trace on one "
+            f"worker: p50 {_percentile_ms(seconds, 50):.1f} / p99 "
+            f"{_percentile_ms(seconds, 99):.1f} ms")
+        pids = _child_pids(self.fleet.pid, b"repro_torch.serve.http")
+        if len(pids) != 2:
+            fail(f"the launcher runs {len(pids)} workers, not 2")
+        os.kill(pids[0], signal.SIGKILL)
+        t0 = time.perf_counter()
+        first = None
+        for t in picked:
+            status, body, _, sec = _http(url, "/rank", {
+                "trace": t.to_dict(), "batch_size": 32})
+            if status != 200:
+                fail(f"after the kill /rank answered {status}: {body}")
+            first = first or time.perf_counter() - t0
+        self.killed_at = t0
+        log(f"  SIGKILL of a worker: all {len(picked)} traces answered in "
+            f"{time.perf_counter() - t0:.2f} s (first {first * 1e3:.1f} "
+            f"ms)")
+
+    def finish(self) -> None:
+        """The killed worker back (the supervisor's restart), then
+        SIGTERM to the launcher: exit 0."""
+        import signal
+        back = lambda: any("worker back on" in ln
+                           for ln in self.lines["fleet"])
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not back():
+            time.sleep(0.1)
+        if not back():
+            fail("the supervisor did not restart the killed worker")
+        log(f"  the supervisor had the killed worker back "
+            f"{time.perf_counter() - self.killed_at:.1f} s after the kill")
+        self.fleet.send_signal(signal.SIGTERM)
+        rc = self.fleet.wait(timeout=120)
+        log(f"  SIGTERM to the launcher: exit {rc}; "
+            + "; ".join(ln.strip() for ln in self.lines["fleet"]
+                        if ln.startswith(("supervisor", "drain"))))
+        if rc != 0:
+            fail(f"the launcher exited {rc} on SIGTERM")
+
+    def stop(self) -> None:
+        import signal
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+def cli_optimize() -> None:
+    """Phase 16 (c): ``launch.serve --optimize`` on the card."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "qwen3-0.6b", "--requests", "4",
+                    "--prompt-len", "32", "--max-new", "4", "--optimize"])
+    text = out.getvalue()
+    for want in ("served 4/4 requests", "what-if optimizer: time-vs-cost "
+                 "frontier", "candidates /", "engine passes for the whole "
+                 "search"):
+        if want not in text:
+            fail(f"launch.serve --optimize: no {want!r} in its output")
+    log(f"  launch.serve --arch qwen3-0.6b --optimize on the card in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    for line in text.splitlines()[-8:]:
+        log(f"    {line}")
+
+
+def serve_predictions(torch, fms, batched, mlps, traces, new_traces,
+                      tracked, extra, want, devs, fleet_minus,
+                      device="cuda") -> None:
+    """Phase 16: the prediction service in process (a), as processes (b)
+    and through the CLI (c).  ``want`` is phase 4's CPU plain grid of
+    ``traces + new_traces`` over ``devs``."""
+    from repro_torch.core.predictor import HabitatPredictor
+    more = list(tracked) + [extra]
+    every = list(traces) + list(new_traces) + more
+    t0 = time.perf_counter()
+    cpu = HabitatPredictor(mlps, device="cpu", sweep_scorer="plain")
+    grid = np.concatenate([want, cpu.predict_sweep(more, devs).total_ms])
+    docs = {id(t): t.to_dict() for t in every}
+    rows = {id(docs[id(t)]): dict(zip(devs, g.tolist()))
+            for t, g in zip(every, grid)}
+    by_label = {t.label: rows[id(docs[id(t)])] for t in every}
+    if len(by_label) != len(every):
+        fail("phase 16's traces need distinct labels")
+    cold_doc = synthetic_trace(200).to_dict()
+    log(f"  {len(every)} traces and their CPU plain answers ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    everyone = list(traces) + list(tracked)
+    procs = Cluster(device=device).start()
+    try:
+        serve_in_process(torch, fms, batched, mlps, everyone, new_traces,
+                         tracked, extra, lambda t: docs[id(t)],
+                         lambda d: rows[id(d)], by_label, devs, fleet_minus,
+                         cold_doc, device=device)
+        procs.drive(everyone)
+        cli_optimize()              # while the killed worker restarts
+        procs.finish()
+    finally:
+        procs.stop()
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1886,8 +2566,8 @@ def main() -> int:
     log(f"  answers: {len(answers[2])} x {len(fleet_minus)} (b), "
         f"{len(answers[3])} x {len(devs)} (c); fastest for golden-mixed: "
         f"{answers[0][0].device}, best samples/$: {answers[1][0].device}")
-    check_answers(answers, traces, new_traces, golden_mixed, fleet_minus,
-                  mlps, devs)
+    cpu_grid = check_answers(answers, traces, new_traces, golden_mixed,
+                             fleet_minus, mlps, devs)
     check_golden(device)
 
     # -- 5. kernel timings on the path's own inputs -------------------------
@@ -2049,7 +2729,17 @@ def main() -> int:
     cli_fleet(torch)
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
-    # -- 16. result lines ---------------------------------------------------
+    # -- 16. the prediction service on the card ----------------------------
+    log("[16 serve predictions] PredictionService over HabitatPredictor("
+        "phase 4's mlps, device=cuda): both front ends in process, then "
+        "the router, workers and cache server as processes, then the CLI's "
+        "--optimize")
+    t0 = time.perf_counter()
+    serve_predictions(torch, fms, batched, mlps, traces, new_traces,
+                      tracked, extra, cpu_grid, devs, fleet_minus)
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

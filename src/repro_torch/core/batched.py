@@ -70,6 +70,10 @@ def env_int(name: str, default: int) -> int:
     return _env_num(name, default, int)
 
 
+def env_float(name: str, default: float) -> float:
+    return _env_num(name, default, float)
+
+
 class _DispatchCounters:
     """Process-wide MLP scorer-dispatch accounting.
 
@@ -183,6 +187,47 @@ class _WaveFactorCache:
             self._data.clear()
             self._total_bytes = 0
             self.hits = self.misses = self.inserts = self.evictions = 0
+
+    def export_state(self) -> List[Tuple]:
+        """Pickle-safe snapshot of every entry (``serve/snapshot.py``).
+
+        Each entry ships ``(key, origins, factor, overheads)`` with the
+        tensors as CPU numpy arrays: the stored ``DeviceArrays`` is
+        identity-validated and cannot cross a process, and a device
+        tensor would tie the snapshot to the card it was made on.  The
+        fleet names and the torch device ride inside the key."""
+        with self._lock:
+            items = [(key, e[1], e[2], e[3]) for key, e in self._data.items()]
+        host = lambda t: t.detach().cpu().numpy()
+        return [(key, origins, host(factor),
+                 None if overheads is None
+                 else (host(overheads[0]), host(overheads[1])))
+                for key, origins, factor, overheads in items]
+
+    def import_state(self, entries) -> int:
+        """Restore :meth:`export_state` entries into this cache.
+
+        Each entry's fleet names are re-resolved through the memoized
+        ``devices.arrays_for`` (the instance the engine presents on
+        lookup), and its arrays are placed on the key's torch device.
+        Entries naming devices no longer in the registry, or a CUDA
+        device in a process without one, are skipped and not counted.
+        Returns the number restored."""
+        restored = 0
+        for key, origins, factor, overheads in entries:
+            try:
+                da = devices.arrays_for(key[1])
+            except KeyError:
+                continue
+            device = torch.device(key[4])
+            if device.type == "cuda" and not torch.cuda.is_available():
+                continue
+            on = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+            self.insert(key, da, origins, on(factor),
+                        None if overheads is None
+                        else (on(overheads[0]), on(overheads[1])))
+            restored += 1
+        return restored
 
 
 #: the process-wide cross-stack wave-factor cache (see class docstring)
@@ -308,13 +353,21 @@ class FleetPrediction:
 
     @property
     def total_ms(self) -> np.ndarray:
-        """Predicted iteration time per destination device, (n_dev,),
-        reduced on the device and brought to the host once."""
+        """Predicted iteration time per destination device, (n_dev,).
+
+        The weighted grid comes to the host once and is reduced with
+        ``np.add.reduceat`` (strictly sequential over the ops), as the
+        ragged sweep reduces its segments: a sweep row's totals equal
+        this single-trace spelling bit for bit at any op count.  A
+        device sum would associate by the grid's shape (pairwise on the
+        CPU, atomics on CUDA)."""
         if self._totals is None:
             mult = torch.as_tensor(self.arrays.multiplicity, dtype=F64,
                                    device=self.op_ms.device)
-            self._totals = ((self.op_ms * mult[:, None]).sum(dim=0)
-                            .cpu().numpy())
+            weighted = (self.op_ms * mult[:, None]).cpu().numpy()
+            self._totals = (np.add.reduceat(weighted, [0], axis=0)[0]
+                            if weighted.shape[0]
+                            else np.zeros(weighted.shape[1]))
         return self._totals
 
     def time_for(self, dest: str) -> float:
@@ -584,6 +637,11 @@ class RaggedTraceArrays:
         return _concat_stacks(self, _build_stack(list(traces)))
 
 
+#: the host fields of a stack: what a snapshot carries of it
+_STACK_FIELDS = tuple(f.name for f in dataclasses.fields(RaggedTraceArrays)
+                      if not f.name.startswith("_"))
+
+
 def _concat_stacks(a: RaggedTraceArrays,
                    b: RaggedTraceArrays) -> RaggedTraceArrays:
     if a.kinds == b.kinds:
@@ -659,11 +717,18 @@ class _StackCache:
             stack = base.extend(traces[len(best):])
         else:
             stack = _build_stack(traces)
-        nbytes = self._nbytes(stack)
         with self._lock:
             self.extends += base is not None
             self.builds += base is None
-            if key in self._data:       # racing fill: replace accounting
+        self._put(key, stack)
+        return stack
+
+    def _put(self, key: Tuple, stack: RaggedTraceArrays) -> None:
+        """Insert (or replace, on a racing fill) one entry, then evict
+        to the entry and byte bounds."""
+        nbytes = self._nbytes(stack)
+        with self._lock:
+            if key in self._data:
                 self._total_bytes -= self._bytes.pop(key)
             self._data[key] = stack
             self._bytes[key] = nbytes
@@ -673,7 +738,6 @@ class _StackCache:
                                   or self._total_bytes > self.max_bytes):
                 old_key, _ = self._data.popitem(last=False)
                 self._total_bytes -= self._bytes.pop(old_key)
-        return stack
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -689,6 +753,29 @@ class _StackCache:
             self._bytes.clear()
             self._total_bytes = 0
             self.hits = self.extends = self.builds = 0
+
+    def export_state(self) -> List[Tuple]:
+        """Pickle-safe ``(key, fields)`` snapshot (``serve/snapshot.py``).
+
+        A :class:`RaggedTraceArrays` holds its device views and a lock,
+        neither of which pickles, so each stack ships as the dict of
+        its host fields; :meth:`import_state` rebuilds the stack and
+        its views come back on first use."""
+        with self._lock:
+            items = list(self._data.items())
+        return [(key, {f: getattr(stack, f) for f in _STACK_FIELDS})
+                for key, stack in items]
+
+    def import_state(self, entries) -> int:
+        """Restore :meth:`export_state` entries (LRU/byte bounds apply).
+
+        Imports do not count as builds: the restored warmth is the
+        point, not engine work.  Returns the number restored."""
+        restored = 0
+        for key, fields in entries:
+            self._put(key, RaggedTraceArrays(**fields))
+            restored += 1
+        return restored
 
 
 #: the process-wide stack cache behind ``stack_traces(cache=True)``
@@ -769,16 +856,18 @@ class SweepPrediction:
     def total_ms(self) -> np.ndarray:
         """Iteration time grid, (n_traces, n_dev), host numpy.
 
-        One segment sum on the device, then one copy to the host.
+        One copy of the weighted grid to the host, then one
+        ``np.add.reduceat`` over the segment offsets: the strictly
+        sequential sum of :attr:`FleetPrediction.total_ms`, so row i is
+        bit-identical to predicting trace i alone, whatever shares its
+        pass (a device ``index_add_`` adds by atomics on CUDA).
         Cell-masked sweeps leave NaN in uncomputed cells, which the sum
         propagates: readers must only consult computed cells."""
         if self._totals is None:
             view = self.arrays.on(self.op_ms.device)
-            weighted = self.op_ms * view.multiplicity[:, None]
-            totals = torch.zeros((self.n_traces, weighted.shape[1]),
-                                 dtype=F64, device=self.op_ms.device)
-            totals.index_add_(0, view.trace_ids, weighted)
-            self._totals = totals.cpu().numpy()
+            weighted = (self.op_ms * view.multiplicity[:, None]).cpu().numpy()
+            self._totals = np.add.reduceat(weighted, self.arrays.offsets[:-1],
+                                           axis=0)
         return self._totals
 
     def row(self, i: int) -> FleetPrediction:

@@ -27,6 +27,7 @@ import math
 from types import SimpleNamespace
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.devices import DeviceSpec, OriginArrays
@@ -134,6 +135,20 @@ def num_tiles_vec(bytes_accessed: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.ceil(bytes_accessed / TILE_BYTES), min=1.0)
 
 
+def _pow(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
+    """``base ** exponent``, the same bits wherever an element sits.
+
+    On the CPU torch's vectorized pow and its scalar tail loop can round
+    one element differently, so an op would get other bits in another
+    co-batch and a coalesced answer would drift from the direct one;
+    numpy's power rounds every element alike.  On CUDA every element
+    runs the same device function."""
+    if base.device.type != "cpu":
+        return base ** exponent
+    b, e = torch.broadcast_tensors(base, exponent)
+    return torch.from_numpy(np.power(b.numpy(), e.numpy()))
+
+
 def _factor_core(intensity, bytes_accessed, o_bw, o_ck, o_w, d_bw, d_ck,
                  d_w, d_ridge, exact: bool) -> torch.Tensor:
     """The t-independent scaling factor on broadcast-ready tensors."""
@@ -145,12 +160,12 @@ def _factor_core(intensity, bytes_accessed, o_bw, o_ck, o_w, d_bw, d_ck,
         waves_d = torch.ceil(b / d_w)
         waves_o = torch.ceil(b / o_w)
         return (waves_d
-                * (d_ratio * (d_w / o_w)) ** g
-                * c_ratio ** (1.0 - g)
+                * _pow(d_ratio * (d_w / o_w), g)
+                * _pow(c_ratio, 1.0 - g)
                 / waves_o)
-    return (d_ratio ** g
-            * (o_w / d_w) ** (1.0 - g)
-            * c_ratio ** (1.0 - g))
+    return (_pow(d_ratio, g)
+            * _pow(o_w / d_w, 1.0 - g)
+            * _pow(c_ratio, 1.0 - g))
 
 
 def wave_factor_vec(intensity: torch.Tensor, bytes_accessed: torch.Tensor,

@@ -138,6 +138,17 @@ def sass(name: str) -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``, a wrapper's ``LAUNCHES``, under a
+    lock: the prediction service can run two leaders' passes at once,
+    and an unguarded ``+=`` from both can lose a count."""
+    with _count_lock:
+        counts[name] += 1
+
+
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C launcher; raise on a non-zero
     ``cudaGetLastError()`` (a refused launch never runs, and a later

@@ -155,5 +155,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h,
                      kv, sq, skv, d, *strides, int(bool(causal)), window,
                      d ** -0.5, stream)
-    LAUNCHES["flash_attention"] += 1
+    build.count_launch(LAUNCHES, "flash_attention")
     return out

@@ -94,7 +94,7 @@ def fused_mlp(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
                      biases.data_ptr(), out.data_ptr(),
                      scratch[0].data_ptr(), scratch[1].data_ptr(), bsz, hdim,
                      nl, k_in, stream)
-    LAUNCHES["fused_mlp"] += 1
+    build.count_launch(LAUNCHES, "fused_mlp")
     return out
 
 

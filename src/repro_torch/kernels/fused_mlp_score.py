@@ -299,7 +299,7 @@ def fused_mlp_score(x: torch.Tensor, block_kinds: torch.Tensor,
                      *_ptrs(x, block_kinds, weights, biases, out,
                             scratch[0], scratch[1]),
                      bsz, hdim, nl, nk, block_m, k_in, stream)
-    LAUNCHES["fused_mlp_score"] += 1
+    build.count_launch(LAUNCHES, "fused_mlp_score")
     return out
 
 
@@ -338,5 +338,5 @@ def fused_mlp_score_rows(x: torch.Tensor, row_kinds: torch.Tensor,
                      *_ptrs(x, row_kinds, weights, biases, out,
                             scratch[0], scratch[1]),
                      bsz, hdim, nl, nk, k_in, stream)
-    LAUNCHES["fused_mlp_score_rows"] += 1
+    build.count_launch(LAUNCHES, "fused_mlp_score_rows")
     return out

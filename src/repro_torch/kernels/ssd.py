@@ -156,5 +156,5 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                      state.data_ptr(), states.data_ptr(),
                      cum_last.data_ptr(), _DTYPES[x.dtype], b, h, l, p, n,
                      chunk, *strides, stream)
-    LAUNCHES["ssd"] += 1
+    build.count_launch(LAUNCHES, "ssd")
     return y, state

@@ -7,8 +7,11 @@ sqlite file in WAL mode): a (trace, device) cell priced by one worker is
 a hit for the next, while hit/miss/eviction accounting stays per worker.
 Its table, key encoding (``repr`` of the key tuple) and sealed value
 digest (column ``d``) are the reference's, so a database file written by
-either package reads back in the other.  The network backend
-(``tcp://``) comes with the serving stack.  Keys are the planner's
+either package reads back in the other.  The network backend,
+:class:`repro_torch.serve.netcache.NetCache` (spelled
+``tcp://host:port``), is the cross-host store; its frames are the
+reference's, so either package's client talks to either's server.
+Keys are the planner's
 ``(fingerprint, device, config_key, fleet_token)`` tuples; values are
 float64 milliseconds (sqlite REAL is an IEEE double, so round trips are
 bitwise exact).
@@ -103,6 +106,13 @@ class LRUCache:
                     out.append(None)
         return out
 
+    def contains_many(self, keys: Sequence[Key]) -> List[bool]:
+        """Whether each key is held, read without stats accounting or an
+        LRU refresh (admission prices a request by it; not in the
+        reference)."""
+        with self._lock:
+            return [key in self.data for key in keys]
+
     def put_many(self, items: Iterable[Tuple[Key, float]]) -> None:
         """Insert computed cells, then evict LRU overflow.
 
@@ -123,6 +133,15 @@ class LRUCache:
     def close(self) -> None:
         """No resources to release; exists so callers can close any
         backend uniformly."""
+
+    def export_entries(self) -> List[Tuple[Key, float]]:
+        """Snapshot of every entry in LRU order (head first), so a
+        restore through :meth:`put_many` reproduces the eviction order.
+        Only the in-process backend exports: sqlite and netcache stores
+        are already durable or shared, so ``serve/snapshot.py`` skips
+        them."""
+        with self._lock:
+            return list(self.data.items())
 
     def __len__(self) -> int:
         return len(self.data)
@@ -303,6 +322,9 @@ class SqliteCache:
             self._conn.close()
 
 
+#: anything ``make_backend`` accepts
+BackendLike = Union[None, str, Path, LRUCache, SqliteCache]
+
 #: the full backend protocol every consumer relies on: the planner probes
 #: with ``get``/``get_many`` and fills with ``put_many``; ``stats``,
 #: ``describe``, ``clear`` and ``__len__`` serve accounting and tooling.
@@ -310,20 +332,20 @@ BACKEND_PROTOCOL = ("get", "get_many", "put_many", "stats", "describe",
                     "clear", "__len__")
 
 
-def make_backend(cache=None, capacity: int = 4096):
+def make_backend(cache: BackendLike = None, capacity: int = 4096):
     """Resolve a cache spelling to a backend instance.
 
-    ``None`` -> fresh in-process LRU of ``capacity`` entries; a str/Path
-    -> sqlite shared backend at that file (``capacity`` honored exactly);
-    a ready backend passes through after full-protocol validation.  A
-    ``tcp://`` address (the reference's network backend) is not ported
-    yet and raises."""
+    ``None`` -> fresh in-process LRU of ``capacity`` entries;
+    ``tcp://host:port`` -> network result-cache client
+    (:class:`repro_torch.serve.netcache.NetCache`); any other str/Path
+    -> sqlite shared backend at that file (``capacity`` honored
+    exactly); a ready backend passes through after full-protocol
+    validation (``capacity`` ignored)."""
     if cache is None:
         return LRUCache(capacity)
     if isinstance(cache, str) and cache.startswith("tcp://"):
-        raise NotImplementedError(
-            f"network cache backend {cache!r}: netcache comes with the "
-            f"serving stack; pass None, a sqlite path or a backend object")
+        from repro_torch.serve.netcache import NetCache  # import cycle
+        return NetCache(cache)
     if isinstance(cache, (str, Path)):
         return SqliteCache(cache, capacity=capacity)
     missing = [name for name in BACKEND_PROTOCOL

@@ -1,15 +1,14 @@
 """Fault-injection registry for the serving tier.
 
 A copy of ``repro.serve.faults``.  Named injection points sit in the
-serving paths; so far the port has one, ``cache.corrupt`` in
-:class:`repro_torch.serve.cache.SqliteCache`, which flips a sqlite row's
-stored digest so the read path must detect it and degrade to a miss.
-The reference's other points (``netcache.get_many``, ``router.forward``,
-``engine.pass``, ``worker.heartbeat``, ``snapshot.*``) come with the
-serving stack.  Each point is a single call::
+serving hot paths (``netcache.get_many``, ``router.forward``,
+``engine.pass``, ``worker.heartbeat``) and the durability paths
+(``snapshot.write``, ``snapshot.load``, ``cache.corrupt`` — the last
+flips a sqlite row's stored digest so the read path must detect it and
+degrade to a miss).  Each point is a single call::
 
     from repro_torch.serve import faults
-    faults.inject("cache.corrupt")
+    faults.inject("engine.pass")
 
 When no faults are armed the call is one module-level bool check —
 measured in nanoseconds, safe to leave in production code paths. When

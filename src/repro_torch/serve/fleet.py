@@ -25,7 +25,7 @@ import numpy as np
 from repro_torch.core import cost as cost_mod
 from repro_torch.core import devices
 from repro_torch.core.trace import TrackedTrace
-from repro_torch.serve.cache import CacheStats, make_backend
+from repro_torch.serve.cache import BackendLike, CacheStats, make_backend
 
 __all__ = ["CacheStats", "FleetChoice", "FleetPlanner", "format_fleet",
            "format_sweep", "rank_rows"]
@@ -80,13 +80,13 @@ class FleetPlanner:
     and ``config_key()`` (all predictors in :mod:`repro_torch.core.predictor`
     do); ``fleet`` defaults to every registered device.  ``cache``
     accepts anything :func:`repro_torch.serve.cache.make_backend` does: None
-    (fresh in-process LRU of ``cache_size`` entries) or a ready backend
-    instance —
+    (fresh in-process LRU of ``cache_size`` entries), a sqlite path, a
+    ``tcp://`` network cache or a ready backend instance —
     ``engine_passes`` counts how many times the underlying engine
     actually ran (one per predict/sweep call with any cache miss)."""
 
     def __init__(self, predictor=None, fleet: Optional[Sequence[str]] = None,
-                 cache_size: int = 4096, cache=None,
+                 cache_size: int = 4096, cache: BackendLike = None,
                  cell_fill: bool = True):
         if predictor is None:
             from repro_torch.core.predictor import HabitatPredictor
@@ -220,6 +220,21 @@ class FleetPlanner:
             self.cache.put_many(items)
         except Exception:
             self._count_degraded()
+
+    def sweep_cached(self, traces: Sequence[TrackedTrace],
+                     dests: Optional[Sequence[str]] = None) -> bool:
+        """Whether :meth:`sweep` would answer every cell from the cache,
+        read without touching its stats or LRU order (not in the
+        reference: the service prices such a request apart).  False for
+        a backend that cannot be read so (sqlite, netcache)."""
+        contains_many = getattr(self.cache, "contains_many", None)
+        if contains_many is None:
+            return False
+        dests, token = self._query_fleet(dests)
+        ck = getattr(self.predictor, "sweep_config_key",
+                     self.predictor.config_key)()
+        return all(contains_many([self._key(t.fingerprint(), name, ck, token)
+                                  for t in traces for name in dests]))
 
     def _count_degraded(self, misses: int = 0) -> None:
         """Record a backend failure on the backend's own stats object

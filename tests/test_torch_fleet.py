@@ -132,8 +132,9 @@ def test_make_backend_contract(tmp_path):
     assert pt_cache.make_backend(lru) is lru
     with pytest.raises(TypeError, match="protocol"):
         pt_cache.make_backend(object())
-    with pytest.raises(NotImplementedError, match="netcache"):
-        pt_cache.make_backend("tcp://127.0.0.1:1")
+    net = pt_cache.make_backend("tcp://127.0.0.1:1")
+    assert type(net).__name__ == "NetCache"     # lazy: connects on use
+    net.close()
     sq = pt_cache.make_backend(tmp_path / "cache.sqlite", 8)
     assert isinstance(sq, pt_cache.SqliteCache) and sq.capacity == 8
     sq.close()

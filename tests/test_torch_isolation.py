@@ -33,7 +33,9 @@ def test_port_has_the_slice_modules():
                 "configs.qwen3_0_6b", "configs.mamba2_130m", "serve.engine",
                 "launch.serve", "core.artifacts", "kernels.fused_mlp",
                 "core.frontier", "serve.faults", "core.calibration",
-                "models.evalzoo"):
+                "models.evalzoo", "serve.admission", "serve.optimizer",
+                "serve.snapshot", "serve.service", "serve.http",
+                "serve.aserver", "serve.netcache", "serve.router"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -239,8 +239,15 @@ def test_sqlite_corrupt_row_is_a_miss_in_the_port(tmp_path):
 
 
 def test_make_backend_refuses_tcp_until_netcache():
-    with pytest.raises(NotImplementedError, match="netcache"):
-        cache.make_backend("tcp://127.0.0.1:9")
+    """Named for the refusal ``tcp://`` met until the port had a
+    netcache; it now checks that ``tcp://`` builds the port's
+    ``NetCache``, as the reference's spelling does (it connects on
+    first use)."""
+    from repro_torch.serve.netcache import NetCache
+    backend = cache.make_backend("tcp://127.0.0.1:9")
+    assert isinstance(backend, NetCache)
+    assert backend.describe() == "netcache(tcp://127.0.0.1:9)"
+    backend.close()
 
 
 # ---------------------------------------------------------------------------

@@ -353,7 +353,22 @@ def test_cli_fleet_and_sweep_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--optimize", "--serve"])
 def test_cli_refuses_the_serving_stack_modes(flag, capsys):
+    """Named for the refusal these modes met until the serving stack was
+    ported; it now checks that they run: ``--optimize`` prints the
+    what-if frontier of the tracked decode step, and ``--serve`` refuses
+    only the reference's invalid spelling (a worker pool on ephemeral
+    ports without the router).  ``test_torch_serving_http.py`` and
+    ``test_torch_cluster.py`` drive the served modes."""
+    if flag == "--optimize":
+        pt_serve.main(["--device", "cpu", "--smoke", "--requests", "2",
+                       "--max-new", "2", "--sweep-batches", "1,2",
+                       "--max-replicas", "4", flag])
+        out = capsys.readouterr().out
+        assert "what-if optimizer: time-vs-cost frontier over 2 batch " \
+            "sizes" in out
+        assert "engine passes for the whole search: 1" in out
+        return
     with pytest.raises(SystemExit) as e:
-        pt_serve.main(["--device", "cpu", flag])
-    assert e.value.code == 2
-    assert "serving stack" in capsys.readouterr().err
+        pt_serve.main(["--device", "cpu", flag, "--workers", "2",
+                       "--port", "0"])
+    assert "only valid with --workers 1 or --router" in str(e.value.code)
