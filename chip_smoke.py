@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's five paths on the card and checks every phase; any
+Drives the port's six paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
@@ -13,7 +13,9 @@ the card, times every op there, and predicts the iterations on the
 registry through both scorer kernels (the paper's Listing 1); the
 serving path answers rank, sweep and what-if requests through the
 coalescing prediction service, its HTTP front ends, the router and the
-network cache, on the scorer kernels.
+network cache, on the scorer kernels; the zoo path serves the seven
+other archs that fit one card, every family among them, at their
+published configs.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit;
    ``calibrate_spec("cuda")``'s achieved fp32 GEMM rate and copy
@@ -50,22 +52,25 @@ network cache, on the scorer kernels.
    and the kernels that take it).
 6. Flash attention and the SSD scan against their plain versions on the
    card: flash in bf16 (the tensor-core kernel) and fp32 (FFMA), causal
-   or not, window 0, 100 or 256, GQA rep 1, 2, 4 and 8, D 16 to 128,
-   lengths off the 16-row fragments and 64-key tiles (each output row
+   or not, window 0, 100, 256 or 1024, GQA rep 1, 2, 4, 8 and 16, D 16,
+   32, 64, 80, 128 and 256 (phase 17's shapes among them), lengths off
+   the 16-row fragments and 64-key tiles (each output row
    within FLASH_BF16_REL = 8e-3 * max(max |plain row|, FLASH_ROW_FLOOR)
    in bf16, one to two bf16 ulps of the row; fp32 within 1e-4 * that);
    SSD in bf16 (tensor cores, fp32 operands split in two bf16 terms) and
-   fp32 at N 64 and 128, P 64, L from 1 to the path's 4096 at H 24, off
-   the chunk and on it, chunk 16 and 64, b and c shared by the heads or
+   fp32 at N 64 and 128, P 64, L from 1 to the path's 4096 at H 24 and
+   zamba2's 2048 at H 80, off the chunk and on it, chunk 16 and 64, b and
+   c shared by the heads or
    not, y and final state within 1e-4 * max(1, max |plain|) (fp32 sums
    in another order).
 7. Serving Qwen3-0.6B (28 layers, d_model 1024, 16 / 8 heads of 128,
    vocab 151936): ``ServingEngine(batch=4, max_seq=4112)`` answers 8
    requests of 384-4096 prompt tokens and 16 new tokens each; flash
    launches = prefills x 28.  The same model with plain attention,
-   teacher-forced on the same tokens (each prompt's prefill at the
-   engine's shapes, then one decode step per generated token), must
-   agree.  In fp32, kernel path against plain path at every position:
+   teacher-forced on the engine's own events (each admitted prompt's
+   prefill, then every decode tick with the tokens the engine fed it,
+   the batch's slots as served), must agree.  In fp32, kernel path
+   against plain path at every position:
    logits within FP32_LOGIT_TOL * max |logit|, and equal greedy choices
    wherever the top-2 gap exceeds that.  In bf16, as served: prefill
    logits within the stated bf16 tolerance, and every served token
@@ -164,7 +169,36 @@ network cache, on the scorer kernels.
     worker failed over and restarted by the supervisor (meanwhile
     ``launch.serve --optimize`` prints a frontier), and exit 0 on
     SIGTERM.
-17. A line with the card's name and power limit, a ``{"kernels": [...]}``
+17. The rest of the model zoo: glm4-9b, minitron-4b, gemma3-1b,
+    granite-moe-3b-a800m, zamba2-2.7b, internvl2-2b and musicgen-medium,
+    each at its published config (every layer, every width, bf16, random
+    weights from the seed), served one at a time as in phase 7 by
+    ``ServingEngine(batch=4, max_seq=2064)``: 4 requests of 384, 1031,
+    1500 and 2048 prompt tokens (two past gemma3's 1024-token window, all
+    off the 64-key tiles), 8 new tokens each.  Launches counted exactly:
+    flash = prefills x attention layers (zamba2: x its 9 groups' shared
+    block), SSD = prefills x 54 for zamba2.  The gates of phase 7, and
+    for the MoE (a flipped router choice moves a logit by far more than
+    any float tolerance, and capacity couples a tick's tokens): the fp32
+    kernel replay is routed as the fp32 plain replay routed, so every
+    request is held at the fp32 tolerance under one routing, and each
+    layer's own top-k sets on the two paths are recorded beside it.
+    Since the forced replay's hidden states track the plain path's, a
+    token whose own top-k differs is a flip of that layer, never the
+    consequence of an earlier one: its router margins p(k-th) -
+    p(k+1-th) must lie below ROUTER_TIE = 1e-5 on both paths (a true
+    near-tie), and a flip at a wider margin fails.
+    The bf16 gates hold every request: their floor, the plain bf16
+    path's distance from fp32, already holds the routing flips of bf16
+    rounding.  internvl2-2b and musicgen-medium also run one fp32
+    prefill after a ``prefix_embeds`` of their published prefix (256 x
+    1024, 64 x 768) against the plain path.  Each model is freed before
+    the next.  Logged per arch: parameters, prefill ms, decode ms a tick,
+    tokens/s, a prefill's device-busy share, peak memory, and each kernel
+    timed on the largest inputs of its path (flash at D 80 and 256 among
+    them) beside its plain version, bound and SDPA.  dbrx-132b does not
+    fit one card and is not run.
+18. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels, and last {"ok": true, "device": {...}}.
 
 Weights are random (He init from a numpy seed for the serving MLPs, a
@@ -819,6 +853,12 @@ FLASH_CASES = [
     (1, 8, 1, 65, 65, 64, True, 100),
     (2, 4, 4, 64, 64, 32, True, 0),
     (1, 4, 1, 333, 90, 16, False, 0),
+    # phase 17's shapes: zamba2's D 80 (H 32 over KV 32), gemma3's D 256
+    # (H 4 over KV 1, window 1024, prompts past it), glm4's GQA rep 16
+    (1, 32, 32, 1000, 1000, 80, True, 0),
+    (1, 4, 1, 1100, 1100, 256, True, 1024),
+    (1, 4, 1, 2048, 2048, 256, True, 1024),
+    (1, 32, 2, 1031, 1031, 128, True, 0),
 ]
 #: b, h, l, p, n, chunk, b and c shared by the heads (head stride 0); the
 #: last case's P, N and chunk are off the kernel's 16-padding and its rows
@@ -830,6 +870,7 @@ SSD_CASES = [
     (1, 2, 1, 64, 128, 64, True),
     (2, 3, 128, 64, 128, 16, False),
     (1, 2, 50, 20, 24, 10, True),
+    (1, 80, 2048, 64, 64, 64, True),     # zamba2-2.7b's prefill
 ]
 
 
@@ -912,9 +953,10 @@ def lm_kernel_checks(torch, fa, sk, device) -> dict:
     return worst
 
 
-def device_profile(torch, fn, top: int = 6) -> None:
+def device_profile(torch, fn, top: int = 6) -> tuple:
     """Run ``fn`` once under ``torch.profiler``; print wall, device-busy
-    time and the device ops that take it."""
+    time and the device ops that take it.  Returns (wall ms, busy ms),
+    busy None where the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -927,50 +969,156 @@ def device_profile(torch, fn, top: int = 6) -> None:
     if not rows:
         log(f"    wall {wall_ms:.1f} ms; the profiler recorded no device "
             f"time")
-        return
+        return wall_ms, None
     busy_ms = sum(r[0] for r in rows)
     log(f"    wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
     for ms, key, count in sorted(rows, reverse=True)[:top]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    return wall_ms, busy_ms
 
 
 def _fp32_copy(tfm, params):
     """The same model with every bf16 tensor widened to fp32."""
     up = lambda t: t.float() if t.dtype == params["embed"].dtype else t
     top = {k: up(t) for k, t in params.named_parameters(recurse=False)}
+    shared = (None if params.shared is None
+              else {k: up(t) for k, t in params.shared.items()})
     return tfm.LMParams(top, [{k: up(t) for k, t in layer.items()}
-                              for layer in params.layers])
+                              for layer in params.layers], shared)
 
 
-def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
-    """Phases 7-8: serve ``LM_PROMPT_LENS`` through ``ServingEngine`` with
-    ``cfg`` on ``device``, with every kernel count set to 0 just before
-    and read just after; then hold the answers against the same model on
-    its kernel's plain version, teacher-forced.  Returns the path's
-    launches of ``kname`` and the largest inputs it was given."""
+def lm_kernels(cfg) -> dict:
+    """The LM kernels a prefill of ``cfg`` launches, and how many times:
+    flash attention once an attention layer (hybrid: once a group, the
+    shared block), the SSD scan once a Mamba2 layer."""
+    if cfg.family == "ssm":
+        return {"ssd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every,
+                "ssd": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+#: a router flip between the fp32 kernel path and the fp32 plain path is
+#: a true near-tie only where the flipped token's top-k margins lie below
+#: this on both paths
+ROUTER_TIE = 1e-5
+
+
+class RouteLog:
+    """Records each MoE layer's routing while active, as ``moe_layer``
+    takes it from ``route``: per call, each token's own top-k expert set
+    (sorted), its margin p(k-th) - p(k+1-th), and the experts the call
+    routed to, in the router's order.  Given ``forced``, another replay's
+    calls, each call routes to that call's experts instead of its own
+    router's choice, weighted by its own router's probabilities of them,
+    renormalised; what it records as its own choice is still its
+    router's."""
+
+    def __init__(self, moe_mod, forced=None):
+        self.moe, self.forced, self.calls = moe_mod, forced, []
+
+    def __enter__(self):
+        self.orig = self.moe.route
+
+        def recorded(params, x, top_k):
+            probs, top_p, top_e = self.orig(params, x, top_k)
+            top = probs.reshape(-1, probs.shape[-1]).topk(top_k + 1, -1)
+            own = top_e.reshape(-1, top_k).sort(-1).values
+            if self.forced is not None:
+                top_e = self.forced[len(self.calls)][2].reshape(top_e.shape)
+                top_p = _renormalised(probs, top_e)
+            self.calls.append((own, top.values[:, top_k - 1]
+                               - top.values[:, top_k],
+                               top_e.reshape(-1, top_k)))
+            return probs, top_p, top_e
+
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def _renormalised(probs, experts):
+    """The router probabilities of ``experts``, renormalised over them."""
+    p = probs.gather(-1, experts)
+    return p / p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def router_flips(plain: list, kernel: list) -> list:
+    """Compare the plain replay's ``RouteLog.calls`` with those of the
+    kernel replay forced to the plain routing, call by call.  Every layer
+    of the forced replay reads hidden states that track the plain path's,
+    so a token whose own top-k set differs there is a flip of that layer
+    and never the consequence of an earlier one: it must be a near-tie on
+    both paths (margin below ROUTER_TIE).  Returns each flipped token's
+    margin, the wider of its two paths'; fails on one that is no
+    near-tie."""
+    if len(plain) != len(kernel):
+        fail(f"the fp32 replays made {len(plain)} and {len(kernel)} MoE "
+             f"calls")
+    margins = []
+    for (s1, m1, _), (s2, m2, _) in zip(plain, kernel):
+        flipped = (s1 != s2).any(-1)
+        margins += m1[flipped].maximum(m2[flipped]).tolist()
+    if margins and not max(margins) < ROUTER_TIE:
+        fail(f"router flip between the fp32 kernel and plain paths at "
+             f"margin {max(margins):.3e} (>= {ROUTER_TIE:g}): not a "
+             f"near-tie")
+    return margins
+
+
+def serve_lm(torch, cfg, device, kernel_mods, lens=LM_PROMPT_LENS,
+             max_new=LM_MAX_NEW, max_seq=LM_MAX_SEQ) -> dict:
+    """Serve prompts of ``lens`` tokens through ``ServingEngine`` with
+    ``cfg`` on ``device``, every kernel count set to 0 just before and
+    read just after (each of ``lm_kernels(cfg)`` exactly prefills x its
+    layers); then hold the answers against the same model on the kernels'
+    plain versions.  The engine's admissions and ticks are recorded and
+    replayed teacher-forced (each admitted prompt's prefill, then every
+    tick with the tokens the engine fed it, the batch's slots as served),
+    in bf16 as served and in fp32 through the kernels and through the
+    plain versions.  With experts, the fp32 kernel replay is routed as
+    the plain replay routed (``RouteLog``), so every request is held at
+    the fp32 tolerance under one routing, and ``router_flips`` fails any
+    layer whose own routing on the kernel path left the plain path's at
+    more than a near-tie.  With a frontend, one
+    prefill of the first prompt after a ``prefix_embeds`` of the
+    published prefix is held in fp32 against the plain path.  Returns,
+    ``{"kernels": {name: {"launches", "args" (the largest inputs),
+    "max_abs_err" (on them)}}, "figures": {...}}``, the figures being
+    what phase 17 tabulates."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.engine import Request, ServingEngine, splice
     arch = cfg.name
+    per_prefill = lm_kernels(cfg)
+    kmods = {"flash_attention": fa, "ssd": sk}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=SEED, device=device)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params.parameters())
-    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab_size}, {n_params / 1e6:.1f} M parameters in "
-        f"{cfg.param_dtype}, made on {device} in "
+    log(f"  {arch}: {cfg.family}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M "
+        f"parameters in {cfg.param_dtype}, made on {device} in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED + 21)
     reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, n,
                                                dtype=np.int32),
-                    max_new_tokens=LM_MAX_NEW)
-            for i, n in enumerate(LM_PROMPT_LENS)]
-    engine = ServingEngine(cfg, params, batch=LM_BATCH, max_seq=LM_MAX_SEQ,
+                    max_new_tokens=max_new)
+            for i, n in enumerate(lens)]
+    engine = ServingEngine(cfg, params, batch=LM_BATCH, max_seq=max_seq,
                            device=device)
 
-    rec = {"prefill": [], "decode_ms": [], "args": None}
+    rec = {"prefill": [], "decode_ms": [], "args": {}}
     orig = {"prefill": tfm.prefill, "decode_step": tfm.decode_step,
-            "kernel": getattr(kmod, kname)}
+            **{k: getattr(kmods[k], k) for k in per_prefill}}
+    events = []     # ("admit", slot, uid) | ("tick", tokens, {slot: uid})
 
     def prefill(*args):
         torch.cuda.synchronize()
@@ -989,14 +1137,36 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
         rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
         return out
 
-    def kernel(*args, **kwargs):   # keeps the largest inputs (axis 2)
-        if rec["args"] is None or \
-                args[0].shape[2] >= rec["args"][0][0].shape[2]:
-            rec["args"] = (args, kwargs)
-        return orig["kernel"](*args, **kwargs)
+    def keeper(kname):        # keeps the largest inputs (axis 2)
+        def kernel(*args, **kwargs):
+            held = rec["args"].get(kname)
+            if held is None or args[0].shape[2] >= held[0][0].shape[2]:
+                rec["args"][kname] = (args, kwargs)
+            return orig[kname](*args, **kwargs)
+        return kernel
 
+    engine_admit, engine_tick = engine.admit, engine.tick
+
+    def admit(req):
+        free = engine._free_slots()
+        ok = engine_admit(req)
+        if ok:
+            events.append(("admit", free[0], req.uid))
+        return ok
+
+    def tick():
+        live = {s: r.uid for s, r in enumerate(engine.slot_req)
+                if r is not None}
+        tokens = engine.last_token.copy()
+        done_now = engine_tick()
+        if live:
+            events.append(("tick", tokens, live))
+        return done_now
+
+    engine.admit, engine.tick = admit, tick
     tfm.prefill, tfm.decode_step = prefill, decode_step
-    setattr(kmod, kname, kernel)
+    for kname in per_prefill:
+        setattr(kmods[kname], kname, keeper(kname))
     try:
         for mod in kernel_mods:
             mod.reset_launches()
@@ -1009,7 +1179,9 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
                     for k, v in mod.LAUNCHES.items()}
     finally:
         tfm.prefill, tfm.decode_step = orig["prefill"], orig["decode_step"]
-        setattr(kmod, kname, orig["kernel"])
+        for kname in per_prefill:
+            setattr(kmods[kname], kname, orig[kname])
+        del engine.admit, engine.tick
 
     n_pre = len(rec["prefill"])
     toks = sum(len(r.output) for r in done)
@@ -1018,73 +1190,100 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
         f"{wall:.2f} s ({toks / wall:.1f} tok/s); {n_pre} prefills, "
         f"{len(rec['decode_ms'])} decode ticks")
     log("  prefill ms per prompt: " + ", ".join(
-        f"{n}: {ms:.1f}" for n, ms in zip(LM_PROMPT_LENS, pre_ms)))
+        f"{n}: {ms:.1f}" for n, ms in zip(lens, pre_ms)))
     dec = np.asarray(rec["decode_ms"])
-    log(f"  decode ms per tick (batch {LM_BATCH}, cache {LM_MAX_SEQ}): "
+    log(f"  decode ms per tick (batch {LM_BATCH}, cache {max_seq}): "
         f"median {np.median(dec):.2f}, min {dec.min():.2f}, "
         f"max {dec.max():.2f}")
     log(f"  launches on the path: {launches}")
     if len(done) != len(reqs) or n_pre != len(reqs):
         fail(f"{arch}: served {len(done)} of {len(reqs)} requests with "
              f"{n_pre} prefills")
-    if launches[kname] != n_pre * cfg.n_layers:
-        fail(f"{arch}: {kname} launched {launches[kname]} times, want "
-             f"{n_pre} prefills x {cfg.n_layers} layers")
+    for kname, n in per_prefill.items():
+        if launches[kname] != n_pre * n:
+            fail(f"{arch}: {kname} launched {launches[kname]} times, want "
+                 f"{n_pre} prefills x {n} layers")
     for other, n in launches.items():
-        if other != kname and n:
+        if other not in per_prefill and n:
             fail(f"{arch}: {other} launched {n} times on this path")
 
-    # the kernel against its plain version on the largest inputs the
+    # each kernel against its plain version on the largest inputs the
     # path gave it (these launches are not the path's)
-    plain = getattr(kmod, f"{kname}_plain")
-    args, kwargs = rec["args"]
-    got = orig["kernel"](*args, **kwargs)
-    want = plain(*args, **{k: v for k, v in kwargs.items() if k != "chunk"})
-    path_err, checks = 0.0, []
-    for g, w in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
-        if kname == "flash_attention":
-            err, tol, top = _flash_err(
-                torch, g, w, FLASH_BF16_REL
-                if args[0].dtype == torch.bfloat16 else 1e-4)
-        else:
-            err, tol = _max_err(torch, g, w, 1e-4)
-            top = err
-        path_err = max(path_err, top)
-        checks.append(f"{err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
-            fail(f"{kname} on the path's inputs: |err| {err:.3e} > {tol:.3e}")
-    what = ("worst row max |kernel - plain|" if kname == "flash_attention"
-            else "max |kernel - plain| of y, state")
-    log(f"  {kname} on the path's largest inputs "
-        f"({'x'.join(str(n) for n in args[0].shape)}): {what} "
-        f"{', '.join(checks)}; max |kernel - plain| {path_err:.3e}")
-    del got, want
+    path_err = {}
+    for kname in per_prefill:
+        kmod = kmods[kname]
+        plain = getattr(kmod, f"{kname}_plain")
+        args, kwargs = rec["args"][kname]
+        got = orig[kname](*args, **kwargs)
+        want = plain(*args, **{k: v for k, v in kwargs.items()
+                               if k != "chunk"})
+        path_err[kname], checks = 0.0, []
+        for g, w in (zip(got, want) if isinstance(got, tuple)
+                     else [(got, want)]):
+            if kname == "flash_attention":
+                err, tol, top = _flash_err(
+                    torch, g, w, FLASH_BF16_REL
+                    if args[0].dtype == torch.bfloat16 else 1e-4)
+            else:
+                err, tol = _max_err(torch, g, w, 1e-4)
+                top = err
+            path_err[kname] = max(path_err[kname], top)
+            checks.append(f"{err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                fail(f"{kname} on the path's inputs: |err| {err:.3e} > "
+                     f"{tol:.3e}")
+        what = ("worst row max |kernel - plain|" if kname == "flash_attention"
+                else "max |kernel - plain| of y, state")
+        log(f"  {kname} on the path's largest inputs "
+            f"({'x'.join(str(n) for n in args[0].shape)}): {what} "
+            f"{', '.join(checks)}; max |kernel - plain| "
+            f"{path_err[kname]:.3e}")
+        del got, want
 
-    # the same model on the plain version, teacher-forced on the same
-    # tokens: each prompt's prefill (the engine's shapes), then one decode
-    # step per generated token; in bf16 as served, and in fp32 through the
-    # kernel and through the plain version
-    def plain_call(*args, **kwargs):
-        kwargs.pop("chunk", None)          # the plain scan has no chunk
-        return plain(*args, **kwargs)
+    # the same model on the plain versions, teacher-forced on the engine's
+    # events: in bf16 as served, and in fp32 through the kernels and
+    # through the plain versions
+    def plain_of(kname):
+        plain = getattr(kmods[kname], f"{kname}_plain")
 
-    def teacher_forced(impl, model, model_cfg, req, out):
-        """Logits (len(out), V) fp32: the prompt's last position, then
-        after each generated token but the last."""
-        setattr(kmod, kname, impl)
+        def call(*args, **kwargs):
+            kwargs.pop("chunk", None)          # the plain scan has no chunk
+            return plain(*args, **kwargs)
+        return call
+
+    plains = {k: plain_of(k) for k in per_prefill}
+    kernels = {k: orig[k] for k in per_prefill}
+    by_uid = {r.uid: r for r in done}
+
+    def replay(impls, model, model_cfg):
+        """Per uid, the logits (len(output), V) fp32 of the engine's
+        events replayed with the kernels set to ``impls``."""
+        for kname, impl in impls.items():
+            setattr(kmods[kname], kname, impl)
         try:
-            prompt = torch.as_tensor(req.prompt[None, :], device=device)
-            logits, state = orig["prefill"](model, model_cfg, prompt,
-                                            LM_MAX_SEQ)
-            rows = [logits[0, -1].float()]
-            for tok in out[:-1]:
-                tok = torch.full((1, 1), int(tok), device=device)
-                logits, state = orig["decode_step"](model, model_cfg, tok,
-                                                    state)
-                rows.append(logits[0, -1].float())
-            return torch.stack(rows)
+            state = tfm.init_decode_state(model_cfg, LM_BATCH, max_seq,
+                                          device)
+            rows = {r.uid: [] for r in done}
+            for ev in events:
+                if ev[0] == "admit":
+                    _, slot, uid = ev
+                    prompt = torch.as_tensor(reqs[uid].prompt[None, :],
+                                             device=device)
+                    logits, one = orig["prefill"](model, model_cfg, prompt,
+                                                  max_seq)
+                    splice(state, one, slot)
+                    rows[uid].append(logits[0, -1].float())
+                else:
+                    _, tokens, live = ev
+                    logits, state = orig["decode_step"](
+                        model, model_cfg, torch.as_tensor(
+                            tokens, dtype=torch.long, device=device), state)
+                    for slot, uid in live.items():
+                        rows[uid].append(logits[slot, 0].float())
+            return {uid: torch.stack(r) for uid, r in rows.items()}
         finally:
-            setattr(kmod, kname, orig["kernel"])
+            for kname in per_prefill:
+                setattr(kmods[kname], kname, orig[kname])
 
     def decisions(rows, out, tol):
         """(compared, skipped): ``out`` must be the argmax of ``rows``
@@ -1100,32 +1299,44 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
 
     p32 = _fp32_copy(tfm, params)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    by_uid = {r.uid: r for r in done}
     t0 = time.perf_counter()
     dist = lambda u, v: float((u - v).abs().max().item())
+    rows16 = replay(plains, params, cfg)
+    with RouteLog(moe_mod) as plain_routes:
+        truth = replay(plains, p32, cfg32)
+    with RouteLog(moe_mod, forced=plain_routes.calls) as kernel_routes:
+        kernel32 = replay(kernels, p32, cfg32)
+    if cfg.n_experts:
+        margins = router_flips(plain_routes.calls, kernel_routes.calls)
+        log(f"  routing (fp32 replays, {len(plain_routes.calls)} MoE calls "
+            f"each, the kernel path routed as the plain path): "
+            f"{len(margins)} tokens whose own top-k differs between the "
+            f"paths" + (f", margins at the flip {min(margins):.3e}-"
+                        f"{max(margins):.3e} (near-tie below "
+                        f"{ROUTER_TIE:g})" if margins else ""))
+    del plain_routes, kernel_routes
     worst32, counts32 = 0.0, [0, 0]
     bf16 = []       # per request: (plain rows, tokens, scale, distances)
     for i, req in enumerate(reqs):
         out = by_uid[i].output
         got = rec["prefill"][i][1]
+        if not len(out) == len(rows16[i]) == len(truth[i]):
+            fail(f"{arch}: the replay gave request {i} {len(truth[i])} "
+                 f"rows for {len(out)} served tokens")
         if not torch.isfinite(got).all():
             fail(f"{arch}: non-finite prefill logits for request {i}")
-        rows = teacher_forced(plain_call, params, cfg, req, out)
-        truth = teacher_forced(plain_call, p32, cfg32, req, out)
-        kernel32 = teacher_forced(orig["kernel"], p32, cfg32, req, out)
-        scale = max(1.0, float(truth.abs().max().item()))
-        err32 = dist(kernel32, truth)
+        scale = max(1.0, float(truth[i].abs().max().item()))
+        bf16.append((rows16[i], out, scale, dist(rows16[i][0], truth[i][0]),
+                     dist(got, truth[i][0]), dist(got, rows16[i][0])))
+        err32 = dist(kernel32[i], truth[i])
         tol32 = FP32_LOGIT_TOL * scale
         worst32 = max(worst32, err32 / scale)
         if not err32 <= tol32:
             fail(f"{arch}: request {i} logits differ from the plain path by "
                  f"{err32:.3e} > {tol32:.3e} (fp32)")
-        c = decisions(truth, kernel32.argmax(-1).cpu().numpy(), tol32)
+        c = decisions(truth[i], kernel32[i].argmax(-1).cpu().numpy(), tol32)
         counts32 = [counts32[0] + c[0], counts32[1] + c[1]]
-        bf16.append((rows, out, scale, dist(rows[0], truth[0]),
-                     dist(got, truth[0]), dist(got, rows[0])))
-        del truth, kernel32
-    del p32
+    del truth, kernel32, rows16
 
     # bf16, as served.  The noise floor is the plain bf16 path's largest
     # distance from the same model in fp32 over every request; the bf16
@@ -1144,18 +1355,19 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
                  f"path by {err:.3e} > {tol:.3e} (bf16)")
         c = decisions(rows, out, tol)
         counts16 = [counts16[0] + c[0], counts16[1] + c[1]]
-    log(f"  teacher-forced on all {len(reqs)} requests "
-        f"({time.perf_counter() - t0:.1f} s).  fp32: logits max |kernel - "
-        f"plain| {worst32:.2e} of the scale (tol {FP32_LOGIT_TOL:g}), "
-        f"greedy choices equal at {counts32[0]} positions ({counts32[1]} "
-        f"within the tolerance skipped).  bf16: noise floor {floor:.4f} "
-        f"(largest logit {max(r[2] for r in bf16):.3f}), kernel path at "
-        f"most {max(r[4] for r in bf16):.4f} from fp32 (limit "
+    log(f"  teacher-forced on the engine's {len(events)} events "
+        f"({time.perf_counter() - t0:.1f} s).  fp32: logits max "
+        f"|kernel - plain| "
+        f"{worst32:.2e} of the scale (tol {FP32_LOGIT_TOL:g}), greedy "
+        f"choices equal at {counts32[0]} positions ({counts32[1]} within "
+        f"the tolerance skipped).  bf16: noise floor {floor:.4f} (largest "
+        f"logit {max(r[2] for r in bf16):.3f}), kernel path at most "
+        f"{max(r[4] for r in bf16):.4f} from fp32 (limit "
         f"{2 * floor:.4f}), prefill logits max |kernel - plain| "
         f"{max(r[5] for r in bf16):.4f} (tol {min(tols):.4f}-"
-        f"{max(tols):.4f} by request), served tokens "
-        f"equal the plain greedy choice at {counts16[0]} positions "
-        f"({counts16[1]} skipped)")
+        f"{max(tols):.4f} by request), served tokens equal the plain "
+        f"greedy choice at {counts16[0]} positions ({counts16[1]} "
+        f"skipped)")
     if counts16[0] == 0:
         # a floor this high (the random bf16 Mamba2-130M) lets the bf16
         # comparison fail only a grossly wrong kernel and compare no token
@@ -1164,20 +1376,136 @@ def serve_lm(torch, cfg, device, kmod, kname: str, kernel_mods) -> dict:
             "this path's gate")
     del bf16
 
-    longest = torch.as_tensor(reqs[0].prompt[None, :], device=device)
+    if cfg.frontend:
+        prefix_check(torch, cfg32, p32, reqs[0].prompt, max_seq, device,
+                     kmods, plains, kernel_mods)
+    del p32
+
+    longest = torch.as_tensor(reqs[int(np.argmax(lens))].prompt[None, :],
+                              device=device)
     log(f"  breakdown of one prefill of {longest.shape[1]} tokens under "
         f"the profiler:")
-    device_profile(torch, lambda: tfm.prefill(params, cfg, longest,
-                                              LM_MAX_SEQ))
+    pre_wall, pre_busy = device_profile(
+        torch, lambda: tfm.prefill(params, cfg, longest, max_seq))
     token = torch.as_tensor(engine.last_token, device=device)
     log(f"  breakdown of one decode tick (batch {LM_BATCH}, cache "
-        f"{LM_MAX_SEQ}):")
+        f"{max_seq}):")
     device_profile(torch, lambda: tfm.decode_step(params, cfg, token,
                                                   engine.state))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory {peak:.1f} GiB")
     del engine, params
     torch.cuda.empty_cache()
-    return {"launches": launches[kname], "args": rec["args"],
-            "max_abs_err": path_err}
+    return {"kernels": {k: {"launches": launches[k], "args": rec["args"][k],
+                            "max_abs_err": path_err[k]}
+                        for k in per_prefill},
+            "figures": {"params_m": n_params / 1e6,
+                        "prefill_ms": pre_ms[int(np.argmax(lens))],
+                        "tick_ms": float(np.median(dec)),
+                        "tok_s": toks / wall,
+                        "busy": (None if pre_busy is None
+                                 else pre_busy / pre_wall),
+                        "peak_gib": peak}}
+
+
+def prefix_check(torch, cfg32, p32, prompt, max_seq, device, kmods, plains,
+                 kernel_mods) -> None:
+    """One fp32 prefill of ``prompt`` after a ``prefix_embeds`` of the
+    published prefix (frontend_prefix_len x frontend_dim, from the seed),
+    through the kernels (each launched once a layer) and through the plain
+    versions: last-position logits within FP32_LOGIT_TOL of the scale."""
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    pre = torch.randn((1, cfg32.frontend_prefix_len, cfg32.frontend_dim),
+                      generator=gen, device=device)
+    tokens = torch.as_tensor(prompt[None, :], device=device)
+    for mod in kernel_mods:
+        mod.reset_launches()
+    got, state = tfm.prefill(p32, cfg32, tokens, max_seq, pre)
+    torch.cuda.synchronize()
+    launches = {k: v for mod in kernel_mods for k, v in mod.LAUNCHES.items()}
+    saved = {k: getattr(kmods[k], k) for k in plains}
+    for kname, impl in plains.items():
+        setattr(kmods[kname], kname, impl)
+    try:
+        want, _ = tfm.prefill(p32, cfg32, tokens, max_seq, pre)
+    finally:
+        for kname, impl in saved.items():
+            setattr(kmods[kname], kname, impl)
+    scale = max(1.0, float(want.abs().max().item()))
+    err = float((got - want).abs().max().item())
+    positions = cfg32.frontend_prefix_len + len(prompt)
+    log(f"  prefix: prefill of {len(prompt)} tokens after a "
+        f"{cfg32.frontend_prefix_len} x {cfg32.frontend_dim} "
+        f"prefix_embeds ({cfg32.frontend}), fp32: index "
+        f"{int(state['index'][0])}, launches {launches}, last logits max "
+        f"|kernel - plain| {err:.3e} (tol {FP32_LOGIT_TOL * scale:.3e})")
+    if int(state["index"][0]) != positions:
+        fail(f"{cfg32.name}: prefix prefill index {int(state['index'][0])}, "
+             f"want {positions}")
+    if launches["flash_attention"] != cfg32.n_layers:
+        fail(f"{cfg32.name}: prefix prefill launched flash "
+             f"{launches['flash_attention']} times, want {cfg32.n_layers}")
+    if not err <= FP32_LOGIT_TOL * scale:
+        fail(f"{cfg32.name}: prefix prefill logits differ from the plain "
+             f"path by {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rest of the model zoo
+# ---------------------------------------------------------------------------
+#: the archs that fit one H100 at their published configs, in bf16
+ZOO_ARCHS = ("glm4-9b", "minitron-4b", "gemma3-1b", "granite-moe-3b-a800m",
+             "zamba2-2.7b", "internvl2-2b", "musicgen-medium")
+#: prompts past gemma3's 1024-token window (two of them) and off the
+#: 64-key tiles
+ZOO_PROMPT_LENS = (384, 1031, 1500, 2048)
+ZOO_MAX_NEW = 8
+ZOO_MAX_SEQ = 2064
+
+
+def serve_zoo(torch, device, kernel_mods) -> None:
+    """Phase 17: each of ZOO_ARCHS served by ``serve_lm`` at its published
+    config (every layer, every width, bf16, random weights from the seed)
+    with ZOO_PROMPT_LENS, one model at a time, freed before the next;
+    then each kernel timed on the largest inputs each arch's path gave
+    it, beside its plain version, its bound and (flash) SDPA, and a table
+    of the archs' figures.  dbrx-132b is not run: it fits no single
+    card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    kmods = {"flash_attention": fa, "ssd": sk}
+    figures = {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        log(f"  -- {arch}: {len(ZOO_PROMPT_LENS)} requests of "
+            f"{', '.join(map(str, ZOO_PROMPT_LENS))} prompt tokens, "
+            f"{ZOO_MAX_NEW} new tokens, batch {LM_BATCH}, max_seq "
+            f"{ZOO_MAX_SEQ}")
+        run = serve_lm(torch, get_config(arch), device, kernel_mods,
+                       lens=ZOO_PROMPT_LENS, max_new=ZOO_MAX_NEW,
+                       max_seq=ZOO_MAX_SEQ)
+        log(f"  {arch} timed on the largest inputs of its path:")
+        for kname, k in run["kernels"].items():
+            args, kwargs = k["args"]
+            time_lm_kernel(torch, kmods[kname], kname, args, kwargs)
+        del run["kernels"]
+        torch.cuda.empty_cache()
+        figures[arch] = run["figures"] | {
+            "seconds": time.perf_counter() - t0}
+    log("  dbrx-132b: registered and held against the reference on the "
+        "CPU at its smoke config (tests/test_torch_moe.py); not run on "
+        "the card: about 132 B parameters, some 264 GB in bf16, fit no "
+        "single H100, so its card run waits for the sharding of the "
+        "training and parallelism slice (ROADMAP.md queue 1 item 5)")
+    log("  arch | M params | longest prefill ms | decode ms a tick | "
+        "tok/s | prefill device busy | peak GiB | s")
+    for arch, f in figures.items():
+        busy = "n/a" if f["busy"] is None else f"{f['busy']:.1%}"
+        log(f"  {arch} | {f['params_m']:.1f} | {f['prefill_ms']:.1f} | "
+            f"{f['tick_ms']:.2f} | {f['tok_s']:.1f} | {busy} | "
+            f"{f['peak_gib']:.1f} | {f['seconds']:.1f}")
 
 
 def flash_bound(args) -> tuple:
@@ -1241,15 +1569,62 @@ def ssd_bound(args) -> tuple:
 
 def sdpa_ms(torch, args):
     """``time_both`` of PyTorch's fused attention on the same inputs
-    (yardstick only: the port never calls it), and its output."""
+    (yardstick only: the port never calls it), and its output.  SDPA has
+    no sliding window: a windowed call gets the causal band as a boolean
+    ``attn_mask`` (so SDPA picks a kernel that reads a mask)."""
     import torch.nn.functional as F
     (q, k, v), kw = args[0][:3], args[1]
     causal = kw.get("causal", True)
-    if int(kw.get("window", 0)):
-        return None, None       # SDPA has no sliding window
-    call = lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True)
+    window = int(kw.get("window", 0))
+    if window:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = qpos - kpos < window
+        if causal:
+            mask = mask & (kpos <= qpos)
+        call = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        call = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
     return time_both(torch, call), call()
+
+
+def time_lm_kernel(torch, kmod, kname: str, args, kwargs,
+                   earlier: str = "") -> dict:
+    """An LM kernel timed on ``args`` beside its plain version, its bound
+    and (flash) SDPA, logged as one line (``earlier`` appended): the
+    numbers of the kernels line, ``ms`` etc. the first of ``time_both``'s
+    pair."""
+    kernel = getattr(kmod, kname)
+    plain = getattr(kmod, f"{kname}_plain")
+    plain_kwargs = {k: v for k, v in kwargs.items() if k != "chunk"}
+    ms = time_both(torch, lambda: kernel(*args, **kwargs))
+    plain_ms = time_both(torch, lambda: plain(*args, **plain_kwargs),
+                         iters=10 if kname == "flash_attention" else 3,
+                         warmup=1)
+    library_ms = None
+    if kname == "flash_attention":
+        library_ms, lib_out = sdpa_ms(torch, (args, kwargs))
+        diff, tol, _ = _flash_err(torch, lib_out,
+                                  plain(*args, **plain_kwargs),
+                                  FLASH_BF16_REL)
+        log(f"  SDPA vs plain on these inputs: worst row max |diff| "
+            f"{diff:.3e} (that row's flash tolerance {tol:.3e})")
+        del lib_out
+    bound_fn = flash_bound if kname == "flash_attention" else ssd_bound
+    bound_ms, bound_by = bound_fn((args, kwargs))
+    shape = "x".join(str(n) for n in args[0].shape)
+    extra = (f", window {int(kwargs.get('window', 0))}"
+             if kname == "flash_attention" else "")
+    log(f"  {kname}: {args[0].dtype} {shape}{extra}, {ms_text(ms)} (plain "
+        f"{ms_text(plain_ms)}, library "
+        f"{'none' if library_ms is None else ms_text(library_ms)}, "
+        f"bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms[0]:.1%} "
+        f"of peak{earlier})")
+    return {"ms": ms[0], "plain_ms": plain_ms[0], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if library_ms is None else library_ms[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2617,20 +2992,19 @@ def main() -> int:
     # -- 7-8. the LM serving path -------------------------------------------
     lm_runs = {}
     from repro_torch.configs import get_config
-    for phase, arch, kmod, kname in ((7, "qwen3-0.6b", fa, "flash_attention"),
-                                     (8, "mamba2-130m", sk, "ssd")):
+    for phase, arch in ((7, "qwen3-0.6b"), (8, "mamba2-130m")):
         log(f"[{phase} serve] {arch}: {len(LM_PROMPT_LENS)} requests, "
             f"prompts {min(LM_PROMPT_LENS)}-{max(LM_PROMPT_LENS)} tokens, "
             f"{LM_MAX_NEW} new tokens, batch {LM_BATCH}, max_seq "
             f"{LM_MAX_SEQ}")
-        lm_runs[kname] = serve_lm(torch, get_config(arch), device, kmod,
-                                  kname, kernel_mods)
+        lm_runs.update(serve_lm(torch, get_config(arch), device,
+                                kernel_mods)["kernels"])
 
     # -- 9. the LM kernels timed on the largest inputs their path gave ------
     log("[9 timing] flash attention and the SSD scan on their path's "
         "largest inputs")
-    lm_sources = {"flash_attention": ("flash_attention", 78, flash_bound),
-                  "ssd": ("ssd", 72, ssd_bound)}
+    lm_sources = {"flash_attention": ("flash_attention", 78),
+                  "ssd": ("ssd", 72)}
     #: the first kernels' times on the same inputs, before the tensor-core
     #: redesign (PERF.md's kernel table: H100 80GB HBM3 at 700 W, events
     #: without the spin); log text only, the kernels line holds what this
@@ -2638,42 +3012,18 @@ def main() -> int:
     earlier_ms = {"flash_attention": 3.506, "ssd": 5.662}
     for kmod, kname in ((fa, "flash_attention"), (sk, "ssd")):
         args, kwargs = lm_runs[kname]["args"]
-        kernel = getattr(kmod, kname)
-        plain = getattr(kmod, f"{kname}_plain")
-        plain_kwargs = {k: v for k, v in kwargs.items() if k != "chunk"}
         lm_worst[kname] = max(lm_worst[kname], lm_runs[kname]["max_abs_err"])
-        ms = time_both(torch, lambda: kernel(*args, **kwargs))
-        plain_ms = time_both(torch, lambda: plain(*args, **plain_kwargs),
-                             iters=10 if kname == "flash_attention" else 3,
-                             warmup=1)
-        library_ms = None
-        if kname == "flash_attention":
-            library_ms, lib_out = sdpa_ms(torch, (args, kwargs))
-            if lib_out is not None:
-                diff, tol, _ = _flash_err(torch, lib_out,
-                                          plain(*args, **plain_kwargs),
-                                          FLASH_BF16_REL)
-                log(f"  SDPA vs plain on these inputs: worst row max "
-                    f"|diff| {diff:.3e} (that row's flash tolerance "
-                    f"{tol:.3e})")
-        src, line, bound_fn = lm_sources[kname]
-        bound_ms, bound_by = bound_fn((args, kwargs))
-        shape = "x".join(str(n) for n in args[0].shape)
-        log(f"  {kname}: {args[0].dtype} {shape}, {ms_text(ms)} (plain "
-            f"{ms_text(plain_ms)}, library "
-            f"{'none' if library_ms is None else ms_text(library_ms)}, "
-            f"bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms[0]:.1%} "
-            f"of peak; the first kernel {earlier_ms[kname]:.3f} ms without "
-            f"the spin)")
+        times = time_lm_kernel(
+            torch, kmod, kname, args, kwargs,
+            earlier=f"; the first kernel {earlier_ms[kname]:.3f} ms "
+                    f"without the spin")
+        src, line = lm_sources[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/{src}.py:{line}",
             "launches": lm_runs[kname]["launches"],
-            "max_abs_err": lm_worst[kname], "ms": ms[0],
-            "plain_ms": plain_ms[0], "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None if library_ms is None else library_ms[0]})
+            "max_abs_err": lm_worst[kname], **times})
 
     # -- 10-12. the MLP training path and the fused_mlp kernel -------------
     for mod in kernel_mods:
@@ -2739,7 +3089,14 @@ def main() -> int:
                       tracked, extra, cpu_grid, devs, fleet_minus)
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
 
-    # -- 17. result lines ---------------------------------------------------
+    # -- 17. the rest of the model zoo -------------------------------------
+    log(f"[17 serve the zoo] {', '.join(ZOO_ARCHS)} at their published "
+        f"configs, bf16, one at a time")
+    t0 = time.perf_counter()
+    serve_zoo(torch, device, kernel_mods)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

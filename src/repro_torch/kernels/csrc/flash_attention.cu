@@ -21,18 +21,19 @@
 //
 // The bf16 kernel (the served models' type) is the FA2 structure on
 // mma.sync.m16n8k16 (bf16 operands, fp32 sums):
-//   * GQA packed into rows: one CTA of 4 warps owns 128 rows of one
-//     (b, kv head), row t being query position t / rep of query head
-//     kv * rep + t % rep (rep = H / KV).  Every query head of the group
-//     reads each K/V tile from one load: Qwen3-0.6B's rep 2 halves the K/V
-//     traffic of a CTA per query head, and any rep works.
+//   * GQA packed into rows: one CTA of 4 warps (8 at D = 256) owns 128
+//     rows of one (b, kv head), row t being query position t / rep of
+//     query head kv * rep + t % rep (rep = H / KV).  Every query head of
+//     the group reads each K/V tile from one load: Qwen3-0.6B's rep 2
+//     halves the K/V traffic of a CTA per query head, and any rep works.
 //   * Each warp owns 32 rows (two m16 tiles, so every K and V fragment
-//     read from shared memory feeds two MMAs): S = Q K^T for a 64-key tile
-//     stays in registers as C fragments; the online softmax runs on them
-//     (a row is spread over a quad of lanes); P is rounded to bf16 and
-//     regrouped register to register into the A fragments of O += P V
-//     (see warp_mma.cuh): P never touches shared memory.  O (32 x D)
-//     stays in registers.  Row sums l add the unrounded fp32 P.
+//     read from shared memory feeds two MMAs; at D = 256 one m16 tile, as
+//     TcTiling says why): S = Q K^T for a 64-key tile stays in registers
+//     as C fragments; the online softmax runs on them (a row is spread
+//     over a quad of lanes); P is rounded to bf16 and regrouped register
+//     to register into the A fragments of O += P V
+//     (see warp_mma.cuh): P never touches shared memory.  O (the warp's
+//     rows x D) stays in registers.  Row sums l add the unrounded fp32 P.
 //   * Q, K and V tiles come in by cp.async into padded shared rows (D + 8
 //     bf16: ldmatrix without bank conflicts); K and V have separate
 //     two-stage rings, so K and V of tile j + 1 load while tile j
@@ -248,12 +249,24 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- bf16: tensor cores ------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarpsTC = 4;
-constexpr int kMT = 2;                  // 16-row m-tiles per warp
-constexpr int kWarpRows = 16 * kMT;     // rows per warp
-constexpr int kRowsTC = kWarpRows * kWarpsTC;  // (position, head) rows per CTA
+constexpr int kRowsTC = 128;           // (position, head) rows per CTA
 constexpr int kBN = 64;                 // keys per tile
-constexpr int kThreadsTC = 32 * kWarpsTC;
+
+// How a CTA's 128 rows split over its warps.  Up to D = 128 a warp owns
+// two 16-row m-tiles (every K and V fragment feeds two MMAs) and a CTA
+// has 4 warps, two CTAs an SM.  At D = 256 a warp's 32 x D fp32 O alone
+// would take 256 registers a thread, so a warp owns one m-tile (O in 128
+// registers) and a CTA has 8 warps; its 198 KB of shared memory (the
+// 128-row q tile and two K and two V stages of 64 keys, rows of 264
+// bf16) leave room for one CTA an SM.
+template <int D>
+struct TcTiling {
+  static constexpr int kMT = D > 128 ? 1 : 2;  // 16-row m-tiles per warp
+  static constexpr int kWarpRows = 16 * kMT;   // rows per warp
+  static constexpr int kWarps = kRowsTC / kWarpRows;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = D > 128 ? 1 : 2;
+};
 
 // the q tile and two stages each of K and V, rows padded to D + 8
 template <int D>
@@ -262,13 +275,17 @@ constexpr int smem_bytes_tc() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
+__global__ void __launch_bounds__(TcTiling<D>::kThreads,
+                                  TcTiling<D>::kMinBlocks)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int B,
                   int KV, int rep, int Sq, int Skv, int n_tiles, Strides sq,
                   Strides sk, Strides sv, Strides so, int causal, int window,
                   float scale_log2) {
   using namespace warp_mma;
+  constexpr int kMT = TcTiling<D>::kMT;
+  constexpr int kWarpRows = TcTiling<D>::kWarpRows;
+  constexpr int kThreadsTC = TcTiling<D>::kThreads;
   constexpr int LD = D + 8;   // shared row stride: 8 rows hit 8 bank groups
   constexpr int CH = D / 8;   // 16-byte chunks per row
   constexpr int NT = kBN / 8; // score n-tiles
@@ -539,8 +556,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bf16_kernel<D><<<static_cast<unsigned>(blocks), kThreadsTC, smem,
-                         stream>>>(
+  flash_bf16_kernel<D><<<static_cast<unsigned>(blocks),
+                         TcTiling<D>::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), B, KV, rep, Sq,
       Skv, static_cast<int>(n_tiles), sq, sk, sv, so, causal, window,
@@ -563,7 +580,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(80)
     REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH_CASE
@@ -579,7 +598,7 @@ bool aligned16(const void* p, const Strides& s) {
 // q (B, H, Sq, D), k and v (B, KV, Skv, D), o (B, H, Sq, D), all of one
 // type (dtype 0 = fp32, 1 = bf16), addressed by (batch, head, seq) element
 // strides with unit stride on D; bf16 pointers 16-byte aligned and strides
-// multiples of 8.  D in {16, 32, 64, 128}, H a multiple of KV.  Returns a
+// multiples of 8.  D in {16, 32, 64, 80, 128, 256}, H a multiple of KV.  Returns a
 // cudaError_t (0 = ok).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,

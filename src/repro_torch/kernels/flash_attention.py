@@ -35,7 +35,7 @@ from repro_torch.kernels import build
 #: the TPU kernel's finite mask value (never -inf: see the CUDA source)
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel, bumped only where it is launched

@@ -7,9 +7,10 @@ prediction service.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
       --fleet --sweep
 
-The port of ``repro.launch.serve``: random weights from a seeded
-generator, random prompts from a numpy seed, greedy decoding, and the
-same summary lines.  ``--fleet`` tracks one ``decode_step`` and ranks
+The port of ``repro.launch.serve``: ``--arch`` takes every arch of
+``repro_torch.configs.ARCHS`` (``--smoke`` for its CPU-sized config),
+random weights from a seeded generator, random prompts from a numpy
+seed, greedy decoding, and the same summary lines.  ``--fleet`` tracks one ``decode_step`` and ranks
 every registered device for it; ``--sweep`` tracks it at each
 ``--sweep-batches`` size and predicts the grid in one ragged pass;
 ``--optimize`` runs the what-if optimizer (``repro_torch.serve.

@@ -1,9 +1,9 @@
 """Carry the reference's parameters into the port.
 
-:func:`params_from_jax` takes the JAX package's parameter tree as numpy
-arrays (``jax.tree.map(np.asarray, params)``: layers stacked on a leading
-axis, as ``lax.scan`` wants them) and returns the port's
-:class:`~repro_torch.models.transformer.LMParams` holding the same
+:func:`params_from_jax` takes the JAX package's parameter tree of any
+family as numpy arrays (``jax.tree.map(np.asarray, params)``: layers
+stacked on a leading axis, as ``lax.scan`` wants them) and returns the
+port's :class:`~repro_torch.models.transformer.LMParams` holding the same
 numbers, so both packages compute the same function;
 :func:`evalzoo_params_from_jax` does the same for the Table-4 nets of
 ``models.evalzoo``.  It imports no JAX: bfloat16 arrays (numpy's
@@ -21,7 +21,7 @@ from repro_torch.core.devices import torch_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LMParams, _check_family
 
-_TOP = ("embed", "final_norm", "lm_head")
+_TOP = ("embed", "final_norm", "lm_head", "frontend_proj")
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -32,17 +32,31 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _flat_block(blk: Mapping) -> Dict:
+    """One layer's (or the shared block's) tree with its ``mamba`` or
+    ``moe`` sub-tree flattened beside the other tensors, as the port's
+    layer dicts hold them."""
+    out = {k: v for k, v in blk.items() if k not in ("mamba", "moe")}
+    for sub in ("mamba", "moe"):
+        out.update(blk.get(sub, {}))
+    return out
+
+
 def params_from_jax(cfg: ModelConfig, tree: Mapping,
                     device=None) -> LMParams:
     """The reference's ``init_params(cfg, key)`` tree, as numpy, on
-    ``device`` (default ``cuda``).  Dense layers carry ``tree["layers"]``'s
-    tensors; ssm layers carry ``ln`` beside the ``mamba`` sub-tree's."""
+    ``device`` (default ``cuda``).  Attention layers carry
+    ``tree["layers"]``'s tensors (a ``moe`` sub-tree flattened into the
+    layer); ssm layers carry ``ln`` beside the ``mamba`` sub-tree's;
+    hybrid layers, stacked (n_groups, attn_every, ...) there, become one a
+    layer in order, and ``shared_attn`` the shared block."""
     _check_family(cfg)
     dev = torch_device(device)
     top = {k: _tensor(tree[k], dev) for k in _TOP if k in tree}
-    stacked = tree["layers"]
-    if cfg.family == "ssm":
-        stacked = {"ln": stacked["ln"], **stacked["mamba"]}
+    stacked = _flat_block(tree["layers"])
+    if cfg.family == "hybrid":
+        stacked = {k: np.reshape(v, (-1,) + np.shape(v)[2:])
+                   for k, v in stacked.items()}
     n = cfg.n_layers
     for k, v in stacked.items():
         if np.shape(v)[0] != n:
@@ -51,7 +65,11 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     layers: List[Dict[str, torch.Tensor]] = [
         {k: _tensor(np.asarray(v)[i], dev) for k, v in stacked.items()}
         for i in range(n)]
-    return LMParams(top, layers)
+    shared = None
+    if "shared_attn" in tree:
+        shared = {k: _tensor(v, dev)
+                  for k, v in _flat_block(tree["shared_attn"]).items()}
+    return LMParams(top, layers, shared)
 
 
 def evalzoo_params_from_jax(name: str, tree: Mapping, cfg=None,

@@ -11,7 +11,7 @@ as in the reference; their tokens are dropped.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -19,6 +19,18 @@ import torch
 from repro_torch.core.devices import torch_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+
+
+def splice(state: Dict[str, Any], one: Dict[str, Any], slot: int) -> None:
+    """Copy a one-request decode state ``one`` (from ``tfm.prefill``) into
+    slot ``slot`` of the pool's ``state``, in place: the caches' batch is
+    axis 1 (KV caches, the stacked Mamba2 states), the positions' axis 0."""
+    for key in ("k", "v"):
+        if key in state:
+            state[key][:, slot] = one[key][:, 0]
+    for key, pool in state.get("ssm_layers", {}).items():
+        pool[:, slot] = one["ssm_layers"][key][:, 0]
+    state["index"][slot] = one["index"][0]
 
 
 @dataclasses.dataclass
@@ -62,14 +74,7 @@ class ServingEngine:
                                  dtype=torch.long, device=self.device)
         logits, one = tfm.prefill(self.params, self.cfg, tokens,
                                   self.max_seq)
-        # splice the request's caches (batch axis 1) into the pool's slot
-        for key in ("k", "v"):
-            if key in self.state:
-                self.state[key][:, slot] = one[key][:, 0]
-        if "ssm_layers" in self.state:
-            for key, pool in self.state["ssm_layers"].items():
-                pool[:, slot] = one["ssm_layers"][key][:, 0]
-        self.state["index"][slot] = one["index"][0]
+        splice(self.state, one, slot)
         tok = int(torch.argmax(logits[0, -1]).item())
         self.last_token[slot, 0] = tok
         req.output = np.asarray([tok], np.int32)

@@ -35,7 +35,11 @@ def test_port_has_the_slice_modules():
                 "core.frontier", "serve.faults", "core.calibration",
                 "models.evalzoo", "serve.admission", "serve.optimizer",
                 "serve.snapshot", "serve.service", "serve.http",
-                "serve.aserver", "serve.netcache", "serve.router"):
+                "serve.aserver", "serve.netcache", "serve.router",
+                "models.moe", "configs.glm4_9b", "configs.minitron_4b",
+                "configs.gemma3_1b", "configs.granite_moe_3b_a800m",
+                "configs.dbrx_132b", "configs.zamba2_2_7b",
+                "configs.internvl2_2b", "configs.musicgen_medium"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -131,6 +131,12 @@ FLASH_CASES = [
     (2, 2, 1, 130, 130, 128, True, 37),
     (1, 8, 2, 90, 333, 16, False, 0),
     (1, 2, 2, 257, 257, 64, False, 70),
+    # the zoo's other head dims: zamba2's 80 (five 16-column steps) and
+    # gemma3's 256, windowed and GQA rep 4 as gemma3 runs it
+    (1, 4, 2, 200, 200, 80, True, 0),
+    (1, 2, 2, 130, 90, 80, False, 0),
+    (1, 4, 1, 300, 300, 256, True, 100),
+    (1, 4, 1, 140, 140, 256, True, 0),
 ]
 
 

@@ -309,6 +309,17 @@ FLASH_CASES = [
     (1, 4, 2, 300, 300, 128, True, 100),
     (2, 8, 1, 90, 333, 64, False, 0),
     (1, 4, 4, 333, 90, 16, False, 0),
+    # the zoo's shapes: zamba2's D 80 (H 32 over KV 32), gemma3's D 256
+    # (H 4 over KV 1, window 1024, prompts past it), glm4's GQA rep 16
+    (1, 32, 32, 1000, 1000, 80, True, 0),
+    (1, 4, 2, 130, 130, 80, True, 37),
+    (2, 4, 4, 70, 150, 80, False, 0),
+    (1, 4, 1, 1100, 1100, 256, True, 1024),
+    (1, 4, 1, 2048, 2048, 256, True, 1024),
+    (1, 4, 1, 300, 300, 256, True, 0),
+    (1, 2, 1, 65, 90, 256, False, 0),
+    (1, 32, 2, 300, 300, 128, True, 0),
+    (1, 32, 2, 1031, 1031, 128, True, 0),
 ]
 
 
@@ -369,6 +380,7 @@ SSD_CASES = [
     (2, 3, 96, 64, 64, 16, False),
     (1, 24, 4096, 64, 128, 64, True),
     (1, 2, 50, 20, 24, 10, True),
+    (1, 80, 2048, 64, 64, 64, True),    # zamba2-2.7b's prefill
 ]
 
 

@@ -1,5 +1,7 @@
 """Port parity: the LM serving path (model, engine, launcher) against the
-reference, for both ported families at their smoke configs.
+reference, for Qwen3 and Mamba2 at their smoke configs, and the launcher
+for every arch (the other archs' parity cases are in
+``test_torch_{moe,zoo_dense,zoo_hybrid}.py``).
 
 The reference's parameters (``init_params(cfg, PRNGKey(0))``) are carried
 into the port by ``params_from_jax``, so both packages compute the same
@@ -187,13 +189,15 @@ def test_launcher_serves_on_cpu(arch):
     assert len(re.findall(r"  req \d+: \[", proc.stdout)) == 3
 
 
-def test_unported_archs_and_families_are_refused():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("gemma3-1b")
-    moe = dataclasses.replace(smoke_config(get_config("qwen3-0.6b")),
-                              family="moe", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tfm.init_params(moe, device="cpu")
+def test_unknown_archs_and_families_are_refused():
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+    odd = dataclasses.replace(smoke_config(get_config("qwen3-0.6b")),
+                              family="diffusion")
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        tfm.init_params(odd, device="cpu")
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        tfm.init_decode_state(odd, 1, 8, device="cpu")
 
 
 def test_engine_refuses_params_on_another_device(pair):
