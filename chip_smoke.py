@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's six paths on the card and checks every phase; any
+Drives the port's seven paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
@@ -15,7 +15,10 @@ serving path answers rank, sweep and what-if requests through the
 coalescing prediction service, its HTTP front ends, the router and the
 network cache, on the scorer kernels; the zoo path serves the seven
 other archs that fit one card, every family among them, at their
-published configs.
+published configs; the LM training path trains Qwen3-0.6B and
+Mamba2-130M at their published configs through flash attention and the
+SSD scan, which are dispatcher ops with a gradient, resumes a crashed
+run, and predicts the tracked training step on other devices.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit;
    ``calibrate_spec("cuda")``'s achieved fp32 GEMM rate and copy
@@ -198,8 +201,50 @@ published configs.
     timed on the largest inputs of its path (flash at D 80 and 256 among
     them) beside its plain version, bound and SDPA.  dbrx-132b does not
     fit one card and is not run.
-18. A line with the card's name and power limit, a ``{"kernels": [...]}``
-    line with all five kernels, and last {"ok": true, "device": {...}}.
+18. Training the LMs: Qwen3-0.6B (flash attention) and Mamba2-130M (the
+    SSD scan) at their published configs (bf16, remat, AdamW, clip 1.0).
+    (a) One ``loss_fn`` gradient on 1 x 2048 tokens of ``SyntheticTokens``
+    through the kernel ops against the plain path (dense attention;
+    ``ssd_chunked`` at ``cfg.ssm_chunk``): in fp32 the loss within
+    GRAD_LOSS_REL and every gradient leaf within max(GRAD_REL, twice the
+    floor) of its own largest element from both the plain fp32 path and
+    the same plain path in fp64, the floor being the plain fp32 path's
+    distance from the fp64 one; in bf16 the
+    phase-7 method, the plain bf16 path's largest distance from the fp32
+    gradients being the floor, from which the kernel path may lie no
+    farther than twice (held where twice the floor lies below 1, so that
+    a zero gradient fails: flash; the random Mamba2's floor is above it),
+    and the bf16 loss within a limit that a broken kernel (attention
+    without its mask, the scan without its carry) must exceed.  At the op,
+    each layer's inputs from a bf16 forward at (b)'s batch: y row by row
+    against the plain function, a broken kernel's y outside that gate,
+    and the op's gradient against autograd through the function its
+    backward differentiates.  Every layer's ``wq``, ``wk``, ``wv``,
+    ``q_norm``, ``k_norm`` (``in_proj``'s x, B, C and dt columns,
+    ``conv_w``, ``a_log``, ``dt_bias``) with a non-zero gradient.  (b)
+    ``Trainer(cfg, batch=2, seq=4096)``: 20 steps with an async
+    checkpoint every 10, then a run crashed at step 12 by the failure
+    injector and a fresh trainer that restores step 10 and runs to 20;
+    every loss finite, the resumed losses of steps 11-20 bitwise the
+    uninterrupted run's, and each run's launches exactly steps x layers
+    x 2 (the forward and remat's recompute).  Logged: ms a step (median
+    after 2 warm-ups), tokens/s, peak memory, checkpoint bytes and the
+    seconds the loop waited on them, the device-busy share of 5 more
+    steps under ``torch.profiler`` with the forward kernels' device ms,
+    and one op call's forward kernel and backward VJP device ms.  (c)
+    ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 3
+    --batch 2 --seq 4096 --predict-on <the registry's GPUs>`` as a
+    process: exit 0, a ranking of every named GPU, the block scorer
+    launched, and its tracked step (``--trace-out``) holding 28 x 2
+    ``repro_torch::flash_attention`` ops, each with a finite positive
+    ``measured_ms``.  (d) ``distributed.predict_step`` on that trace,
+    pure data parallelism over 8 cards with the parameters' bytes as
+    the all-reduce, on the card against the CPU's plain scorer (rtol
+    1e-4).
+19. A line with the card's name and power limit, a ``{"kernels": [...]}``
+    line with all five kernels (flash attention and the SSD scan also
+    with their training launches), and last {"ok": true, "device":
+    {...}}.
 
 Weights are random (He init from a numpy seed for the serving MLPs, a
 seeded ``torch.Generator`` on the card for the LMs) or trained here, and
@@ -889,21 +934,26 @@ FLASH_BF16_REL = 8e-3
 FLASH_ROW_FLOOR = 1e-3
 
 
-def _flash_err(torch, got, want, rel):
-    """Flash attention's gate, row by row: every output row (b, h, s)
-    within rel * max(max |plain row|, FLASH_ROW_FLOOR).  Returns the
-    (err, tol) of the row with the largest err / tol, and the max |err|
-    over all rows.  Per row because a causal row's scale falls with its
-    length: row 0 is v_0, of order 1, while a row over 4096 keys averages
-    to a few hundredths, so a tile dropped or mis-masked late in a long
-    row moves it far less than a tolerance taken from the whole tensor's
-    max."""
+def _row_err(torch, got, want, rel, floor):
+    """Row by row (the last axis a row): every row within rel * max(max
+    |want row|, floor).  Returns the (err, tol) of the row with the
+    largest err / tol, and the max |err| over all rows."""
     torch.cuda.synchronize()
     want = want.float()
     err = (got.float() - want).abs().amax(-1).flatten()
-    tol = (rel * want.abs().amax(-1).clamp_min(FLASH_ROW_FLOOR)).flatten()
+    tol = (rel * want.abs().amax(-1).clamp_min(floor)).flatten()
     i = int((err / tol).argmax())
     return float(err[i]), float(tol[i]), float(err.max())
+
+
+def _flash_err(torch, got, want, rel):
+    """Flash attention's gate, row by row: every output row (b, h, s)
+    within rel * max(max |plain row|, FLASH_ROW_FLOOR).  Per row because a
+    causal row's scale falls with its length: row 0 is v_0, of order 1,
+    while a row over 4096 keys averages to a few hundredths, so a tile
+    dropped or mis-masked late in a long row moves it far less than a
+    tolerance taken from the whole tensor's max."""
+    return _row_err(torch, got, want, rel, FLASH_ROW_FLOOR)
 
 
 def lm_kernel_checks(torch, fa, sk, device) -> dict:
@@ -978,14 +1028,22 @@ def device_profile(torch, fn, top: int = 6) -> tuple:
     return wall_ms, busy_ms
 
 
-def _fp32_copy(tfm, params):
-    """The same model with every bf16 tensor widened to fp32."""
-    up = lambda t: t.float() if t.dtype == params["embed"].dtype else t
+def _widened(tfm, params, dtype, only=None):
+    """The same model with its float tensors (those of dtype ``only``,
+    where given) cast to ``dtype``."""
+    up = lambda t: (t.to(dtype) if t.is_floating_point()
+                    and (only is None or t.dtype == only) else t)
     top = {k: up(t) for k, t in params.named_parameters(recurse=False)}
     shared = (None if params.shared is None
               else {k: up(t) for k, t in params.shared.items()})
     return tfm.LMParams(top, [{k: up(t) for k, t in layer.items()}
                               for layer in params.layers], shared)
+
+
+def _fp32_copy(tfm, params):
+    """The same model with every bf16 tensor widened to fp32."""
+    import torch
+    return _widened(tfm, params, torch.float32, only=params["embed"].dtype)
 
 
 def lm_kernels(cfg) -> dict:
@@ -1068,6 +1126,14 @@ def router_flips(plain: list, kernel: list) -> list:
              f"margin {max(margins):.3e} (>= {ROUTER_TIE:g}): not a "
              f"near-tie")
     return margins
+
+
+def plain_kwargs(kwargs: dict) -> dict:
+    """A kernel call's keywords without those only the kernel takes: the
+    SSD scan's ``chunk`` and ``vjp_chunk`` (the plain scan has no
+    chunk)."""
+    return {k: v for k, v in kwargs.items() if k not in ("chunk",
+                                                         "vjp_chunk")}
 
 
 def serve_lm(torch, cfg, device, kernel_mods, lens=LM_PROMPT_LENS,
@@ -1215,8 +1281,7 @@ def serve_lm(torch, cfg, device, kernel_mods, lens=LM_PROMPT_LENS,
         plain = getattr(kmod, f"{kname}_plain")
         args, kwargs = rec["args"][kname]
         got = orig[kname](*args, **kwargs)
-        want = plain(*args, **{k: v for k, v in kwargs.items()
-                               if k != "chunk"})
+        want = plain(*args, **plain_kwargs(kwargs))
         path_err[kname], checks = 0.0, []
         for g, w in (zip(got, want) if isinstance(got, tuple)
                      else [(got, want)]):
@@ -1247,8 +1312,7 @@ def serve_lm(torch, cfg, device, kernel_mods, lens=LM_PROMPT_LENS,
         plain = getattr(kmods[kname], f"{kname}_plain")
 
         def call(*args, **kwargs):
-            kwargs.pop("chunk", None)          # the plain scan has no chunk
-            return plain(*args, **kwargs)
+            return plain(*args, **plain_kwargs(kwargs))
         return call
 
     plains = {k: plain_of(k) for k in per_prefill}
@@ -1498,7 +1562,7 @@ def serve_zoo(torch, device, kernel_mods) -> None:
         "CPU at its smoke config (tests/test_torch_moe.py); not run on "
         "the card: about 132 B parameters, some 264 GB in bf16, fit no "
         "single H100, so its card run waits for the sharding of the "
-        "training and parallelism slice (ROADMAP.md queue 1 item 5)")
+        "parallelism slice (ROADMAP.md queue 1 item 6)")
     log("  arch | M params | longest prefill ms | decode ms a tick | "
         "tok/s | prefill device busy | peak GiB | s")
     for arch, f in figures.items():
@@ -1509,41 +1573,35 @@ def serve_zoo(torch, device, kernel_mods) -> None:
 
 
 def flash_bound(args) -> tuple:
-    """(bound_ms, bound_by) of one flash call: 4 D FLOPs per allowed
-    (query, key) pair per head (q.k and p.v) over the bf16 tensor-core
-    peak (fp32 inputs: the fp32 peak), against q, k, v read once and o
-    written once over HBM bandwidth."""
+    """(bound_ms, bound_by) of one flash call: the FLOPs and bytes the
+    cost model prices the op at (``costmodel.flash_attention_cost``: 4 D
+    FLOPs per allowed (query, key) pair per head, q, k, v read once and o
+    written once), the FLOPs over the bf16 tensor-core peak (fp32 inputs:
+    the fp32 peak), the bytes over HBM bandwidth."""
+    from repro_torch.core.costmodel import flash_attention_cost
     (q, k, v), kw = args[0][:3], args[1]
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    causal, window = kw.get("causal", True), int(kw.get("window", 0))
-    i = np.arange(sq)
-    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq)
-    pairs = float(np.maximum(0, hi - lo + 1).sum())
-    flops = 4.0 * b * h * d * pairs
+    cost = flash_attention_cost(q, k, v, kw.get("causal", True),
+                                int(kw.get("window", 0)))
     peak = FP32_PEAK_FLOPS if q.dtype.itemsize == 4 else BF16_PEAK_FLOPS
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return roofline(flops, nbytes, peak)
+    return roofline(cost.flops, cost.bytes_accessed, peak)
 
 
 def ssd_bound(args) -> tuple:
     """(bound_ms, bound_by) of one SSD call: the scan's cheapest exact
     FLOP count, whatever the kernel's own chunk, each FLOP at the rate the
-    kernel runs it; against x, dt, a, b, c (each stored element once: b
-    and c are shared by the heads) read once and y and the state written
-    once.  In chunks of Q the scan costs per (b, h), over chunks of r
-    rows, r(r+1) N FLOPs for the causal scores c b^T, r(r+1) P for their
-    product with x, 4 r N P for the readout and rank-1 update against the
-    carried state, and N P for the state's decay once a chunk; the bound
-    takes the least time over Q (Q = 1 is the sequential recurrence).
-    fp32 inputs: every FLOP at the fp32 peak.  bf16 inputs run the
-    products on the bf16 tensor cores, the scores once (both operands
-    exact in bf16) and the other three as two bf16 products each (the
-    fp32 operand split in two terms), so those FLOPs count twice at the
-    bf16 peak and the decay at the fp32 peak: the share of the bound is
-    not flattered by the split."""
-    x, dt, a, bm = args[0][:4]
+    kernel runs it; against the bytes the cost model prices the op at
+    (``costmodel.ssd_cost``: x, dt, a, b, c read once, each stored element
+    once, and y and the state written once).  The FLOPs are
+    ``costmodel.ssd_flop_terms`` in chunks of Q, and the bound takes the
+    least time over Q (Q = 1 is the sequential recurrence).  fp32 inputs:
+    every FLOP at the fp32 peak.  bf16 inputs run the products on the
+    bf16 tensor cores, the scores once (both operands exact in bf16) and
+    the other products as two bf16 products each (the fp32 operand split
+    in two terms), so those FLOPs count twice at the bf16 peak and the
+    decay at the fp32 peak: the share of the bound is not flattered by
+    the split."""
+    from repro_torch.core.costmodel import ssd_cost, ssd_flop_terms
+    x, dt, a, bm, cm = args[0][:5]
     b, h, l, p = x.shape
     n = bm.shape[-1]
     tc = x.dtype.itemsize == 2
@@ -1551,18 +1609,13 @@ def ssd_bound(args) -> tuple:
     split = 2.0 if tc else 1.0
 
     def per_head_s(q: int) -> float:
-        rows = np.full(l // q, q, np.float64)
-        if l % q:
-            rows = np.append(rows, l % q)
-        pairs = float((rows * (rows + 1)).sum())
-        mma = pairs * n + split * (pairs * p + 4 * l * n * p)
-        return mma / mma_peak + len(rows) * n * p / FP32_PEAK_FLOPS
+        scores, products, decay = ssd_flop_terms(l, n, p, q)
+        return (scores + split * products) / mma_peak \
+            + decay / FP32_PEAK_FLOPS
 
     seconds = b * h * min(per_head_s(q) for q in range(1, min(l, 256) + 1))
-    heads = 1 if bm.stride(1) == 0 else h
-    nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + a.numel() * 4
-              + 2 * b * heads * l * n * bm.element_size()
-              + b * h * l * p * 4 + b * h * n * p * 4)
+    # (the bytes do not depend on the chunk)
+    nbytes = ssd_cost(x, dt, a, bm, cm, l).bytes_accessed
     t_ops, t_bytes = seconds * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1598,16 +1651,16 @@ def time_lm_kernel(torch, kmod, kname: str, args, kwargs,
     pair."""
     kernel = getattr(kmod, kname)
     plain = getattr(kmod, f"{kname}_plain")
-    plain_kwargs = {k: v for k, v in kwargs.items() if k != "chunk"}
+    plain_only = plain_kwargs(kwargs)
     ms = time_both(torch, lambda: kernel(*args, **kwargs))
-    plain_ms = time_both(torch, lambda: plain(*args, **plain_kwargs),
+    plain_ms = time_both(torch, lambda: plain(*args, **plain_only),
                          iters=10 if kname == "flash_attention" else 3,
                          warmup=1)
     library_ms = None
     if kname == "flash_attention":
         library_ms, lib_out = sdpa_ms(torch, (args, kwargs))
         diff, tol, _ = _flash_err(torch, lib_out,
-                                  plain(*args, **plain_kwargs),
+                                  plain(*args, **plain_only),
                                   FLASH_BF16_REL)
         log(f"  SDPA vs plain on these inputs: worst row max |diff| "
             f"{diff:.3e} (that row's flash tolerance {tol:.3e})")
@@ -2821,6 +2874,706 @@ def serve_predictions(torch, fms, batched, mlps, traces, new_traces,
         procs.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training the LMs on the card
+# ---------------------------------------------------------------------------
+#: the LMs phase 18 trains at their published configs, and the kernel
+#: each trains through
+TRAIN_ARCHS = {"qwen3-0.6b": "flash_attention", "mamba2-130m": "ssd"}
+#: (a): one batch of 1 x GRAD_SEQ tokens.  fp32: the kernel path's loss
+#: within GRAD_LOSS_REL of the plain path's, and its gradients within
+#: max(GRAD_REL, twice the fp32 floor) of both the plain fp32 path's and
+#: the fp64 plain path's, each leaf against its own largest element.  The
+#: fp32 floor is the plain fp32 path's largest such distance from the
+#: same plain path run in fp64: what fp32 rounding alone moves the
+#: gradients of this model.  GRAD_REL is narrowed from the 1e-3 first
+#: asked for, which random Mamba2-130M's own fp32 rounding exceeds (on an
+#: H100 80GB HBM3 at 700 W its plain fp32 conv_b lay 6.8e-3 of its scale
+#: from fp64, seed 0; the kernel path 3.2e-3; Qwen3's leaves all within
+#: 1.9e-5)
+GRAD_SEQ = 2048
+GRAD_LOSS_REL = 1e-5
+GRAD_REL = 1e-4
+#: bf16, as trained (the phase-7 method): the gradients' largest distance
+#: from the fp32 plain path, the kernel path's within twice the plain
+#: bf16 path's (the floor).  A zero or unrelated gradient reads about 1,
+#: so the gate can fail one only while twice the floor lies below 1: it
+#: holds the kernels named here and fails if that no longer holds.  The
+#: random Mamba2-130M's floor is 2.5-7.6 (seeds 1 and 0: its bf16
+#: gradients are noise against fp32's, so a model-level gate would pass
+#: anything); the scan's bf16 gradient is held at the op instead
+BF16_GRAD_GATED = ("flash_attention",)
+#: the bf16 loss's distance from the fp32 plain loss, relative to it: each
+#: kernel path's limit, set between what correct bf16 paths read and what
+#: a broken kernel reads (the plain path with a fault a kernel could have,
+#: ``broken_path``); the broken path must lie beyond the limit, or the
+#: gate could not catch it and fails.  On an H100 80GB HBM3 at 700 W,
+#: seeds 0 and 1, kernel and plain paths against the broken one: Qwen3
+#: 9.5e-6-2.8e-5 against 7.9e-5-2.7e-4; Mamba2 2.0e-5-3.6e-4 against
+#: 5.4e-4-8.2e-4.  At random weights a broken kernel moves the loss only
+#: a few times bf16's own noise, so this gate is thin; the op gate below
+#: is the one that separates them widely
+BF16_LOSS_REL = {"flash_attention": 5e-5, "ssd": 4.5e-4}
+#: (a) at the op: every layer's inputs to the op in a bf16 forward at
+#: (b)'s batch, y held row by row against the plain function (flash:
+#: phase 6's gate; the scan: ``ssd_chunked`` at ``cfg.ssm_chunk``, within
+#: OP_SSD_ROW_REL of the row's largest |y|, floored at OP_ROW_FLOOR of
+#: the layer's largest: the kernel and ``ssd_chunked`` each lie up to
+#: 1.9e-4 of a row from the sequential fp32 oracle, a scan without its
+#: carry about 1.2), and the op's gradient against autograd through the
+#: function its backward differentiates, with the same cotangent, each
+#: input within OP_GRAD_REL of its own largest element (the same
+#: function on the same inputs: equal but for the order of reductions;
+#: bitwise on the card)
+OP_SSD_ROW_REL = 1e-3
+OP_ROW_FLOOR = 1e-3
+OP_GRAD_REL = 2.0 ** -8
+#: parameters that reach the loss only through the kernel op: each must
+#: get a non-zero gradient on the kernel path in every layer (in_proj
+#: also feeds the gate, and is checked on its x, B, C and dt columns)
+THROUGH_KERNEL = {"flash_attention": ("wq", "wk", "wv", "q_norm", "k_norm"),
+                  "ssd": ("in_proj", "conv_w", "a_log", "dt_bias")}
+#: (b): Trainer(cfg, batch=2, seq=4096), train_4k's sequence length
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 20, 10, 12
+TRAIN_PROFILE_STEPS = 5
+#: op calls (each with its gradient) profiled for the VJP's device ms
+VJP_CALLS = 3
+#: (c)-(d): the CLI's tracked step and the distributed prediction
+CLI_STEPS = 3
+DP_DEGREE = 8
+
+
+def _names(params):
+    return [n for n, _ in params.named_parameters()]
+
+
+def lm_grads(torch, tfm, params, cfg, batch) -> tuple:
+    """(loss, {name: fp32 gradient}) of one ``loss_fn`` on ``batch``."""
+    params.requires_grad_(True)
+    loss, _ = tfm.loss_fn(params, cfg, batch)
+    got = torch.autograd.grad(loss, list(params.parameters()),
+                              allow_unused=True)
+    grads = {n: (torch.zeros_like(p, dtype=torch.float32) if g is None
+                 else g.float()) for (n, p), g in
+             zip(params.named_parameters(), got)}
+    return float(loss.detach()), grads
+
+
+def _swapped(mod, name: str, fn):
+    """A context in which ``mod.name`` is ``fn``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, orig)
+    return ctx()
+
+
+def plain_path(cfg, kname: str):
+    """A context in which the model runs its plain path for ``kname``:
+    dense attention, or the port's ``ssd_chunked`` at ``cfg.ssm_chunk``
+    (the reference's training path)."""
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    if kname == "flash_attention":
+        return _swapped(attn, "flash_attention", attn.dense_attention)
+
+    def ssd(x, dt, a, bmat, cmat, chunk=sk.MAX_CHUNK,
+            vjp_chunk=sk.VJP_CHUNK):
+        y, s = ssm_mod.ssd_chunked(
+            x.transpose(1, 2), dt.transpose(1, 2), a, bmat.transpose(1, 2),
+            cmat.transpose(1, 2), chunk=vjp_chunk, return_final=True)
+        return y.transpose(1, 2), s
+    return _swapped(sk, "ssd", ssd)
+
+
+def dropped_carry(x, dt, a, bmat, cmat, chunk):
+    """The scan in the kernel's layout with the state dropped between
+    chunks of ``chunk`` rows: each chunk scanned from a zero state, as a
+    kernel that lost its state pass would.  Returns (y, the last chunk's
+    final state)."""
+    from repro_torch.models import ssm as ssm_mod
+    b, h, l, p = x.shape
+    if l % chunk:
+        fail(f"dropped_carry: length {l} is not a multiple of {chunk}")
+
+    def rows(t):              # (B, H, L, ...) -> (B L / chunk, chunk, H, ...)
+        t = t.transpose(1, 2)
+        return t.reshape(b * (l // chunk), chunk, *t.shape[2:])
+    y, s = ssm_mod.ssd_chunked(rows(x), rows(dt), a, rows(bmat), rows(cmat),
+                               chunk=chunk, return_final=True)
+    return (y.reshape(b, l, h, p).transpose(1, 2),
+            s.reshape(b, l // chunk, *s.shape[1:])[:, -1])
+
+
+def broken_path(cfg, kname: str):
+    """A context in which the model runs the plain path with a fault a
+    kernel could have: attention without its causal mask (the future
+    read), or the scan with its state dropped between the kernel's
+    chunks."""
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.models import attention as attn
+    if kname == "flash_attention":
+        return _swapped(attn, "flash_attention",
+                        lambda q, k, v, causal=True, window=0:
+                        attn.dense_attention(q, k, v, causal=False,
+                                             window=window))
+
+    def ssd(x, dt, a, bmat, cmat, chunk=sk.MAX_CHUNK,
+            vjp_chunk=sk.VJP_CHUNK):
+        return dropped_carry(x, dt, a, bmat, cmat, chunk)
+    return _swapped(sk, "ssd", ssd)
+
+
+def fp64_path(torch):
+    """A context in which the model computes in fp64 where it names fp32:
+    its code casts to ``torch.float32`` for its fp32 islands (norms, rope,
+    the softmax, the scan, the cross-entropy), so with fp64 parameters
+    and ``torch.float32`` read as fp64 the whole step is fp64."""
+    return _swapped(torch, "float32", torch.float64)
+
+
+def grad_distance(grads, ref) -> tuple:
+    """(max over leaves of max |g - ref| / max |ref|, that leaf's name):
+    each leaf against its own scale."""
+    return max((float((grads[n] - r).abs().max())
+                / max(float(r.abs().max()), 1e-30), n)
+               for n, r in ref.items())
+
+
+def gradient_gate(torch, cfg, device, kname) -> None:
+    """Phase 18 (a) for one model: the gradient through the kernel op
+    against the plain path, in fp32 (the floor from an fp64 plain pass)
+    and in bf16 as trained; the bf16 loss against a broken kernel's."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.data import SyntheticTokens
+    from repro_torch.train.trainer import to_device
+    batch = to_device(SyntheticTokens(cfg, 1, GRAD_SEQ).batch_at(0), device)
+
+    def grads(p, *contexts):
+        import contextlib
+        with contextlib.ExitStack() as stack:
+            for c in contexts:
+                stack.enter_context(c)
+            return lm_grads(torch, tfm, p, cfg, batch)
+    params = tfm.init_params(cfg, seed=SEED, device=device)
+    p64 = _widened(tfm, params, torch.float64)
+    loss_64, g_64 = grads(p64, plain_path(cfg, kname), fp64_path(torch))
+    del p64
+    p32 = _fp32_copy(tfm, params)
+    loss_p, g_p = grads(p32, plain_path(cfg, kname))
+    floor, floor_leaf = grad_distance(g_p, g_64)
+    loss_k, g_k = grads(p32)
+    kernel_64, kernel_64_leaf = grad_distance(g_k, g_64)
+    del g_64
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_leaf = grad_distance(g_k, g_p)
+    tol = max(GRAD_REL, 2 * floor)
+    log(f"  {cfg.name} fp32, 1 x {GRAD_SEQ}: loss {loss_k:.6f} (plain "
+        f"{loss_p:.6f}, rel {loss_rel:.2e}, tol {GRAD_LOSS_REL:g}; fp64 "
+        f"{loss_64:.6f}); gradients, each leaf against its own largest "
+        f"element: kernel path from plain {worst:.2e} ({worst_leaf}); from "
+        f"the fp64 plain path, the plain fp32 path (the floor) {floor:.2e} "
+        f"({floor_leaf}) and the kernel path {kernel_64:.2e} "
+        f"({kernel_64_leaf}); tol, for both, max({GRAD_REL:g}, twice the "
+        f"floor) = {tol:.2e}")
+    if not loss_rel <= GRAD_LOSS_REL:
+        fail(f"{cfg.name}: the fp32 kernel path's loss is {loss_rel:.2e} "
+             f"from the plain path's")
+    if not worst <= tol:
+        fail(f"{cfg.name}: gradient {worst_leaf} through the kernel lies "
+             f"{worst:.2e} of its scale from the plain path's")
+    if not kernel_64 <= tol:
+        fail(f"{cfg.name}: gradient {kernel_64_leaf} through the kernel "
+             f"lies {kernel_64:.2e} of its scale from the fp64 path's")
+    check_nonzero(cfg, g_k, kname)
+    del g_k
+    loss_pb, g_pb = grads(params, plain_path(cfg, kname))
+    bf16_floor, floor_leaf = grad_distance(g_pb, g_p)
+    del g_pb
+    loss_kb, g_kb = grads(params)
+    dist, leaf = grad_distance(g_kb, g_p)
+    check_nonzero(cfg, g_kb, kname)
+    del g_kb, g_p
+    with torch.no_grad(), broken_path(cfg, kname):
+        loss_broken = float(tfm.loss_fn(params, cfg, batch)[0])
+    gated = kname in BF16_GRAD_GATED
+    log(f"  {cfg.name} bf16: gradients' largest distance from the fp32 "
+        f"plain path, each leaf against its own scale: kernel path "
+        f"{dist:.3e} ({leaf}), plain path (the floor) {bf16_floor:.3e} "
+        f"({floor_leaf}); " + ("limit twice the floor" if gated else
+                               "not gated: twice the floor passes a zero "
+                               "gradient (the op-level gate holds it)"))
+    if gated:
+        if not 2 * bf16_floor < 1:
+            fail(f"{cfg.name}: twice the bf16 floor, {2 * bf16_floor:.3e}, "
+                 f"would pass a zero gradient")
+        if not dist <= 2 * bf16_floor:
+            fail(f"{cfg.name}: bf16 gradients through the kernel lie "
+                 f"{dist:.3e} from fp32, over twice the plain path's "
+                 f"{bf16_floor:.3e}")
+    rel = lambda v: abs(v - loss_p) / abs(loss_p)
+    limit = BF16_LOSS_REL[kname]
+    log(f"  {cfg.name} bf16 loss from the fp32 plain loss, relative: kernel "
+        f"path {rel(loss_kb):.3e} ({loss_kb:.6f}), plain path "
+        f"{rel(loss_pb):.3e} ({loss_pb:.6f}), broken kernel "
+        f"{rel(loss_broken):.3e} ({loss_broken:.6f}); limit {limit:.3e}")
+    if not rel(loss_kb) <= limit:
+        fail(f"{cfg.name}: the bf16 loss through the kernel lies "
+             f"{rel(loss_kb):.3e} from fp32, over {limit:.3e}")
+    if not rel(loss_broken) > limit:
+        fail(f"{cfg.name}: a broken kernel's bf16 loss lies within the "
+             f"limit ({rel(loss_broken):.3e}): the gate cannot catch it")
+    del params, p32
+    torch.cuda.empty_cache()
+
+
+def op_inputs(torch, cfg, device, kname) -> list:
+    """Every call's inputs to the kernel op in a bf16 forward of ``cfg``
+    on (b)'s first batch, as (args, kwargs) in the kernel's layout."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.data import SyntheticTokens
+    from repro_torch.train.trainer import to_device
+    mod = fa if kname == "flash_attention" else sk
+    orig, calls = getattr(mod, kname), []
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+    params = tfm.init_params(cfg, seed=SEED, device=device)
+    batch = to_device(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ)
+                      .batch_at(0), device)
+    with torch.no_grad(), _swapped(mod, kname, record):
+        tfm.loss_fn(params, cfg, batch)
+    return calls
+
+
+def op_gate(torch, cfg, device, kname) -> None:
+    """Phase 18 (a) at the op, for one model: the bf16 op on every layer's
+    inputs at (b)'s shapes, its y row by row against the plain function
+    and its gradient against autograd through the function its backward
+    differentiates; and, for scale, a broken kernel's y."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    y_worst = grad_worst = (0.0, "")
+    broken_worst = float("inf")
+    calls = op_inputs(torch, cfg, device, kname)
+    for layer, (args, kwargs) in enumerate(calls):
+        if kname == "flash_attention":
+            q, k, v = (t.detach().requires_grad_(True) for t in args[:3])
+            leaves, causal = [q, k, v], kwargs.get("causal", True)
+            window = kwargs.get("window", 0)
+            y = fa.flash_attention(q, k, v, causal=causal, window=window)
+            with torch.no_grad():
+                want = fa.flash_attention_plain(q, k, v, causal, window)
+                err, tol, _ = _flash_err(torch, y, want, FLASH_BF16_REL)
+                b_err, b_tol, _ = _flash_err(torch, fa.flash_attention_plain(
+                    q, k, v, False, window), want, FLASH_BF16_REL)
+                del want
+
+            def plain():
+                o = attn.chunked_attention(
+                    *(t.transpose(1, 2) for t in leaves), causal=causal,
+                    window=window, chunk_q=fa.VJP_CHUNKS[0],
+                    chunk_kv=fa.VJP_CHUNKS[1])
+                return o.transpose(1, 2)
+        else:
+            x, dt, a, bm, cm = args[:5]
+            chunk, vjp_chunk = kwargs["chunk"], kwargs["vjp_chunk"]
+            b, h = x.shape[:2]
+            # B and C as the model hands them over: the group's (B, L, 1,
+            # N) tensor, broadcast over the heads
+            x, dt, a = (t.detach().requires_grad_(True) for t in (x, dt, a))
+            bases = [t[:, :1].detach().clone().requires_grad_(True)
+                     for t in (bm, cm)]
+            leaves = [x, dt, a] + bases
+            bc = [t.expand(b, h, *t.shape[2:]) for t in bases]
+            y, _ = sk.ssd(x, dt, a, *bc, chunk=chunk, vjp_chunk=vjp_chunk)
+
+            def plain():
+                return ssm_mod.ssd_chunked(
+                    x.transpose(1, 2), dt.transpose(1, 2), a,
+                    *(t.transpose(1, 2) for t in bc),
+                    chunk=vjp_chunk).transpose(1, 2)
+            with torch.no_grad():
+                want = plain()
+                floor = OP_ROW_FLOOR * float(want.abs().max())
+                err, tol, _ = _row_err(torch, y, want, OP_SSD_ROW_REL, floor)
+                b_err, b_tol, _ = _row_err(
+                    torch, dropped_carry(x, dt, a, *bc, chunk)[0],
+                    want, OP_SSD_ROW_REL, floor)
+        cot = torch.randn(y.shape, generator=g, device=device).to(y.dtype)
+        got = torch.autograd.grad(y, leaves, cot)
+        want_g = torch.autograd.grad(plain(), leaves, cot)
+        for name, gk, gp in zip(("q", "k", "v") if len(leaves) == 3 else
+                                ("x", "dt", "a", "b", "c"), got, want_g):
+            d = float((gk.float() - gp.float()).abs().max()) / max(
+                float(gp.float().abs().max()), 1e-30)
+            grad_worst = max(grad_worst, (d, f"layer {layer} d{name}"))
+        y_worst = max(y_worst, (err / tol, f"layer {layer}"))
+        broken_worst = min(broken_worst, b_err / b_tol)
+        del y, got, want_g, leaves
+    del calls
+    torch.cuda.empty_cache()
+    log(f"  {cfg.name} at the op, bf16, {kname} on each of the "
+        f"{layer + 1} layers' inputs at {TRAIN_BATCH} x {TRAIN_SEQ}: y "
+        f"against plain, worst row {y_worst[0]:.3f} of its tolerance "
+        f"({y_worst[1]}); a broken kernel's y in the layer it fits best "
+        f"{broken_worst:.1f} of it; gradient against the VJP of the "
+        f"function it differentiates, worst input {grad_worst[0]:.3e} of "
+        f"its scale ({grad_worst[1]}; tol {OP_GRAD_REL:.3e})")
+    if not y_worst[0] <= 1:
+        fail(f"{cfg.name}: the bf16 {kname} op's y disagrees with its plain "
+             f"function at the training shapes ({y_worst[1]})")
+    if not broken_worst > 1:
+        fail(f"{cfg.name}: a broken {kname} kernel's y passes the op gate")
+    if not grad_worst[0] <= OP_GRAD_REL:
+        fail(f"{cfg.name}: the bf16 {kname} op's gradient disagrees with "
+             f"the VJP it stands for ({grad_worst[1]})")
+
+
+def check_nonzero(cfg, grads, kname) -> None:
+    """Every layer's parameters that reach the loss only through the
+    kernel op have a non-zero gradient (in_proj on its x, B, C and dt
+    columns, past the gate's)."""
+    for name, g in grads.items():
+        leaf = name.split(".")[-1]
+        if leaf not in THROUGH_KERNEL[kname]:
+            continue
+        if leaf == "in_proj":
+            g = g[:, cfg.d_inner:]
+        if not float(g.abs().max()) > 0:
+            fail(f"{cfg.name}: {name} gets no gradient through {kname}")
+
+
+def profile_rows(torch, fn) -> tuple:
+    """(wall ms, device rows as ``device_rows`` gives them) of ``fn``
+    once under ``torch.profiler``, recording the device's activity alone
+    and reading its records straight from the profiler's trace: a
+    training step launches tens of thousands of kernels, and building
+    the profiler's per-op tables for 5 steps took 22-47 s."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sums = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_user_annotation():
+            continue
+        row = sums[e.name()]
+        row[0] += e.duration_ns() / 1e6
+        row[1] += 1
+    return wall_ms, [(ms, key, n) for key, (ms, n) in sums.items()
+                     if ms > 0]
+
+
+#: the CUDA kernels of each LM kernel, by function name
+KERNEL_FUNCTIONS = {
+    "flash_attention": ("flash_bf16_kernel", "flash_fp32_kernel"),
+    "ssd": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+            "ssd_output_kernel")}
+
+
+def kernel_rows_ms(rows, kname) -> float:
+    """Device ms of the profiler rows that are ``kname``'s CUDA kernels."""
+    return sum(ms for ms, key, _ in rows
+               if any(f in key for f in KERNEL_FUNCTIONS[kname]))
+
+
+def vjp_device_ms(torch, cfg, device, kname) -> tuple:
+    """(forward kernel ms, backward VJP ms) a call of the op and its
+    gradient at (b)'s shapes and layouts (bf16), device time under the
+    profiler over VJP_CALLS calls: the VJP is every device op but the
+    kernel's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sk
+    g = torch.Generator(device=device).manual_seed(SEED)
+    bf = torch.bfloat16
+    rnd = lambda *shape, dtype=bf: torch.randn(
+        shape, generator=g, device=device).to(dtype).requires_grad_(True)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    if kname == "flash_attention":
+        hd = cfg.resolved_head_dim
+        q = rnd(b, s, cfg.n_heads, hd)
+        k, v = rnd(b, s, cfg.n_kv_heads, hd), rnd(b, s, cfg.n_kv_heads, hd)
+        leaves = [q, k, v]
+
+        def call():
+            o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2))
+            torch.autograd.grad(o, leaves, torch.ones_like(o))
+    else:
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x = rnd(b, s, h, p)
+        dt = (torch.rand((b, s, h), generator=g, device=device) * 0.1
+              ).requires_grad_(True)
+        a = (-torch.rand((h,), generator=g, device=device) - 0.5
+             ).requires_grad_(True)
+        bm, cm = rnd(b, s, 1, n), rnd(b, s, 1, n)
+        leaves = [x, dt, a, bm, cm]
+
+        def call():
+            y, _ = sk.ssd(x.transpose(1, 2), dt.transpose(1, 2), a,
+                          bm.expand(b, s, h, n).transpose(1, 2),
+                          cm.expand(b, s, h, n).transpose(1, 2),
+                          chunk=min(cfg.ssm_chunk, sk.MAX_CHUNK),
+                          vjp_chunk=cfg.ssm_chunk)
+            torch.autograd.grad(y, leaves, torch.ones_like(y))
+    def calls():
+        # the profiler can miss the first kernels after it starts: a spin
+        # kernel goes first, and is not counted
+        torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(VJP_CALLS):
+            call()
+    call()
+    _, rows = profile_rows(torch, calls)
+    rows = [r for r in rows if "spin_kernel" not in r[1]]
+    fwd = kernel_rows_ms(rows, kname)
+    return fwd / VJP_CALLS, (sum(ms for ms, _, _ in rows) - fwd) / VJP_CALLS
+
+
+def train_lm(torch, cfg, device, kname, kmod, tmp) -> dict:
+    """Phase 18 (b) for one model: 20 steps uninterrupted, then a run
+    crashed at step 12 and a fresh trainer resumed from its step-10
+    checkpoint; launches counted exactly in each run; the resumed losses
+    bitwise the uninterrupted run's."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig, to_device
+    per_step = 2 * cfg.n_layers     # forward + remat's recompute
+
+    def trainer(name, injector=None):
+        return Trainer(cfg, TRAIN_BATCH, TRAIN_SEQ, TrainerConfig(
+            checkpoint_dir=str(Path(tmp) / name), checkpoint_every=TRAIN_EVERY,
+            async_checkpoint=True, log_every=5, max_steps=TRAIN_STEPS),
+            seed=SEED, failure_injector=injector, device=device)
+
+    def counted(run_name, t, steps, **kw):
+        kmod.reset_launches()
+        t.run(TRAIN_STEPS, log=lambda m: log(f"    {run_name}: {m}"), **kw)
+        got = kmod.LAUNCHES[kname]
+        if got != steps * per_step:
+            fail(f"{cfg.name} {run_name}: {kname} launched {got} times, "
+                 f"not {steps} steps x {per_step}")
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = trainer("a")
+    launches = counted("uninterrupted", a, TRAIN_STEPS)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps_ms = np.asarray(a.step_times[2:]) * 1e3
+    step_ms = float(np.median(steps_ms))
+    ckpt = Path(tmp) / "a" / f"step_{TRAIN_STEPS}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    losses = [a.losses[s] for s in range(TRAIN_STEPS)]
+    if not all(np.isfinite(losses)):
+        fail(f"{cfg.name}: a loss is not finite: {losses}")
+    log(f"  {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"in {seconds:.1f} s; {step_ms:.2f} ms a step (median of steps 3-"
+        f"{TRAIN_STEPS}; min {steps_ms.min():.2f}, max "
+        f"{steps_ms.max():.2f}), {TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f}"
+        f" tokens/s; peak {peak:.2f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {kname} launches {launches} ({per_step} a step)")
+    log(f"  checkpoints: {ckpt_bytes:,} bytes each, the loop waited "
+        f"{a.checkpoint_wait_s:.2f} s on {TRAIN_STEPS // TRAIN_EVERY + 1} "
+        f"saves (device-to-host copies and joins)")
+
+    # the device's busy share over 5 more steps, and where it goes
+    def five():
+        for s in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_PROFILE_STEPS):
+            a.state, m = a.train_step(
+                a.state, to_device(a.data.batch_at(s), device))
+        float(m["loss"])
+    t0 = time.perf_counter()
+    wall, rows = profile_rows(torch, five)
+    busy = sum(ms for ms, _, _ in rows)
+    fwd = kernel_rows_ms(rows, kname)
+    log(f"  {TRAIN_PROFILE_STEPS} steps under the profiler: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
+        f"{kname} forward kernels {fwd:.2f} ms; profiled and parsed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for ms, key, count in sorted(rows, reverse=True)[:6]:
+        log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    del a
+    torch.cuda.empty_cache()
+
+    class Crash(Exception):
+        pass
+
+    def injector(step):
+        if step == TRAIN_CRASH:
+            raise Crash()
+    t0 = time.perf_counter()
+    b = trainer("b", injector)
+    kmod.reset_launches()
+    try:
+        b.run(TRAIN_STEPS, log=lambda m: None)
+        fail(f"{cfg.name}: the failure injector did not crash the run")
+    except Crash:
+        pass
+    if kmod.LAUNCHES[kname] != TRAIN_CRASH * per_step:
+        fail(f"{cfg.name} crashed run: {kmod.LAUNCHES[kname]} launches, not "
+             f"{TRAIN_CRASH} steps x {per_step}")
+    b.wait_for_checkpoint()    # the crashed job's step-10 snapshot lands
+    del b
+    torch.cuda.empty_cache()
+    c = trainer("b")
+    launches += counted("resumed", c, TRAIN_STEPS - TRAIN_EVERY)
+    launches += TRAIN_CRASH * per_step
+    resumed = sorted(c.losses)
+    if resumed != list(range(TRAIN_EVERY, TRAIN_STEPS)):
+        fail(f"{cfg.name}: the resumed run ran steps {resumed}")
+    differ = [s for s in resumed if c.losses[s] != losses[s]]
+    log(f"  crash at step {TRAIN_CRASH}, a fresh Trainer restored step "
+        f"{TRAIN_EVERY} and ran to {TRAIN_STEPS}: losses of steps "
+        f"{TRAIN_EVERY + 1}-{TRAIN_STEPS} bitwise the uninterrupted run's: "
+        f"{not differ} (both runs in {time.perf_counter() - t0:.1f} s)")
+    if differ:
+        fail(f"{cfg.name}: resumed losses differ at steps {differ}: "
+             f"{[(c.losses[s], losses[s]) for s in differ]}")
+    del c
+    torch.cuda.empty_cache()
+    fwd_ms, vjp_ms = vjp_device_ms(torch, cfg, device, kname)
+    log(f"  one {kname} call and its gradient at these shapes, device "
+        f"time: forward kernel {fwd_ms:.3f} ms, backward VJP (PyTorch) "
+        f"{vjp_ms:.3f} ms; a step's {per_step // 2} VJPs, at that, "
+        f"{vjp_ms * per_step / 2:.1f} ms of device time")
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
+            "busy": busy / wall, "fwd_ms": fwd_ms, "vjp_ms": vjp_ms}
+
+
+def cli_train(torch, tmp) -> tuple:
+    """Phase 18 (c): ``launch.train --predict-on`` as a process on the
+    card; returns (the tracked trace, its config)."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import TrackedTrace
+    cfg = get_config("qwen3-0.6b")
+    trace_path = Path(tmp) / "trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           cfg.name, "--steps", str(CLI_STEPS), "--batch", str(TRAIN_BATCH),
+           "--seq", str(TRAIN_SEQ), "--predict-on", ",".join(SERVE_GPUS),
+           "--checkpoint-dir", str(Path(tmp) / "cli"), "--trace-out",
+           str(trace_path)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=900)
+    seconds = time.perf_counter() - t0
+    log(f"  {' '.join(cmd[1:6])} ... exit {proc.returncode} in "
+        f"{seconds:.1f} s:")
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        fail(f"launch.train --predict-on exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    head = next(i for i, ln in enumerate(lines) if ln.startswith("device"))
+    ranked = [ln.split()[0] for ln in lines[head + 1:head + 1 +
+                                           len(SERVE_GPUS)]]
+    if sorted(ranked) != sorted(SERVE_GPUS):
+        fail(f"launch.train ranked {ranked}, not {SERVE_GPUS}")
+    counts = json.loads(next(ln for ln in lines if ln.startswith(
+        "kernel launches:")).split(":", 1)[1])
+    if counts.get("fused_mlp_score", 0) < 1:
+        fail(f"launch.train ranked without the block scorer kernel: "
+             f"{counts}")
+    trace = TrackedTrace.from_json(trace_path.read_text())
+    flash = [op for op in trace.ops
+             if op.name == "repro_torch::flash_attention"]
+    want = 2 * cfg.n_layers
+    if len(flash) != want:
+        fail(f"the tracked step holds {len(flash)} flash ops, not "
+             f"{cfg.n_layers} layers x 2 (forward, remat)")
+    if not all(op.measured_ms is not None and np.isfinite(op.measured_ms)
+               and op.measured_ms > 0 for op in flash):
+        fail("a tracked flash op has no finite positive measured_ms")
+    kinds = collections.Counter(op.kind for op in trace.ops)
+    log(f"  tracked step: {len(trace.ops)} ops "
+        f"({', '.join(f'{k} {n}' for k, n in kinds.most_common(6))}), "
+        f"{trace.run_time_ms:.1f} ms summed; flash ops {len(flash)}, "
+        f"{sum(op.measured_ms for op in flash):.2f} ms; kernel launches "
+        f"{counts}")
+    return trace, cfg
+
+
+def predict_distributed(torch, trace, cfg, mlps) -> None:
+    """Phase 18 (d): ``distributed.predict_step`` of (c)'s trace under pure
+    data parallelism over the registry's GPUs, on the card against the
+    same MLPs on the CPU with the plain scorer (rtol 1e-4)."""
+    from repro_torch.core import distributed
+    from repro_torch.core.predictor import HabitatPredictor, \
+        default_predictor
+    grad_bytes = float(cfg.n_params()) * 2      # bf16 gradients
+    plan = distributed.MeshPlan(data=DP_DEGREE, grad_bytes=grad_bytes)
+    card = default_predictor(device="cuda")
+    cpu = HabitatPredictor(mlps, device="cpu")
+    worst = 0.0
+    for dest in SERVE_GPUS:
+        got = distributed.predict_step(trace, dest, plan, predictor=card)
+        want = distributed.predict_step(trace, dest, plan, predictor=cpu)
+        for field in ("compute_ms", "collective_ms", "step_ms"):
+            a, b = getattr(got, field), getattr(want, field)
+            worst = max(worst, abs(a / b - 1.0) if b else abs(a))
+        log(f"    {dest}: step {got.step_ms:.1f} ms (compute "
+            f"{got.compute_ms:.1f}, all-reduce {got.collective_ms:.1f}, "
+            f"exposed {got.exposed_collective_ms:.1f})")
+    log(f"  predict_step, data={DP_DEGREE}, grad_bytes {grad_bytes:.3e}: "
+        f"max rel err {worst:.3e} against the CPU (tol 1e-4)")
+    if worst > 1e-4:
+        fail(f"distributed.predict_step on the card disagrees with the "
+             f"CPU: {worst:.3e}")
+
+
+def train_lms(torch, device, kernel_mods, mlps) -> dict:
+    """Phase 18: (a) the gradient gates, (b) training with a crash and a
+    resume, (c) the CLI, (d) the distributed prediction.  Returns each
+    LM kernel's training launches and figures."""
+    import tempfile
+    from repro_torch.configs import get_config
+    mods = {"flash_attention": kernel_mods[1], "ssd": kernel_mods[2]}
+    out = {}
+    for arch, kname in TRAIN_ARCHS.items():
+        cfg = get_config(arch)
+        log(f"  (a) {arch}: one loss_fn gradient through {kname} against "
+            f"the plain path, and the op on the training step's inputs")
+        gradient_gate(torch, cfg, device, kname)
+        op_gate(torch, cfg, device, kname)
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, kname in TRAIN_ARCHS.items():
+            cfg = get_config(arch)
+            log(f"  (b) {arch}: Trainer(batch={TRAIN_BATCH}, seq="
+                f"{TRAIN_SEQ}), {cfg.param_dtype}, remat {cfg.remat}, "
+                f"AdamW, clip 1.0, checkpoint every {TRAIN_EVERY}")
+            out[kname] = train_lm(torch, cfg, device, kname, mods[kname],
+                                  str(Path(tmp) / arch))
+        log("  (c) python -m repro_torch.launch.train --predict-on the "
+            "registry's GPUs")
+        trace, cfg = cli_train(torch, tmp)
+        log("  (d) distributed.predict_step on the tracked step")
+        predict_distributed(torch, trace, cfg, mlps)
+    return out
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3096,7 +3849,18 @@ def main() -> int:
     serve_zoo(torch, device, kernel_mods)
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
 
-    # -- 18. result lines ---------------------------------------------------
+    # -- 18. training the LMs ---------------------------------------------
+    log(f"[18 train the LMs] {', '.join(TRAIN_ARCHS)} at their published "
+        f"configs: gradient gates, Trainer with a crash and a resume, "
+        f"launch.train --predict-on, distributed.predict_step")
+    t0 = time.perf_counter()
+    trained = train_lms(torch, device, kernel_mods, default_mlps)
+    for entry in kernels:
+        if entry["name"] in trained:
+            entry["train_launches"] = trained[entry["name"]]["launches"]
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ quietly between them.
 
 :func:`build_callable` covers what the reference covers (``linear``,
 ``bmm``, ``conv2d``, ``recurrent``, the ``_UNARY`` and ``_ELEMENTWISE``
-tables, ``reduce_*``), keyed on the reference's primitive names.  An op
+tables, ``reduce_*``), keyed on the reference's primitive names, and the
+port's kernel ops (``repro_torch::flash_attention``, ``repro_torch::
+ssd``), each timed as the one call the tracker recorded.  An op
 the tracker recorded replays the aten calls it ran (``Op.calls``: the
 same function, shapes, strides and arguments, fresh values); an op from a
 decoded trace, which carries no calls, is rebuilt from its params as the
@@ -40,7 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import devices, simulator
+from repro_torch.core import costmodel, devices, simulator
 from repro_torch.core.trace import AtenCall, Op, TensorSpec, TrackedTrace
 
 WARMUP = 3
@@ -153,7 +155,11 @@ def _rnn(x, w, h0):
 
 
 def covers(op: Op) -> bool:
-    """Whether ``op`` is of a kind the reference's calibration rebuilds."""
+    """Whether ``op`` is of a kind the reference's calibration rebuilds,
+    or a call of one of the port's kernel ops as the tracker recorded it
+    (its kernel is timed as one call; a decoded trace's has no calls)."""
+    if op.name in costmodel.KERNEL_OPS:
+        return bool(op.calls)
     return (op.kind in ("linear", "bmm", "conv2d", "recurrent")
             or (op.name in _UNARY and bool(op.in_shapes))
             or (op.name in _ELEMENTWISE and len(op.in_shapes) >= 2)

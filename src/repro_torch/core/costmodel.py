@@ -16,7 +16,11 @@ with the same per-primitive formulas:
   * movement ops (views, copies, ``cat``, indexing, creation): bytes only;
   * reductions and cumulative ops: one FLOP per input element;
   * other elementwise ops: ``_ELEMENTWISE_WEIGHT`` FLOPs per output
-    element (1 by default).
+    element (1 by default);
+  * the port's kernel ops (:data:`KERNEL_OPS`, ``torch.library`` custom
+    ops named ``repro_torch::<kernel>``): what the kernel's function
+    needs, counted as chip_smoke.py's bounds count it
+    (:func:`flash_attention_cost`, :func:`ssd_cost`).
 
 Each op is named with the reference's primitive name where one exists
 (:func:`prim_name`), so a port trace reads like a reference trace and the
@@ -137,6 +141,9 @@ _REDUCTIONS = {
 
 _MATMUL = {"mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot"}
 
+#: the port's kernels as dispatcher ops, each one tracked op a call
+KERNEL_OPS = ("repro_torch::flash_attention", "repro_torch::ssd")
+
 
 def packet_name(func) -> str:
     """The aten overload packet's name: ``aten.add_.Tensor`` -> ``add_``."""
@@ -150,6 +157,8 @@ def prim_name(func) -> str:
     out-of-place forms.  ``max``/``min`` are reductions with one operand
     and elementwise with two, as in the reference."""
     name = packet_name(func)
+    if getattr(func, "namespace", None) == "repro_torch":
+        return f"repro_torch::{name}"
     if name.endswith("_") and not name.startswith("_"):
         name = name[:-1]
     return _PRIM_NAMES.get(name, name)
@@ -240,6 +249,58 @@ def conv_grad_costs(args, out) -> List[Tuple[str, OpCost, Dict[str, int]]]:
     return costs
 
 
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int) -> OpCost:
+    """One flash-attention call: 4 D FLOPs per allowed (query, key) pair
+    per head (q.k and p.v), counted under the causal mask and the window;
+    q, k, v read once and o (q's shape and dtype) written once."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    i = torch.arange(sq, dtype=torch.float64)
+    hi = torch.clamp(i, max=skv - 1) if causal else \
+        torch.full((sq,), skv - 1.0, dtype=torch.float64)
+    lo = torch.clamp(i - window + 1, min=0) if window > 0 else \
+        torch.zeros(sq, dtype=torch.float64)
+    pairs = float(torch.clamp(hi - lo + 1, min=0).sum())
+    return OpCost(4.0 * b * h * d * pairs,
+                  float(tensor_bytes(q) + tensor_bytes(k) + tensor_bytes(v)),
+                  float(tensor_bytes(q)))
+
+
+def ssd_flop_terms(l: int, n: int, p: int, chunk: int
+                   ) -> Tuple[float, float, float]:
+    """FLOPs of one (batch, head) of an SSD scan in chunks of ``chunk``
+    rows, in three parts: over chunks of r rows, r(r+1) N for the causal
+    scores c b^T; r(r+1) P for their product with x plus 4 L N P for the
+    readout and rank-1 update against the carried state; N P for the
+    state's decay once a chunk."""
+    rows = [chunk] * (l // chunk) + ([l % chunk] if l % chunk else [])
+    pairs = float(sum(r * (r + 1) for r in rows))
+    return pairs * n, pairs * p + 4.0 * l * n * p, float(len(rows) * n * p)
+
+
+def ssd_cost(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, chunk: int) -> OpCost:
+    """One SSD scan at the kernel's ``chunk``: the FLOPs of
+    :func:`ssd_flop_terms` for every (batch, head); x, dt, a, b and c read
+    once (b and c once for all heads where they are a head-broadcast
+    view), y and the final state (fp32) written once."""
+    b, h, l, p = x.shape
+    n = bmat.shape[-1]
+    flops = b * h * sum(ssd_flop_terms(l, n, p, chunk))
+    heads = 1 if bmat.stride(1) == 0 else h
+    read = (tensor_bytes(x) + dt.numel() * 4 + a.numel() * 4
+            + 2 * b * heads * l * n * bmat.element_size())
+    return OpCost(flops, float(read), float(b * h * (l + n) * p * 4))
+
+
+_KERNEL_COSTS = {
+    "repro_torch::flash_attention": lambda args: flash_attention_cost(
+        *args[:3], bool(args[3]), int(args[4])),
+    "repro_torch::ssd": lambda args: ssd_cost(*args[:5], int(args[5])),
+}
+
+
 def op_cost(func, args: Sequence[Any], out) -> Tuple[OpCost, Dict[str, Any]]:
     """Cost of one aten call (``convolution_backward`` goes through
     :func:`conv_grad_costs`, one entry per gradient).  Returns the cost
@@ -247,6 +308,8 @@ def op_cost(func, args: Sequence[Any], out) -> Tuple[OpCost, Dict[str, Any]]:
     matmul, ``out_size`` and ``red`` for a convolution, else none."""
     pkt = packet_name(func)
     name = prim_name(func)
+    if name in _KERNEL_COSTS:
+        return _KERNEL_COSTS[name](args), {}
     if pkt in _MATMUL or pkt.rstrip("_") in _MATMUL:
         b, m, n, k = _matmul_dims(pkt.rstrip("_"), args)
         rd, wr = _in_out_bytes(args, out)

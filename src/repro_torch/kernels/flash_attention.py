@@ -22,11 +22,22 @@ sum fp32) and are copied with 16-byte rows (``cp.async``): a view whose
 data pointer is not 16-byte aligned or whose (b, h, s) strides are not
 multiples of 8 is cloned first (the model's views never are).  float32
 inputs run the FFMA kernel.
+
+The wrapper calls the dispatcher op ``repro_torch::flash_attention``
+(``torch.library.custom_op``): its CUDA implementation is the launch
+above, its CPU implementation the plain version, both writing the same
+(B, Sq, H, D) memory.  The op has a gradient: the reference has no
+backward kernel (its Pallas kernel takes no gradient, and its training
+step differentiates the jnp chunked attention), so the backward is the
+vector-Jacobian product of :func:`repro_torch.models.attention.
+chunked_attention`, the port of that jnp code, recomputed from the saved
+q, k, v with its static causal and window block skipping.  The backward
+never calls :func:`flash_attention_plain`, which stays an oracle.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +48,9 @@ NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward's (query, key) chunks: the reference's ``attn_chunk_q``
+#: and ``attn_chunk_kv`` defaults, which every published config keeps
+VJP_CHUNKS = (1024, 1024)
 
 #: launches of the kernel, bumped only where it is launched
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -89,9 +103,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Everything the CUDA launcher assumes, checked before launching."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: tensors on {q.device} are "
-                         f"neither CPU nor CUDA")
     for t, what in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {what} on {t.device}, q on "
@@ -127,16 +138,25 @@ def _rows_aligned(t: torch.Tensor) -> bool:
         st % 8 == 0 for st in t.stride()[:3])
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, Sq, D); k, v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype.
+def _empty_out(q: torch.Tensor) -> torch.Tensor:
+    """The output buffer: (B, H, Sq, D), a view of (B, Sq, H, D) memory in
+    q's dtype (the model reshapes it to (B, Sq, H * D) without a copy)."""
+    b, h, sq, d = q.shape
+    return q.new_empty((b, sq, h, d)).permute(0, 2, 1, 3)
 
-    H must be a multiple of KV.  On CUDA: float32 or bfloat16, D in
-    :data:`HEAD_DIMS`, any strides with a unit stride on D."""
-    window = int(window)
-    _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> torch.Tensor:
+    out = _empty_out(q)
+    out.copy_(flash_attention_plain(q, k, v, causal, window))
+    return out
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int) -> torch.Tensor:
     _check_cuda(q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if _rows_aligned(t) else
@@ -144,8 +164,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    for t in (q, k, v))
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    out = _empty_out(q)
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
@@ -157,3 +176,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      d ** -0.5, stream)
     build.count_launch(LAUNCHES, "flash_attention")
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window):
+    return _empty_out(q)
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+def _flash_backward(ctx, grad: torch.Tensor
+                    ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of the chunked attention at the saved inputs, in the
+    kernel's (B, H, S, D) layout."""
+    from repro_torch.models.attention import chunked_attention
+    leaves = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in leaves if t.requires_grad]
+    out: list = [None] * 5
+    if wanted:
+        with torch.enable_grad():
+            o = chunked_attention(*(t.transpose(1, 2) for t in leaves),
+                                  causal=ctx.causal, window=ctx.window,
+                                  chunk_q=VJP_CHUNKS[0],
+                                  chunk_kv=VJP_CHUNKS[1])
+            got = iter(torch.autograd.grad(o, wanted, grad.transpose(1, 2)))
+        for i, t in enumerate(leaves):
+            if t.requires_grad:
+                out[i] = next(got)
+    return tuple(out)
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, H, Sq, D); k, v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype,
+    a view of (B, Sq, H, D) memory; differentiable in q, k and v.
+
+    H must be a multiple of KV.  On CUDA: float32 or bfloat16, D in
+    :data:`HEAD_DIMS`, any strides with a unit stride on D."""
+    window = int(window)
+    _check(q, k, v, window)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 window)

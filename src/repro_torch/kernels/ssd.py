@@ -21,11 +21,25 @@ model reshapes to (B, L, H * P) without a copy.  One call runs three CUDA
 kernels (chunk states, state passing, output) and counts as one launch;
 it allocates their scratch, (B, H, C, N, P) and (B, H, C) fp32 with C =
 ceil(L / chunk).
+
+The wrapper calls the dispatcher op ``repro_torch::ssd``
+(``torch.library.custom_op``): its CUDA implementation is the launch
+above, its CPU implementation the plain version, both writing the same
+layouts.  The op has a gradient: the reference has no backward kernel
+(its Pallas kernel takes no gradient, and its training step
+differentiates ``ssd_chunked``), so the backward is the vector-Jacobian
+product of :func:`repro_torch.models.ssm.ssd_chunked` for y and the
+final state, recomputed from the saved inputs at ``vjp_chunk`` (the
+chunk the reference's Mamba2 block hands ``ssd_chunked``,
+``cfg.ssm_chunk``).  b and c reach it as the views they are, so their
+gradients come back per head and autograd sums a head-broadcast view's
+over the heads.  The backward never calls :func:`ssd_plain`, which stays
+an oracle.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,6 +48,8 @@ from repro_torch.kernels import build
 #: the largest chunk the kernel takes (its cumulative sum is one warp
 #: scan, two steps a lane)
 MAX_CHUNK = 64
+#: the backward's default chunk: the reference's ``ssm_chunk``
+VJP_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel, bumped only where it is launched
@@ -88,9 +104,6 @@ def _check(x, dt, a, bmat, cmat, chunk: int) -> None:
 
 def _check_cuda(x, dt, a, bmat, cmat) -> None:
     """Everything the CUDA launcher assumes, checked before launching."""
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: tensors on {x.device} are neither CPU nor "
-                         f"CUDA")
     for t, what in ((dt, "dt"), (a, "a"), (bmat, "bmat"), (cmat, "cmat")):
         if t.device != x.device:
             raise ValueError(f"ssd: {what} on {t.device}, x on {x.device}")
@@ -122,25 +135,35 @@ def _check_cuda(x, dt, a, bmat, cmat) -> None:
         raise ValueError(f"ssd: B ({b}) and H ({h}) must be at most 65535")
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-        bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = MAX_CHUNK
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, H, L, P); dt (B, H, L); a (H,); bmat, cmat (B, H, L, N)
-    -> (y (B, H, L, P) float32, final state (B, H, N, P) float32).
+def _empty_outs(x: torch.Tensor, n: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y (B, H, L, P) fp32 as a view of (B, L, H, P) memory, and the final
+    state (B, H, N, P) fp32."""
+    b, h, l, p = x.shape
+    y = x.new_empty((b, l, h, p), dtype=torch.float32).permute(0, 2, 1, 3)
+    return y, x.new_empty((b, h, n, p), dtype=torch.float32)
 
-    ``chunk`` (1..:data:`MAX_CHUNK`) is the kernel's chunk length; it
-    changes only the fp32 rounding.  On CUDA: x, bmat, cmat float32 or
-    bfloat16 with a unit innermost stride; dt and a float32."""
-    chunk = int(chunk)
-    _check(x, dt, a, bmat, cmat, chunk)
-    if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, bmat, cmat)
+
+@torch.library.custom_op("repro_torch::ssd", mutates_args=(),
+                         device_types="cpu")
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+            vjp_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, state = _empty_outs(x, bmat.shape[-1])
+    y_plain, state_plain = ssd_plain(x, dt, a, bmat, cmat)
+    y.copy_(y_plain)
+    state.copy_(state_plain)
+    return y, state
+
+
+@_ssd_op.register_kernel("cuda")
+def _ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+              vjp_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda(x, dt, a, bmat, cmat)
     b, h, l, p = x.shape
     n = bmat.shape[-1]
-    y = torch.empty((b, l, h, p), dtype=torch.float32,
-                    device=x.device).permute(0, 2, 1, 3)
-    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    y, state = _empty_outs(x, n)
     n_chunks = -(-l // chunk)
     states = torch.empty((b, h, n_chunks, n, p), dtype=torch.float32,
                          device=x.device)
@@ -158,3 +181,63 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                      chunk, *strides, stream)
     build.count_launch(LAUNCHES, "ssd")
     return y, state
+
+
+@_ssd_op.register_fake
+def _ssd_fake(x, dt, a, bmat, cmat, chunk, vjp_chunk):
+    return _empty_outs(x, bmat.shape[-1])
+
+
+def _ssd_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs[:5])
+    ctx.vjp_chunk = inputs[6]
+
+
+def _ssd_backward(ctx, grad_y: Optional[torch.Tensor],
+                  grad_state: Optional[torch.Tensor]
+                  ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of ``ssd_chunked`` (y and the final state) at the saved
+    inputs, in the kernel's (B, H, L, .) layout."""
+    from repro_torch.models.ssm import ssd_chunked
+    leaves = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in leaves if t.requires_grad]
+    out: List[Optional[torch.Tensor]] = [None] * 7
+    if not wanted or (grad_y is None and grad_state is None):
+        return tuple(out)
+    x, dt, a, bmat, cmat = leaves
+    with torch.enable_grad():
+        y, state = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), a,
+                               bmat.transpose(1, 2), cmat.transpose(1, 2),
+                               chunk=ctx.vjp_chunk, return_final=True)
+        pairs = [(o, g) for o, g in ((y, grad_y), (state, grad_state))
+                 if g is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted,
+            [g.transpose(1, 2) if o is y else g for o, g in pairs],
+            allow_unused=True))
+    for i, t in enumerate(leaves):
+        if t.requires_grad:
+            g = next(got)
+            out[i] = torch.zeros_like(t) if g is None else g
+    return tuple(out)
+
+
+_ssd_op.register_autograd(_ssd_backward, setup_context=_ssd_setup)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = MAX_CHUNK,
+        vjp_chunk: int = VJP_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, H, L, P); dt (B, H, L); a (H,); bmat, cmat (B, H, L, N)
+    -> (y (B, H, L, P) float32, a view of (B, L, H, P) memory; final state
+    (B, H, N, P) float32), differentiable in every input.
+
+    ``chunk`` (1..:data:`MAX_CHUNK`) is the kernel's chunk length; it
+    changes only the fp32 rounding.  ``vjp_chunk`` is the chunk of the
+    backward's ``ssd_chunked``.  On CUDA: x, bmat, cmat float32 or
+    bfloat16 with a unit innermost stride; dt and a float32."""
+    chunk = int(chunk)
+    _check(x, dt, a, bmat, cmat, chunk)
+    return torch.ops.repro_torch.ssd(x, dt, a, bmat, cmat, chunk,
+                                     int(vjp_chunk))

@@ -6,12 +6,16 @@ the Hopper kernel (:mod:`repro_torch.kernels.flash_attention`), which on
 CPU tensors computes its plain version.  ``dense_attention`` (the
 reference's score-matrix attention) and ``decode_attention`` (one token
 against a KV cache, per-slot positions) are plain PyTorch, as they are
-plain jnp in the reference.
+plain jnp in the reference.  ``chunked_attention`` is the reference's
+online-softmax jnp attention (its ``flash_attention``), the function the
+reference trains through: the kernel's backward is its vector-Jacobian
+product.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
 
@@ -54,6 +58,63 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bskd,bkrqs->bkdrq", v.to(torch.float32), p)
     out = out.permute(0, 4, 1, 3, 2)
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      chunk_q: int = 1024,
+                      chunk_kv: int = 1024) -> torch.Tensor:
+    """Online-softmax chunked attention (never materializes Sq x Skv).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); positions count from 0
+    for queries and keys alike (the reference's ``q_offset=0``, the only
+    offset its training path passes).  Query chunks run in a Python loop,
+    so each chunk's kv loop covers only the blocks inside the causal
+    triangle and, with a window, the band: fully masked blocks are never
+    built, as in the reference (``attention.py:103-112``)."""
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    scale = hd ** -0.5
+    window = int(window)
+    cq, ckv = min(chunk_q, sq), min(chunk_kv, skv)
+    pq, pkv = (-sq) % cq, (-skv) % ckv
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pkv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pkv))
+    nq, nkv = (sq + pq) // cq, (skv + pkv) // ckv
+    qr = qp.reshape(b, nq, cq, kv, rep, hd).permute(1, 0, 3, 4, 2, 5)
+    kr = kp.reshape(b, nkv, ckv, kv, hd).permute(1, 0, 3, 2, 4)
+    vr = vp.reshape(b, nkv, ckv, kv, hd).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(nq):
+        qb = qr[qi].to(torch.float32)                # (B, KV, rep, cq, hd)
+        qpos = qi * cq + torch.arange(cq, device=q.device)
+        hi = min(nkv, ((qi + 1) * cq + ckv - 1) // ckv) if causal else nkv
+        lo = max(0, (qi * cq - window) // ckv) if window > 0 else 0
+        m_run = torch.full((b, kv, rep, cq), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, kv, rep, cq), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, kv, rep, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(lo, hi):
+            kpos = ki * ckv + torch.arange(ckv, device=q.device)
+            s = torch.einsum("bkrqd,bksd->bkrqs", qb,
+                             kr[ki].to(torch.float32)) * scale
+            ok = _mask(qpos, kpos, causal, window) & (kpos < skv)[None, :]
+            s = s.masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkrqs,bksd->bkrqd", p, vr[ki].to(torch.float32))
+            m_run = m_new
+        outs.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
+    out = torch.stack(outs)                          # (nq, B, KV, rep, cq, hd)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * cq, h, hd)
+    return out[:, :sq].to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,7 +5,8 @@ so a config means the same model in both packages).  One
 :class:`ModelConfig` per architecture (see ``repro_torch.configs``), one
 :class:`ShapeConfig` per assigned input-shape cell.  ``use_flash`` picks
 the prefill attention (kernel 1, or the dense score matrix when off);
-execution fields the port does not read (``remat``, the sharding
+``remat`` and ``remat_policy`` set ``forward``'s activation
+checkpointing; execution fields the port does not read (the sharding
 profiles, ``attn_chunk_*``, ``train_accum_steps``) are kept as data.
 """
 

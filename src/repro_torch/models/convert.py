@@ -5,8 +5,11 @@ family as numpy arrays (``jax.tree.map(np.asarray, params)``: layers
 stacked on a leading axis, as ``lax.scan`` wants them) and returns the
 port's :class:`~repro_torch.models.transformer.LMParams` holding the same
 numbers, so both packages compute the same function;
-:func:`evalzoo_params_from_jax` does the same for the Table-4 nets of
-``models.evalzoo``.  It imports no JAX: bfloat16 arrays (numpy's
+:func:`state_from_jax` carries a reference ``TrainState`` (parameters,
+optimizer moments, step) into the port's
+:class:`~repro_torch.train.train_step.TrainState`, so both packages train
+on from one state; :func:`evalzoo_params_from_jax` does the same for the
+Table-4 nets of ``models.evalzoo``.  It imports no JAX: bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type) are reinterpreted bit for bit.
 """
 
@@ -70,6 +73,31 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         shared = {k: _tensor(v, dev)
                   for k, v in _flat_block(tree["shared_attn"]).items()}
     return LMParams(top, layers, shared)
+
+
+def state_from_jax(cfg: ModelConfig, state: Any, device=None) -> Any:
+    """The reference's ``TrainState`` as numpy (``jax.tree.map(
+    np.asarray, state)``) on ``device`` (default ``cuda``): parameters
+    requiring grad, the optimizer's trees (Adam's ``{"m", "v"}``, SGD's
+    momentum tree, or ``()``) keyed by the port's parameter names, and
+    the step as an int."""
+    from repro_torch.train.train_step import TrainState, named_params
+    dev = torch_device(device)
+    params = params_from_jax(cfg, state.params, dev)
+    params.requires_grad_(True)
+
+    def tree(t):
+        return {k: v.detach() for k, v in
+                named_params(params_from_jax(cfg, t, dev)).items()}
+    opt = state.opt
+    if isinstance(opt, Mapping) and set(opt) == {"m", "v"}:
+        opt = {"m": tree(opt["m"]), "v": tree(opt["v"])}
+    elif isinstance(opt, Mapping):
+        opt = tree(opt)
+    else:
+        opt = ()
+    return TrainState(params=params, opt=opt,
+                      step=int(np.asarray(state.step)))
 
 
 def evalzoo_params_from_jax(name: str, tree: Mapping, cfg=None,

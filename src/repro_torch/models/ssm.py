@@ -154,9 +154,11 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     """Prefill Mamba2 block.  x: (B, L, D) -> (B, L, D).
 
     The SSD scan is kernel 2, at the kernel's chunk (``cfg.ssm_chunk``
-    capped at ``ssd.MAX_CHUNK``: the chunk changes only the rounding).
-    B and C of the one group reach it as head-broadcast views, and the
-    D-skip is added here, as the reference's ``ssd_chunked`` adds it."""
+    capped at ``ssd.MAX_CHUNK``: the chunk changes only the rounding);
+    its gradient is ``ssd_chunked``'s at ``cfg.ssm_chunk``, the chunk the
+    reference trains with.  B and C of the one group reach it as
+    head-broadcast views, and the D-skip is added here, as the
+    reference's ``ssd_chunked`` adds it."""
     bs, l, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
@@ -171,7 +173,8 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     a = -torch.exp(params["a_log"])
     y, s_final = ssd_k.ssd(xs.transpose(1, 2), dt.transpose(1, 2), a,
                            bmat.transpose(1, 2), cmat.transpose(1, 2),
-                           chunk=min(cfg.ssm_chunk, ssd_k.MAX_CHUNK))
+                           chunk=min(cfg.ssm_chunk, ssd_k.MAX_CHUNK),
+                           vjp_chunk=cfg.ssm_chunk)
     y = y.transpose(1, 2) + params["d_skip"][None, None, :, None] \
         * xs.to(torch.float32)
     y = y.reshape(bs, l, di).to(x.dtype)

@@ -25,18 +25,32 @@ attention runs kernel 1 (the reference picks dense or chunked jnp
 attention by length; all three compute the same function) unless
 ``cfg.use_flash`` is off, which selects the dense score-matrix attention
 (the evalzoo Transformer's: a tracked training step must run plain ops);
-the Mamba2 scan runs kernel 2.  MoE layers add their load-balancing loss
-to ``forward``'s aux loss, which ``loss_fn`` adds to the cross-entropy.
+the Mamba2 scan runs kernel 2; both kernels are dispatcher ops with a
+gradient, so ``loss_fn`` trains through them.  MoE layers add their
+load-balancing loss to ``forward``'s aux loss, which ``loss_fn`` adds to
+the cross-entropy.
+
+With ``cfg.remat``, ``forward`` checkpoints each layer body (hybrid: each
+group, and each Mamba2 layer inside it) as the reference wraps its scan
+bodies in ``jax.checkpoint``: non-reentrant
+``torch.utils.checkpoint``, so the backward runs each layer's forward
+again (the kernels included) before its gradient; ``remat_policy="dots"``
+keeps the outputs of the matmuls without batch dimensions (``mm``,
+``addmm``: JAX's ``checkpoint_dots_with_no_batch_dims``).  Without grad
+mode there is nothing to save, and the bodies run as they are.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.devices import torch_device
 from repro_torch.models import attention as attn_mod
@@ -70,7 +84,7 @@ class LMParams(nn.Module):
     and expert-stacked ``w_gate``/``w_up``/``w_down`` (the reference's
     ``moe`` sub-tree, flattened).  ``params["embed"]`` reads like the
     reference's parameter dict.  No tensor needs grad; a trainer turns it
-    on (``models.evalzoo``)."""
+    on (``models.evalzoo``, ``train.train_step.init_state``)."""
 
     def __init__(self, top: Dict[str, torch.Tensor],
                  layers: Sequence[Dict[str, torch.Tensor]],
@@ -83,6 +97,22 @@ class LMParams(nn.Module):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._parameters[name]
+
+    def map(self, fn: Callable[[str, torch.Tensor], torch.Tensor]
+            ) -> "LMParams":
+        """A new ``LMParams`` of the same structure holding ``fn(name,
+        tensor)`` for each of ``named_parameters()``, each with its
+        parameter's ``requires_grad`` (the reference's ``jax.tree.map``
+        over a parameter tree)."""
+        top = {k: fn(k, t) for k, t in self.named_parameters(recurse=False)}
+        layers = [{k: fn(f"layers.{i}.{k}", t) for k, t in blk.items()}
+                  for i, blk in enumerate(self.layers)]
+        shared = None if self.shared is None else {
+            k: fn(f"shared.{k}", t) for k, t in self.shared.items()}
+        out = LMParams(top, layers, shared)
+        for new, old in zip(out.parameters(), self.parameters()):
+            new.requires_grad_(old.requires_grad)
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -262,6 +292,28 @@ def _layer_groups(params: LMParams, cfg: ModelConfig):
         yield g, [(i, params.layers[i]) for i in range(g * n, (g + 1) * n)]
 
 
+#: the matmuls ``remat_policy="dots"`` keeps: those without batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ModelConfig, policy: bool = True) -> Callable:
+    """``fn`` under the configured activation checkpointing (the
+    reference's ``_remat``; ``policy=False`` is its plain
+    ``jax.checkpoint``, which the hybrid's inner layers get)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kwargs: Dict[str, Any] = {"use_reentrant": False}
+    if policy and cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kwargs)
+
+
 def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,18 +325,29 @@ def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     auxs = []
     if cfg.family == "ssm":
+        body = _remat(lambda layer, h: _mamba_layer(layer, h, cfg), cfg)
         for layer in params.layers:
-            x = _mamba_layer(layer, x, cfg)
+            x = body(layer, x)
     elif cfg.family == "hybrid":
+        inner = _remat(lambda layer, h: _mamba_layer(layer, h, cfg), cfg,
+                       policy=False)
+
+        def group_body(layers, h):
+            for layer in layers:
+                h = inner(layer, h)
+            h, aux, _ = _attn_mlp_block(params.shared, h, cfg, 0, positions)
+            return h, aux
+        group_body = _remat(group_body, cfg)
         for _, group in _layer_groups(params, cfg):
-            for _, layer in group:
-                x = _mamba_layer(layer, x, cfg)
-            x, aux, _ = _attn_mlp_block(params.shared, x, cfg, 0, positions)
+            x, aux = group_body([layer for _, layer in group], x)
             auxs.append(aux)
     else:
+        def body(layer, h, window):
+            h, aux, _ = _attn_mlp_block(layer, h, cfg, window, positions)
+            return h, aux
+        body = _remat(body, cfg)
         for layer, window in zip(params.layers, layer_windows(cfg)):
-            x, aux, _ = _attn_mlp_block(layer, x, cfg, int(window),
-                                        positions)
+            x, aux = body(layer, x, int(window))
             auxs.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.frontend and prefix_embeds is not None:

@@ -39,7 +39,10 @@ def test_port_has_the_slice_modules():
                 "models.moe", "configs.glm4_9b", "configs.minitron_4b",
                 "configs.gemma3_1b", "configs.granite_moe_3b_a800m",
                 "configs.dbrx_132b", "configs.zamba2_2_7b",
-                "configs.internvl2_2b", "configs.musicgen_medium"):
+                "configs.internvl2_2b", "configs.musicgen_medium",
+                "train", "train.optim", "train.data", "train.train_step",
+                "train.checkpoint", "train.compression", "train.trainer",
+                "core.distributed", "launch.train"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -13,7 +13,10 @@ output row within rel * max(max |plain row|, 1e-3), rel 1e-4 in fp32 and
 8e-3 in bfloat16 (about two bf16 ulps of the row, since kernel and plain
 round their fp32 results to bf16 separately).  Per row, because a long
 causal row averages to a few hundredths while row 0 is v_0: a tolerance
-from the whole tensor's max would let a dropped late tile pass."""
+from the whole tensor's max would let a dropped late tile pass.  The
+flash-attention and SSD ops' gradients (their PyTorch VJP backward) are
+held in fp32 against the plain versions' autograd gradients, within 1e-4
+of each gradient's largest element."""
 
 import numpy as np
 import pytest
@@ -530,3 +533,59 @@ def test_scalar_paths_score_on_the_card(sm90):
         cpu.predict_trace_scalar(trace, "V100").run_time_ms, rel=1e-4)
     assert one == pytest.approx(cpu.predict_op_ms(
         trace.ops[0], devices.get("T4"), devices.get("V100")), rel=1e-4)
+
+
+def _close_to_scale(got, want, rel=1e-4):
+    """A gradient within ``rel`` of its own largest element."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 33)])
+def test_flash_attention_op_gradient_on_the_card(sm90, causal, window):
+    """The op's backward (the chunked attention's VJP) on CUDA inputs,
+    in fp32, against the autograd gradient of the plain version, and one
+    forward launch a call (the backward launches no kernel of ours)."""
+    g = torch.Generator(device=sm90).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device=sm90)
+               .requires_grad_(True)
+               for shape in ((1, 300, 8, 64), (1, 300, 4, 64),
+                             (1, 300, 4, 64)))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(*views, causal=causal, window=window)
+    cot = torch.randn(out.shape, generator=g, device=sm90)
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    plain = fa.flash_attention_plain(*views, causal=causal, window=window)
+    want = torch.autograd.grad(plain, (q, k, v), cot)
+    for a, b in zip(got, want):
+        _close_to_scale(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_op_gradient_on_the_card(sm90):
+    """The op's backward (``ssd_chunked``'s VJP) on CUDA inputs in fp32,
+    b and c head-broadcast views, against the plain version's autograd
+    gradient (the sequential scan: fp32 sums in another order)."""
+    g = torch.Generator(device=sm90).manual_seed(4)
+    b, l, h, p, n = 1, 200, 4, 16, 32
+    x = torch.randn((b, l, h, p), generator=g, device=sm90)
+    dt = torch.rand((b, l, h), generator=g, device=sm90) * 0.2
+    a = -torch.rand((h,), generator=g, device=sm90) - 0.5
+    bm = torch.randn((b, l, 1, n), generator=g, device=sm90)
+    cm = torch.randn((b, l, 1, n), generator=g, device=sm90)
+    leaves = [t.requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    args = (x.transpose(1, 2), dt.transpose(1, 2), a,
+            bm.expand(b, l, h, n).transpose(1, 2),
+            cm.expand(b, l, h, n).transpose(1, 2))
+    y, s = ssd_k.ssd(*args, vjp_chunk=64)
+    gy = torch.randn(y.shape, generator=g, device=sm90)
+    gs = torch.randn(s.shape, generator=g, device=sm90)
+    got = torch.autograd.grad((y, s), leaves, (gy, gs))
+    yp, sp = ssd_k.ssd_plain(*args)
+    want = torch.autograd.grad((yp, sp), leaves, (gy, gs))
+    for u, w in zip(got, want):
+        _close_to_scale(u, w)
