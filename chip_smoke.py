@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: python3 chip_smoke.py
 
-Drives the port's seven paths on the card and checks every phase; any
+Drives the port's eight paths on the card and checks every phase; any
 failure exits non-zero.  The prediction path runs at the full width of
 the paper's MLP predictor (``MLPConfig()``: 8 hidden layers of 1024, four
 op kinds); the LM serving path runs Qwen3-0.6B and Mamba2-130M at their
@@ -18,7 +18,10 @@ other archs that fit one card, every family among them, at their
 published configs; the LM training path trains Qwen3-0.6B and
 Mamba2-130M at their published configs through flash attention and the
 SSD scan, which are dispatcher ops with a gradient, resumes a crashed
-run, and predicts the tracked training step on other devices.
+run, and predicts the tracked training step on other devices; the
+sharded LM training path trains the same two with their state as
+DTensors on a one-card mesh, through the ops' DTensor sharding rules,
+restores its checkpoint onto a fresh mesh and serves on the mesh.
 
 1. Device: a CUDA GPU of capability (9, 0); its name and power limit;
    ``calibrate_spec("cuda")``'s achieved fp32 GEMM rate and copy
@@ -241,10 +244,32 @@ run, and predicts the tracked training step on other devices.
     pure data parallelism over 8 cards with the parameters' bytes as
     the all-reduce, on the card against the CPU's plain scorer (rtol
     1e-4).
-19. A line with the card's name and power limit, a ``{"kernels": [...]}``
+19. Training the LMs sharded: a 1-rank NCCL group and a (data 1, model
+    1) ``DeviceMesh`` of the card (``launch.mesh.make_mesh``).  One card
+    cannot show partitioning (every axis has size 1); the phase shows
+    that the kernels run through their DTensor sharding rules, and what
+    DTensor's dispatch costs.  (a) Qwen3-0.6B and Mamba2-130M as in phase
+    18 (bf16, remat, AdamW, clip 1.0): ``SHARDED_STEPS`` steps of
+    ``make_train_step`` on 2 x 4096 tokens on plain tensors, then the same
+    steps from the same seed with the state distributed by
+    ``param_specs`` (``2d``) and the batch by ``batch_specs``: every loss
+    and every updated parameter bitwise (where one is not, the first ops
+    whose outputs part in a forward on both are named, and the loss gap
+    held within phase 18 (a)'s bf16 limit), and the mesh's launches
+    exactly steps x layers x 2 by the kernels' own counters (so the CUDA
+    kernels ran under DTensor, not the plain versions).  Logged: ms a
+    step on the mesh and on plain tensors (median after the warm-up)
+    beside phase 18's.  (b) ``checkpoint.save`` of (a)'s sharded Qwen3
+    state (gathered, written by rank 0), then ``restore(...,
+    shardings=...)`` onto a freshly built mesh: every leaf bitwise.  (c)
+    One Qwen3-0.6B prefill of ``SHARDED_PREFILL`` tokens and
+    ``SHARDED_TICKS`` decode ticks with the parameters on the mesh and
+    the cache placed by ``cache_specs``: every logit bitwise the plain
+    path's, flash launched once a layer.
+20. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels (flash attention and the SSD scan also
-    with their training launches), and last {"ok": true, "device":
-    {...}}.
+    with their training launches and their launches on the mesh), and
+    last {"ok": true, "device": {...}}.
 
 Weights are random (He init from a numpy seed for the serving MLPs, a
 seeded ``torch.Generator`` on the card for the LMs) or trained here, and
@@ -3574,6 +3599,298 @@ def train_lms(torch, device, kernel_mods, mlps) -> dict:
     return out
 
 
+#: phase 19: the LMs of phase 18 trained on a (data 1, model 1) mesh of
+#: the card, a 1-rank NCCL group: steps of TRAIN_BATCH x TRAIN_SEQ, the
+#: first a warm-up; then a prefill of SHARDED_PREFILL tokens and
+#: SHARDED_TICKS decode ticks on the mesh
+SHARDED_STEPS = 3
+SHARDED_PREFILL = 2048
+SHARDED_TICKS = 4
+
+
+def _full(torch, t):
+    """A DTensor's whole value; a plain tensor as it is."""
+    from repro_torch.parallel.ctx import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _bitwise(torch, a, b) -> bool:
+    a, b = _full(torch, a), _full(torch, b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        bool(torch.equal(a, b))
+
+
+def _step_ms(times) -> float:
+    """The median of the steps after the first (the warm-up), in ms."""
+    return float(np.median(np.asarray(times[1:]) * 1e3))
+
+
+def parting_ops(torch, fn_plain, fn_sharded, limit: int = 3) -> list:
+    """The first ops whose outputs differ between a plain forward and the
+    same forward on the mesh: each run under a dispatch mode that records
+    every op's name and a bitwise digest of its output (its fp64 sum and
+    largest |x|); the two op streams are walked in step, the mesh's extra
+    ops (views and copies DTensor adds) skipped by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def digest(out):
+        out = _full(torch, out) if isinstance(out, torch.Tensor) else out
+        if not isinstance(out, torch.Tensor) or not out.is_floating_point():
+            return None
+        x = out.detach().to(torch.float64)
+        return (float(x.sum()), float(x.abs().max())) if x.numel() else None
+
+    def record(fn):
+        rows = []
+
+        class Rec(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                first = out[0] if isinstance(out, (tuple, list)) and out \
+                    else out
+                rows.append((str(func), digest(first)))
+                return out
+        with Rec(), torch.no_grad():
+            fn()
+        return rows
+    plain, sharded = record(fn_plain), record(fn_sharded)
+    found, j = [], 0
+    for i, (name, d) in enumerate(plain):
+        while j < len(sharded) and sharded[j][0] != name:
+            j += 1
+        if j == len(sharded):
+            found.append((i, name, "not run on the mesh"))
+            break
+        if d != sharded[j][1]:
+            found.append((i, name, f"plain {d}, mesh {sharded[j][1]}"))
+            if len(found) == limit:
+                break
+        j += 1
+    return found
+
+
+def sharded_train(torch, cfg, device, kname, kmod, mesh) -> dict:
+    """Phase 19 (a) for one model: SHARDED_STEPS steps on plain tensors,
+    then the same steps from the same seed with the state distributed by
+    ``param_specs`` (``2d``) and the batch by ``batch_specs`` on ``mesh``;
+    every loss and updated parameter bitwise, launches exact."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import ctx, sharding
+    from repro_torch.train.data import SyntheticTokens
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.train.trainer import to_device
+    opt = adamw()
+    step = make_train_step(cfg, opt)
+    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    batches = [to_device(data.batch_at(i), device)
+               for i in range(SHARDED_STEPS)]
+
+    def run(state, place):
+        losses, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, place(b))
+            losses.append(_full(torch, m["loss"]).float().item())
+            times.append(time.perf_counter() - t0)
+        return state, losses, times
+
+    torch.cuda.empty_cache()
+    s, plain_losses, plain_times = run(init_state(cfg, SEED, opt, device),
+                                       lambda b: b)
+    plain = {n: t.detach() for n, t in s.params.named_parameters()}
+    del s
+    torch.cuda.empty_cache()
+    with ctx.use_mesh(mesh):
+        s0 = init_state(cfg, SEED, opt, device)
+        specs = sharding.param_specs(s0, mesh, "2d", cfg=cfg)
+        s = sharding.distribute(s0, sharding.tree_shardings(specs, mesh))
+        del s0
+        bsh = sharding.tree_shardings(sharding.batch_specs(batches[0], mesh),
+                                      mesh)
+        kmod.reset_launches()
+        s, losses, times = run(s, lambda b: sharding.distribute(b, bsh))
+        launches = kmod.LAUNCHES[kname]
+    per_step = 2 * cfg.n_layers
+    if launches != SHARDED_STEPS * per_step:
+        fail(f"{cfg.name} on the mesh: {kname} launched {launches} times, "
+             f"not {SHARDED_STEPS} steps x {per_step}")
+    placements = collections.Counter(
+        str(tuple(p.placements)) for p in s.params.parameters())
+    differ = [n for n, p in s.params.named_parameters()
+              if not _bitwise(torch, p, plain[n])]
+    same_losses = losses == plain_losses
+    log(f"  {cfg.name}: {SHARDED_STEPS} steps on the mesh, {kname} "
+        f"launches {launches} ({per_step} a step, counted by the kernel's "
+        f"own counter); losses {losses} against plain {plain_losses}: "
+        f"bitwise {same_losses}; parameters bitwise: "
+        f"{len(plain) - len(differ)} of {len(plain)}; placements "
+        f"{dict(placements)}")
+    sharded_ms, plain_ms = _step_ms(times), _step_ms(plain_times)
+    with ctx.use_mesh(mesh):
+        wall, rows = profile_rows(torch, lambda: _full(torch, step(
+            s, sharding.distribute(batches[0], bsh))[1]["loss"]).item())
+    busy = sum(ms for ms, _, _ in rows)
+    log(f"  {cfg.name}: {sharded_ms:.2f} ms a step on the mesh, "
+        f"{plain_ms:.2f} ms on plain tensors (median after the warm-up; "
+        f"steps {[round(t * 1e3, 2) for t in times]} and "
+        f"{[round(t * 1e3, 2) for t in plain_times]} ms); one more step "
+        f"on the mesh under the profiler: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall:.1%})")
+    if differ or not same_losses:
+        p0 = tfm.init_params(cfg, SEED, device)
+        with ctx.use_mesh(mesh):
+            ps = sharding.distribute(p0, sharding.tree_shardings(
+                sharding.param_specs(p0, mesh, "2d", cfg=cfg), mesh))
+            bs = sharding.distribute(batches[0], bsh)
+            parts = parting_ops(torch, lambda: tfm.loss_fn(p0, cfg,
+                                                           batches[0]),
+                                lambda: tfm.loss_fn(ps, cfg, bs))
+        rel = max(abs(a / b - 1.0) for a, b in zip(losses, plain_losses))
+        log(f"  {cfg.name}: the first ops that part in the forward: "
+            f"{parts or 'none (the forward agrees; the gradient or update '
+                        'parts)'}; loss gap {rel:.3e} of the plain loss, "
+            f"differing parameters {differ[:6]}")
+        if not rel <= BF16_LOSS_REL[kname]:
+            fail(f"{cfg.name} on the mesh: loss gap {rel:.3e} beyond phase "
+                 f"18 (a)'s bf16 limit {BF16_LOSS_REL[kname]:g}")
+    return {"state": s, "launches": launches, "ms": sharded_ms,
+            "plain_ms": plain_ms, "busy": busy / wall,
+            "bitwise": same_losses and not differ}
+
+
+def sharded_restore(torch, state, cfg, device, tmp) -> None:
+    """Phase 19 (b): ``checkpoint.save`` of the sharded state, then
+    ``restore(..., shardings=...)`` onto a freshly built mesh: every leaf
+    bitwise."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.ctx import is_dtensor
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import TrainState
+    t0 = time.perf_counter()
+    checkpoint.save(tmp, state.step, state)
+    saved_s = time.perf_counter() - t0
+    fresh = make_mesh((1, 1), ("data", "model"), device)
+    like = TrainState(params=state.params.map(lambda _, t: _full(torch, t)),
+                      opt=state.opt, step=state.step)
+    sh = sharding.tree_shardings(
+        sharding.param_specs(like, fresh, "2d", cfg=cfg), fresh)
+    t0 = time.perf_counter()
+    restored, step = checkpoint.restore(tmp, like, shardings=sh)
+    restore_s = time.perf_counter() - t0
+    want = checkpoint.flatten(state)[0]
+    got = checkpoint.flatten(restored)[0]
+    differ = [k for k in want if not np.array_equal(want[k], got[k])]
+    on_fresh = all(is_dtensor(p) and p.device_mesh == fresh
+                   for p in restored.params.parameters())
+    log(f"  (b) {cfg.name}: saved the sharded state (step {state.step}) in "
+        f"{saved_s:.1f} s, restored onto a freshly built mesh in "
+        f"{restore_s:.1f} s: step {step}, {len(want) - len(differ)} of "
+        f"{len(want)} leaves bitwise, on the fresh mesh: {on_fresh}")
+    if step != state.step or differ or not on_fresh:
+        fail(f"sharded restore: step {step}, differing leaves {differ[:6]}, "
+             f"on the fresh mesh {on_fresh}")
+
+
+def sharded_serve(torch, cfg, device, fa, mesh) -> int:
+    """Phase 19 (c): one prefill of SHARDED_PREFILL tokens and
+    SHARDED_TICKS decode ticks of ``cfg`` with the parameters on the mesh
+    and the cache placed by ``cache_specs``, against the same on plain
+    tensors (the same tokens fed to both): every logit bitwise; returns
+    the flash launches of the mesh's run."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import ctx, sharding
+    gen = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab_size,
+                                          (1, SHARDED_PREFILL)),
+                             dtype=torch.int32, device=device)
+    ticks = torch.as_tensor(gen.integers(0, cfg.vocab_size,
+                                         (SHARDED_TICKS, 1, 1)),
+                            dtype=torch.int32, device=device)
+    max_seq = SHARDED_PREFILL + SHARDED_TICKS
+    params = tfm.init_params(cfg, SEED, device)
+
+    def serve(p, place):
+        out = []
+        logits, st = tfm.prefill(p, cfg, place(tokens), max_seq)
+        out.append(logits)
+        for i in range(SHARDED_TICKS):
+            logits, st = tfm.decode_step(p, cfg, place(ticks[i]), st)
+            out.append(logits)
+        return out, st
+    with torch.no_grad():
+        plain, _ = serve(params, lambda t: t)
+        with ctx.use_mesh(mesh):
+            ps = sharding.distribute(params, sharding.tree_shardings(
+                sharding.param_specs(params, mesh, "2d", cfg=cfg), mesh))
+
+            def place(t):
+                return sharding.distribute({"t": t}, sharding.tree_shardings(
+                    sharding.batch_specs({"t": t}, mesh), mesh))["t"]
+            fa.reset_launches()
+            got, st = serve(ps, place)
+            launches = fa.LAUNCHES["flash_attention"]
+    same = [_bitwise(torch, a, b) for a, b in zip(got, plain)]
+    log(f"  (c) {cfg.name}: a {SHARDED_PREFILL}-token prefill and "
+        f"{SHARDED_TICKS} ticks on the mesh, the cache on "
+        f"{tuple(st['k'].placements)}: logits bitwise the plain path's: "
+        f"{same}; flash launches {launches}")
+    if not all(same):
+        fail(f"{cfg.name} on the mesh: prefill/decode logits differ from "
+             f"the plain path's: {same}")
+    if launches != cfg.n_layers:
+        fail(f"{cfg.name} on the mesh: flash launched {launches} times in "
+             f"a prefill, not {cfg.n_layers}")
+    return launches
+
+
+def train_sharded(torch, device, kernel_mods, trained) -> dict:
+    """Phase 19: (a) the LMs' training steps on a (data 1, model 1) mesh
+    against plain tensors, (b) the sharded checkpoint restored onto a
+    fresh mesh, (c) Qwen3's prefill and decode on the mesh.  Returns each
+    LM kernel's launches on the mesh."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    mods = {"flash_attention": kernel_mods[1], "ssd": kernel_mods[2]}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/group", rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device)
+            log(f"  mesh {mesh}, {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}")
+            for arch, kname in TRAIN_ARCHS.items():
+                cfg = get_config(arch)
+                log(f"  (a) {arch}: make_train_step on the mesh (2d), "
+                    f"{TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.param_dtype}, "
+                    f"remat {cfg.remat}, AdamW, clip 1.0")
+                got = sharded_train(torch, cfg, device, kname, mods[kname],
+                                    mesh)
+                before = trained.get(kname, {}).get("step_ms")
+                log(f"  {arch}: DTensor's dispatch, a step: "
+                    f"{got['ms'] - got['plain_ms']:+.2f} ms ({got['ms']:.2f} "
+                    f"on the mesh, {got['plain_ms']:.2f} plain in this "
+                    f"phase; phase 18's unsharded Trainer "
+                    f"{'%.2f' % before if before else 'not run'} ms)")
+                out[kname] = {"launches": got["launches"]}
+                if kname == "flash_attention":
+                    sharded_restore(torch, got["state"], cfg, device,
+                                    str(Path(tmp) / "ckpt"))
+                del got
+                torch.cuda.empty_cache()
+            cfg = get_config("qwen3-0.6b")
+            out["flash_attention"]["launches"] += sharded_serve(
+                torch, cfg, device, mods["flash_attention"], mesh)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3860,7 +4177,19 @@ def main() -> int:
             entry["train_launches"] = trained[entry["name"]]["launches"]
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
 
-    # -- 19. result lines ---------------------------------------------------
+    # -- 19. training the LMs sharded over a mesh --------------------------
+    log(f"[19 train the LMs on a mesh] {', '.join(TRAIN_ARCHS)} with their "
+        f"state as DTensors on a (data 1, model 1) mesh of the card: steps "
+        f"against plain tensors, a sharded checkpoint restored onto a fresh "
+        f"mesh, a prefill and decode on the mesh")
+    t0 = time.perf_counter()
+    sharded = train_sharded(torch, device, kernel_mods, trained)
+    for entry in kernels:
+        if entry["name"] in sharded:
+            entry["mesh_launches"] = sharded[entry["name"]]["launches"]
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # -- 20. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

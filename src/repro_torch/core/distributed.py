@@ -22,7 +22,10 @@ framework targets:
       t = compute + max(0, collective - overlap_frac * compute).
 
 The reference's dry-run prices its collective term with the same ring
-model; the port's dry-run waits for its sharding (``ROADMAP.md``).
+model.  The port's sharding is ported (``repro_torch.parallel``: the
+plan whose ``comm_volumes`` feed ``MeshPlan``); its dry run, which reads
+the traced per-device graph where the reference reads XLA's HLO, is
+still to come (``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -189,19 +189,17 @@ def _flash_setup(ctx, inputs, output) -> None:
     ctx.causal, ctx.window = causal, window
 
 
-def _flash_backward(ctx, grad: torch.Tensor
-                    ) -> Tuple[Optional[torch.Tensor], ...]:
-    """The VJP of the chunked attention at the saved inputs, in the
-    kernel's (B, H, S, D) layout."""
+def _flash_vjp(leaves, grad: torch.Tensor, causal: bool, window: int
+               ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of the chunked attention at ``leaves`` (q, k, v in the
+    kernel's (B, H, S, D) layout, each requiring grad where wanted)."""
     from repro_torch.models.attention import chunked_attention
-    leaves = [t.detach().requires_grad_(need)
-              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
     wanted = [t for t in leaves if t.requires_grad]
     out: list = [None] * 5
     if wanted:
         with torch.enable_grad():
             o = chunked_attention(*(t.transpose(1, 2) for t in leaves),
-                                  causal=ctx.causal, window=ctx.window,
+                                  causal=causal, window=window,
                                   chunk_q=VJP_CHUNKS[0],
                                   chunk_kv=VJP_CHUNKS[1])
             got = iter(torch.autograd.grad(o, wanted, grad.transpose(1, 2)))
@@ -211,7 +209,82 @@ def _flash_backward(ctx, grad: torch.Tensor
     return tuple(out)
 
 
+def _flash_backward(ctx, grad: torch.Tensor
+                    ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of the chunked attention at the saved inputs, in the
+    kernel's (B, H, S, D) layout.  On DTensors it runs on each rank's
+    shards, placed as the forward rule places them (batch kept split,
+    heads kept split where the rule allows it, the sequence whole): every
+    (batch row, KV group) is its own attention, so the local VJP is the
+    whole one's restriction to the shard."""
+    from repro_torch.parallel.ctx import from_shards, is_dtensor, \
+        local_shards
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad
+    if not is_dtensor(saved[0]):
+        return _flash_vjp([t.detach().requires_grad_(n)
+                           for t, n in zip(saved, needs)],
+                          grad, ctx.causal, ctx.window)
+    from torch.distributed.tensor import Replicate, Shard
+    q, k, v = saved
+    heads = k.shape[1] > 1 and k.shape[1] % q.device_mesh.size() == 0
+    want = [Shard(p.dim) if isinstance(p, Shard) and
+            ((p.dim == 0 and q.shape[0] > 1) or (p.dim == 1 and heads))
+            else Replicate() for p in q.placements]
+    *local, g = local_shards([q, k, v, grad], q.device_mesh,
+                             lambda _: want)
+    out = _flash_vjp([t.detach().requires_grad_(n)
+                      for t, n in zip(local, needs)], g, ctx.causal,
+                     ctx.window)
+    return from_shards(out[:3], saved, lambda _: want) + out[3:]
+
+
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+_RULE: list = []
+
+
+def register_sharding_rule() -> None:
+    """Register the op's DTensor sharding rule (once; ``parallel.ctx.
+    use_mesh`` and ``parallel.sharding.distribute`` call it, so importing
+    this module stays free of ``torch.distributed``).  Its strategies, on
+    each mesh dim:
+
+      * batch-sharded: q, k, v and the output split on B;
+      * head-sharded: q's heads, k's and v's KV heads and the output's
+        heads split alike, offered only where KV divides by the whole
+        mesh's size (so by every product of mesh dims that could split
+        the heads): query head h of a shard then reads KV head h // rep
+        of the same shard, as it reads ``h // (H / KV)`` whole.  A
+        head-sharded q beside replicated k and v (GQA: 4 heads and 2 KV
+        heads on a ``model=4`` mesh) matches no strategy and is gathered,
+        since every shard but the first would read the wrong KV heads;
+      * replicated.
+
+    A dim of size 1 is never split (DTensor's views refuse to squeeze a
+    split dim).  The sequence is never split: the op counts positions
+    from 0 (it has no query offset), so a sequence-sharded q (the ``sp``
+    profile) or k, v is gathered on the sequence before the op, as the
+    causal mask is right only for the whole sequence.  D is never split.
+    The backward needs no rule: it runs the chunked attention's VJP on
+    each rank's shards, placed as these strategies place them."""
+    if _RULE:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _flash_strategies(q, k, v, causal, window):
+        def on(p):
+            return ([p], [p, p, p, None, None])
+        out = [on(Replicate())]
+        if q.shape[0] > 1:
+            out.append(on(Shard(0)))
+        if k.shape[1] > 1 and k.shape[1] % q.mesh.size() == 0:
+            out.append(on(Shard(1)))
+        return out
+    _RULE.append(_flash_strategies)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -193,14 +193,13 @@ def _ssd_setup(ctx, inputs, output) -> None:
     ctx.vjp_chunk = inputs[6]
 
 
-def _ssd_backward(ctx, grad_y: Optional[torch.Tensor],
-                  grad_state: Optional[torch.Tensor]
-                  ) -> Tuple[Optional[torch.Tensor], ...]:
-    """The VJP of ``ssd_chunked`` (y and the final state) at the saved
-    inputs, in the kernel's (B, H, L, .) layout."""
+def _ssd_vjp(leaves, grad_y: Optional[torch.Tensor],
+             grad_state: Optional[torch.Tensor], vjp_chunk: int
+             ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of ``ssd_chunked`` (y and the final state) at ``leaves``
+    (x, dt, a, bmat, cmat in the kernel's layout, each requiring grad
+    where wanted)."""
     from repro_torch.models.ssm import ssd_chunked
-    leaves = [t.detach().requires_grad_(need)
-              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
     wanted = [t for t in leaves if t.requires_grad]
     out: List[Optional[torch.Tensor]] = [None] * 7
     if not wanted or (grad_y is None and grad_state is None):
@@ -209,7 +208,7 @@ def _ssd_backward(ctx, grad_y: Optional[torch.Tensor],
     with torch.enable_grad():
         y, state = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), a,
                                bmat.transpose(1, 2), cmat.transpose(1, 2),
-                               chunk=ctx.vjp_chunk, return_final=True)
+                               chunk=vjp_chunk, return_final=True)
         pairs = [(o, g) for o, g in ((y, grad_y), (state, grad_state))
                  if g is not None]
         got = iter(torch.autograd.grad(
@@ -223,7 +222,87 @@ def _ssd_backward(ctx, grad_y: Optional[torch.Tensor],
     return tuple(out)
 
 
+def _ssd_backward(ctx, grad_y: Optional[torch.Tensor],
+                  grad_state: Optional[torch.Tensor]
+                  ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The VJP of ``ssd_chunked`` (y and the final state) at the saved
+    inputs, in the kernel's (B, H, L, .) layout.  On DTensors it runs on
+    each rank's shards, placed as the forward rule places them (batch and
+    heads kept split, the sequence whole): every (batch row, head) is its
+    own scan, so the local VJP is the whole one's restriction to the
+    shard, but for ``a``'s gradient, a sum over the batch rows, which is
+    a partial sum over a batch split."""
+    from repro_torch.parallel.ctx import from_shards, is_dtensor, \
+        local_shards
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad
+    if not is_dtensor(saved[0]):
+        return _ssd_vjp([t.detach().requires_grad_(n)
+                         for t, n in zip(saved, needs)],
+                        grad_y, grad_state, ctx.vjp_chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = saved[0]
+    want = [Shard(p.dim) if isinstance(p, Shard) and p.dim < 2 and
+            x.shape[p.dim] > 1 else Replicate() for p in x.placements]
+    # a (H,): split where the heads are, whole elsewhere
+    want_a = [Shard(0) if p == Shard(1) else Replicate() for p in want]
+    grad_a = [Shard(0) if p == Shard(1) else
+              Partial() if p == Shard(0) else Replicate() for p in want]
+
+    def placed(i):
+        return want_a if i == 2 else want
+    local = local_shards(list(saved) + [grad_y, grad_state],
+                         x.device_mesh,
+                         lambda i: placed(i) if i < 5 else want)
+    out = _ssd_vjp([t.detach().requires_grad_(n)
+                    for t, n in zip(local[:5], needs)], local[5], local[6],
+                   ctx.vjp_chunk)
+    return from_shards(out[:5], saved,
+                       lambda i: grad_a if i == 2 else want) + out[5:]
+
+
 _ssd_op.register_autograd(_ssd_backward, setup_context=_ssd_setup)
+
+
+_RULE: list = []
+
+
+def register_sharding_rule() -> None:
+    """Register the op's DTensor sharding rule (once; called where a mesh
+    comes into use, as flash attention's is).  Its strategies, on each
+    mesh dim:
+
+      * batch-sharded: x, dt, bmat, cmat, y and the state split on B,
+        ``a`` replicated;
+      * head-sharded: x, dt, bmat, cmat, y and the state split on H and
+        ``a`` on its one dim (every head's scan is its own; b and c
+        reach the op per head, as a head-broadcast view);
+      * replicated.
+
+    A dim of size 1 is never split (DTensor's views refuse to squeeze a
+    split dim).  The sequence L is never split: the scan carries its
+    state across L, so a sequence-sharded input (the ``sp`` profile) is
+    gathered on L before the op.  P and N are never split.  The backward
+    runs the VJP on each rank's shards, placed as these strategies place
+    them."""
+    if _RULE:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.ssd.default)
+    def _ssd_strategies(x, dt, a, bmat, cmat, chunk, vjp_chunk):
+        rep = Replicate()
+        batch = ([Shard(0), Shard(0)],
+                 [Shard(0), Shard(0), rep, Shard(0), Shard(0), None, None])
+        heads = ([Shard(1), Shard(1)],
+                 [Shard(1), Shard(1), Shard(0), Shard(1), Shard(1), None,
+                  None])
+        whole = ([rep, rep], [rep, rep, rep, rep, rep, None, None])
+        return [whole] + [strategy for strategy, size in
+                          ((batch, x.shape[0]), (heads, x.shape[1]))
+                          if size > 1]
+    _RULE.append(_ssd_strategies)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import ctx
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -53,20 +55,26 @@ def init_dense(shape: Sequence[int], dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` (default 1 / sqrt(fan_in)), drawn in fp32 on
     ``generator``'s device and cast to ``dtype``.  The reference draws from
-    a JAX key: the distribution is the same, the numbers are not."""
+    a JAX key: the distribution is the same, the numbers are not.  On the
+    ``meta`` device (abstract parameters) nothing is drawn or allocated."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
-                    device=generator.device)
+    meta = generator.device.type == "meta"
+    w = torch.randn(tuple(shape), generator=None if meta else generator,
+                    dtype=torch.float32, device=generator.device)
     return (w * scale).to(dtype)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Token-level CE in fp32 (the reference's, whose z-loss term no
-    caller turns on)."""
+    caller turns on).  On a mesh whose vocab shards the logits, the
+    label gather is a masked partial sum over the vocab shards; it is
+    made full while it still has the gather's shape (DTensor cannot
+    reduce it after the trailing dim is dropped)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    label_logits = torch.gather(
-        logits, -1, labels.to(torch.long)[..., None])[..., 0]
+    label_logits = ctx.constrain(torch.gather(
+        logits, -1, labels.to(torch.long)[..., None]), "batch", None,
+        None)[..., 0]
     return torch.mean(logz - label_logits)

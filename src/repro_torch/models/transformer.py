@@ -59,8 +59,16 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, cross_entropy, init_dense,
                                        rms_norm, swiglu)
+from repro_torch.parallel import ctx
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+def _shard_act(x: torch.Tensor) -> torch.Tensor:
+    """Keep (B, S, D) activations batch- (and, under the sequence-parallel
+    profile, sequence-) sharded through the layers (a no-op off a
+    mesh)."""
+    return ctx.constrain(x, "batch", "seq", None)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -161,12 +169,20 @@ def _n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.attn_every
 
 
+class _MetaGenerator:
+    """Stands in for the generator on the ``meta`` device, which has none:
+    the init's draws there allocate and draw nothing."""
+    device = torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LMParams:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default ``cuda``), with the reference's distributions."""
+    (default ``cuda``), with the reference's distributions; on ``meta``,
+    their shapes and dtypes only (``launch.specs.abstract_params``)."""
     _check_family(cfg)
     dev = torch_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dtype = _dtype(cfg)
     top: Dict[str, torch.Tensor] = {
         "embed": init_dense((cfg.vocab_size, cfg.d_model), dtype, gen,
@@ -241,9 +257,9 @@ def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
     attend = (attn_mod.flash_attention if cfg.use_flash
               else attn_mod.dense_attention)
     o = attend(q, k, v, causal=True, window=window)
-    x = x + o.reshape(b, s, -1) @ blk["wo"]
+    x = _shard_act(x + o.reshape(b, s, -1) @ blk["wo"])
     m, aux = _mlp(blk, x, cfg)
-    return x + m, aux, (k, v)
+    return _shard_act(x + m), aux, (k, v)
 
 
 def _mamba_layer(layer, x: torch.Tensor, cfg: ModelConfig,
@@ -251,8 +267,8 @@ def _mamba_layer(layer, x: torch.Tensor, cfg: ModelConfig,
     hn = rms_norm(x, layer["ln"], cfg.norm_eps)
     if return_state:
         out, st = ssm_mod.mamba_block(layer, hn, cfg, return_state=True)
-        return x + out, st
-    return x + ssm_mod.mamba_block(layer, hn, cfg)
+        return _shard_act(x + out), st
+    return _shard_act(x + ssm_mod.mamba_block(layer, hn, cfg))
 
 
 def _embed(params: LMParams, cfg: ModelConfig,
@@ -262,7 +278,28 @@ def _embed(params: LMParams, cfg: ModelConfig,
     # it, and handed over as a Python number (a device scalar made from the
     # host would make the host wait for the device)
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype).item()
-    return emb[tokens.to(torch.long)] * scale
+    return _lookup(emb, tokens) * scale
+
+
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``emb[tokens]``.  On a mesh each rank looks its own tokens up in the
+    whole table, gathered (DTensor's rule for the backward's
+    ``index_put`` fails in some torch releases); the table's gradient is
+    then a partial sum over the mesh dims that split the tokens."""
+    if not ctx.is_dtensor(emb):
+        return emb[tokens.to(torch.long)]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    split = [isinstance(p, Shard) for p in tokens.placements]
+    whole = tuple(Replicate() for _ in split)
+    return local_map(
+        lambda e, t: e[t.to(torch.long)],
+        out_placements=(tuple(tokens.placements),),
+        in_placements=(whole, tuple(tokens.placements)),
+        in_grad_placements=(tuple(Partial() if s else Replicate()
+                                  for s in split),
+                            tuple(tokens.placements)),
+        device_mesh=emb.device_mesh, redistribute_inputs=True)(emb, tokens)
 
 
 def _embed_inputs(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
@@ -274,7 +311,7 @@ def _embed_inputs(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
         pre = prefix_embeds.to(x.device, _dtype(cfg)) \
             @ params["frontend_proj"]
         x = torch.cat([pre, x], dim=1)
-    return x
+    return _shard_act(x)
 
 
 def _head(params: LMParams, cfg: ModelConfig) -> torch.Tensor:
@@ -356,7 +393,8 @@ def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     for aux in auxs:
         if aux is not None:
             aux_total = aux_total + aux
-    return x @ _head(params, cfg), aux_total
+    logits = ctx.constrain(x @ _head(params, cfg), "batch", None, "model")
+    return logits, aux_total
 
 
 def loss_fn(params: LMParams, cfg: ModelConfig, batch: Dict
@@ -414,6 +452,11 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     state = init_decode_state(cfg, b, max_seq, device=x.device)
     state["index"].fill_(s)
+    mesh = ctx.current_mesh()
+    if mesh is not None:
+        from repro_torch.parallel import sharding
+        state = sharding.distribute(state, sharding.tree_shardings(
+            sharding.cache_specs(state, mesh, b, cfg), mesh))
 
     def mamba(i, layer, x):
         x, st = _mamba_layer(layer, x, cfg, return_state=True)
@@ -443,6 +486,30 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     return x @ _head(params, cfg), state
 
 
+def _write_slots(cache: torch.Tensor, at: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """``cache[b, at[b]] = new[b]`` for every slot b, in place: cache (B,
+    S, KV, hd), at (B,), new (B, KV, hd).  On a mesh (DTensor has no
+    in-place strategy for the scatter) each rank writes its own shard: its
+    slots and KV heads, the sequence whole."""
+    if not ctx.is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, at] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    pc = tuple(cache.placements)
+    if Shard(1) in pc:
+        raise NotImplementedError(
+            "decode with the KV cache's sequence split over the mesh")
+    mesh = cache.device_mesh
+    # the cache's dims (B, S, KV, hd) as new's (B, KV, hd) and at's (B,)
+    p_new = [Shard({0: 0, 2: 1, 3: 2}[p.dim]) if isinstance(p, Shard)
+             else Replicate() for p in pc]
+    p_at = [p if p == Shard(0) else Replicate() for p in p_new]
+    _write_slots(cache.to_local(), at.redistribute(mesh, p_at).to_local(),
+                 new.redistribute(mesh, p_new).to_local())
+
+
 def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
                             window: int, index: torch.Tensor,
                             k_cache: torch.Tensor, v_cache: torch.Tensor):
@@ -452,10 +519,9 @@ def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _qkv(blk, x, cfg, index[:, None])
     # each slot writes at its own position, clamped into the cache as the
     # reference's dynamic_update_slice clamps (idle slots keep counting)
-    rows = torch.arange(b, device=x.device)
     at = index.to(torch.long).clamp(max=k_cache.shape[1] - 1)
-    k_cache[rows, at] = k[:, 0]
-    v_cache[rows, at] = v[:, 0]
+    _write_slots(k_cache, at, k[:, 0])
+    _write_slots(v_cache, at, v[:, 0])
     o = attn_mod.decode_attention(q, k_cache, v_cache, index, window)
     x = x + o.reshape(b, 1, -1) @ blk["wo"]
     m, _ = _mlp(blk, x, cfg)

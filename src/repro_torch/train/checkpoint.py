@@ -14,8 +14,16 @@ loop waits for that device-to-host copy, not for the file system) and
 writes ``.tmp_step_<N>`` on a background thread, renamed to ``step_<N>``
 once complete.  ``restore`` reads a checkpoint into the structure of
 ``like`` on a given device, checking every leaf's shape as the reference
-does, in the dtypes it was saved in.  The reference's ``shardings`` (elastic restore onto another mesh)
-waits for the port's sharding.
+does, in the dtypes it was saved in.
+
+A tree of DTensors (a state sharded over a mesh) is saved whole: each
+leaf is gathered (``full_tensor()``, a collective every rank joins, in
+the same order), rank 0 alone writes, and every rank waits at a barrier
+until the write is complete, so a sharded save blocks.  ``restore``'s
+``shardings`` (a tree of ``parallel.sharding.Sharding``) distributes each
+loaded leaf onto a mesh, which may differ in size from the one that saved
+it: the reference's elastic rescale.  Without it, a leaf whose ``like``
+is a DTensor comes back on that DTensor's mesh and placements.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import LMParams
+from repro_torch.parallel.ctx import is_dtensor
 from repro_torch.train.train_step import TrainState
 
 _SEP = "|"
@@ -59,6 +68,8 @@ def _host(t: Any) -> Tuple[np.ndarray, Optional[str]]:
     for a dtype numpy lacks."""
     if isinstance(t, torch.Tensor):
         t = t.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()         # a collective: every rank gathers
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy(), "bfloat16"
         return t.cpu().numpy(), None
@@ -81,7 +92,10 @@ def flatten(tree: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
 
 def save(directory: str, step: int, tree: Any,
          blocking: bool = True) -> threading.Thread:
-    """Snapshot ``tree`` under ``directory/step_<step>`` atomically."""
+    """Snapshot ``tree`` under ``directory/step_<step>`` atomically (a tree
+    of DTensors: gathered on every rank, written by rank 0, behind a
+    barrier)."""
+    sharded = any(is_dtensor(leaf) for leaf in _leaves(tree))
     arrays, dtypes = flatten(tree)
     target = Path(directory) / f"step_{step}"
     tmp = Path(directory) / f".tmp_step_{step}"
@@ -96,11 +110,23 @@ def save(directory: str, step: int, tree: Any,
             shutil.rmtree(target)
         tmp.rename(target)
 
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            write = (lambda: None)      # noqa: E731 (rank 0 writes)
     thread = threading.Thread(target=write, daemon=True)
     thread.start()
-    if blocking:
+    if blocking or sharded:
         thread.join()
+    if sharded:
+        dist.barrier()
     return thread
+
+
+def _leaves(tree: Any) -> list:
+    out: list = []
+    _map(lambda _, leaf: out.append(leaf) or leaf, tree)
+    return out
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -113,7 +139,7 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, like: Any, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            device=None, shardings: Any = None) -> Tuple[Any, int]:
     """The checkpoint at ``step`` (default the latest) in the structure
     and ``requires_grad`` of ``like``, each tensor on ``device`` (default:
     that of its leaf in ``like``); a leaf whose shape differs from
@@ -121,7 +147,13 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
     saved in.  The reference casts it to ``like``'s, so a bfloat16
     model's float32 AdamW moments (clipping makes them float32 from the
     first step) would come back as the bfloat16 of a fresh state, and a
-    resumed run would part from the uninterrupted one."""
+    resumed run would part from the uninterrupted one.
+
+    ``shardings`` (a tree of ``parallel.sharding.Sharding`` like
+    ``like``'s, an ``LMParams`` matched by a dict by name) distributes the
+    restored tree onto its mesh (every rank reads the file; rank 0's
+    values are scattered); without it a leaf whose ``like`` is a DTensor
+    takes that DTensor's mesh and placements."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -138,7 +170,14 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
         t = torch.from_numpy(np.array(arr))
         if dtypes.get(key) == "bfloat16":
             t = t.view(torch.bfloat16)
-        return t.to(ref.device if device is None else device
-                    ).requires_grad_(ref.requires_grad)
+        t = t.to(ref.device if device is None else device)
+        if is_dtensor(ref) and shardings is None:
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, ref.device_mesh, ref.placements)
+        return t.requires_grad_(ref.requires_grad)
     with np.load(path / "arrays.npz") as data, torch.no_grad():
-        return _map(load, like), step
+        tree = _map(load, like)
+    if shardings is not None:
+        from repro_torch.parallel.sharding import distribute
+        tree = distribute(tree, shardings)
+    return tree, step

@@ -15,6 +15,14 @@ pure like the reference's: it returns a new state with new parameter
 tensors and never writes into the old one.  Gradients come from
 ``torch.autograd.grad`` of ``transformer.loss_fn``, through the flash
 attention and SSD ops' own backward.
+
+On a mesh (``parallel.ctx.use_mesh``, the state and batch distributed by
+``parallel.sharding``) the same step runs on DTensors: the global norm is
+a ``Partial`` sum over the shards made full before the clip, the
+microbatches of accumulation are the reference's row blocks of the
+batch-sharded global batch, each sharded again as the batch is, and the
+new parameters and moments keep the placements of the parameters they
+replace.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LMParams
+from repro_torch.parallel.ctx import is_dtensor
 from repro_torch.train.optim import Optimizer, adamw
 
 
@@ -55,15 +64,41 @@ def init_state(cfg: ModelConfig, seed: int = 0,
     return TrainState(params=params, opt=opt, step=0)
 
 
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduced and replicated on every mesh dim (a ``Partial``
+    sum made full); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim)
+
+
+def _placed_like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` on ``old``'s placements where ``old`` is a DTensor."""
+    if not is_dtensor(old) or \
+            tuple(new.placements) == tuple(old.placements):
+        return new
+    return new.redistribute(old.device_mesh, old.placements)
+
+
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The float32 global L2 norm of a gradient tree."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree.values()))
+    """The float32 global L2 norm of a gradient tree.  Over DTensors each
+    leaf's sum of squares is a ``Partial`` sum over its shards; their
+    total is made full (one reduction) before the root."""
+    total = None
+    for g in tree.values():
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(_replicated(total))
 
 
 def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows [i size, (i + 1) size) of the global batch, as the reference
+    cuts its microbatches; a batch-sharded DTensor's block is sharded
+    again as the batch was."""
     size = x.shape[0] // n
-    return x[i * size:(i + 1) * size]
+    return _placed_like(x[i * size:(i + 1) * size], x)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
@@ -94,8 +129,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                    ) -> Tuple[TrainState, Dict[str, Any]]:
         params = state.params
         if accum_steps > 1:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.named_parameters()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=params.device)
@@ -118,12 +152,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                                     max=1.0)
                 grads = {n: g.to(torch.promote_types(g.dtype, torch.float32))
                          * scale for n, g in grads.items()}
+            named = named_params(params)
             new_named, new_opt = optimizer.update(
-                grads, state.opt, named_params(params), state.step)
-            new_params = params.map(lambda n, _: new_named[n])
+                grads, state.opt, named, state.step)
+            new_params = params.map(
+                lambda n, _: _placed_like(new_named[n], named[n]))
+            new_opt = _opt_placed_like(new_opt, named)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                        step=state.step + 1)
         return TrainState(params=new_params, opt=new_opt,
                           step=state.step + 1), metrics
 
     return train_step
+
+
+def _opt_placed_like(tree: Any, named: Dict[str, torch.Tensor]) -> Any:
+    """The optimizer's tree with each leaf keyed by a parameter's name on
+    that parameter's placements."""
+    if isinstance(tree, dict):
+        return {k: _placed_like(v, named[k]) if k in named and
+                isinstance(v, torch.Tensor) else _opt_placed_like(v, named)
+                for k, v in tree.items()}
+    return tree

@@ -23,7 +23,7 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -81,12 +81,16 @@ class Trainer:
         self._saved_step: Optional[int] = None
 
     # -- fault tolerance ----------------------------------------------------
-    def restore_if_available(self) -> int:
+    def restore_if_available(self, shardings: Any = None) -> int:
+        """Restore the latest checkpoint, if any, distributed onto
+        ``shardings`` where given (``checkpoint.restore``'s elastic
+        path); returns the restored step, or 0."""
         step = checkpoint.latest_step(self.tcfg.checkpoint_dir)
         if step is None:
             return 0
         self.state, step = checkpoint.restore(
-            self.tcfg.checkpoint_dir, self.state, step, self.device)
+            self.tcfg.checkpoint_dir, self.state, step, self.device,
+            shardings=shardings)
         return int(self.state.step)
 
     def _maybe_checkpoint(self, step: int, force: bool = False):

@@ -1,0 +1,268 @@
+"""The rank program of ``tests/test_torch_sharding.py`` (not a test file):
+
+    python tests/sharding_ranks.py <cases> <rank> <world> <dir>
+
+Each rank joins a gloo group of ``world`` ranks through a ``FileStore``
+in ``<dir>`` (no TCP port, so concurrent runs cannot collide), pins one
+intra-op thread, and runs every case of the set ``<cases>`` (``mesh8``:
+the 4x2 and 2x4 cases on 8 ranks, which also save a sharded checkpoint;
+``mesh4``: the elastic restore of that checkpoint on 4 ranks).  Rank 0
+writes ``{case: result}`` to ``<dir>/<cases>.json``; a case that raises
+on any rank records its traceback there instead.  Every case compares
+against the same computation on plain tensors in the same process (the
+port's single-device step, itself held against the reference's by
+``tests/test_torch_train_step.py``).
+"""
+
+import dataclasses
+import json
+import os
+import sys
+import traceback
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+sys.path.insert(0, str(SRC))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_smoke_mesh  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.config import smoke_config  # noqa: E402
+from repro_torch.parallel import ctx, sharding  # noqa: E402
+from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train.optim import adamw  # noqa: E402
+from repro_torch.train.train_step import (init_state,  # noqa: E402
+                                          make_train_step)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+
+SEED = 0
+
+
+def _batch(cfg, b=8, s=16):
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           dtype=torch.int32)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+
+def _name(p) -> str:
+    """A placement as ``Shard(d)``, ``Replicate`` or ``Partial``."""
+    return f"Shard({p.dim})" if hasattr(p, "dim") else type(p).__name__
+
+
+def _full(t):
+    return t.full_tensor() if ctx.is_dtensor(t) else t
+
+
+def _shardings(tree, mesh, profile, cfg):
+    return sharding.tree_shardings(
+        sharding.param_specs(tree, mesh, profile, cfg=cfg), mesh)
+
+
+def _train_step(cfg, mesh, profile="2d", seq_axes=(), accum=1):
+    """One AdamW step on plain tensors and the same on ``mesh``: (loss
+    gap, the largest parameter gap, the placements the state took)."""
+    opt = adamw(lr=1e-3)
+    batch = _batch(cfg)
+    s0 = init_state(cfg, SEED, opt, device="cpu")
+    step = make_train_step(cfg, opt, accum_steps=accum)
+    s1, m1 = step(s0, batch)
+    with ctx.use_mesh(mesh):
+        ctx.set_seq_axes(seq_axes)
+        try:
+            s0s = sharding.distribute(s0, _shardings(s0, mesh, profile, cfg))
+            bs = sharding.distribute(batch, sharding.tree_shardings(
+                sharding.batch_specs(batch, mesh, profile=profile), mesh))
+            s1s, m1s = step(s0s, bs)
+        finally:
+            ctx.set_seq_axes(())
+    gap = max(float((a.detach() - _full(b).detach()).abs().max())
+              for a, b in zip(s1.params.parameters(),
+                              s1s.params.parameters()))
+    split = sum(any(type(p).__name__ == "Shard" for p in t.placements)
+                for t in s1s.params.parameters())
+    return {"loss": float(m1["loss"]),
+            "loss_gap": abs(float(m1["loss"]) - float(_full(m1s["loss"]))),
+            "param_gap": gap, "leaves": len(list(s1.params.parameters())),
+            "split_leaves": split}
+
+
+def case_2d(mesh8):
+    return _train_step(smoke_config(get_config("qwen3-0.6b")), mesh8)
+
+
+def case_dp(mesh8):
+    return _train_step(smoke_config(get_config("qwen3-0.6b")), mesh8, "dp")
+
+
+def case_sp(mesh8):
+    return _train_step(smoke_config(get_config("mamba2-130m")), mesh8, "sp",
+                       seq_axes=("model",))
+
+
+def case_accum(mesh8):
+    return _train_step(smoke_config(get_config("qwen3-0.6b")), mesh8,
+                       accum=2)
+
+
+def case_gqa(mesh8, mesh24):
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    out = _train_step(cfg, mesh24)
+    out["heads"], out["kv_heads"] = cfg.n_heads, cfg.n_kv_heads
+    return out
+
+
+def case_ep(mesh8, mesh24):
+    cfg = dataclasses.replace(smoke_config(get_config(
+        "granite-moe-3b-a800m")), n_experts=4, top_k=2, capacity_factor=4.0)
+    out = _train_step(cfg, mesh24)
+    p = tfm.init_params(cfg, SEED, device="cpu")
+    spec = _shardings(p, mesh24, "2d", cfg)["layers.0.w_gate"]
+    out["expert_split"] = [_name(x) for x in spec.placements]
+    return out
+
+
+def case_decode(mesh8):
+    """A prefill and 3 decode ticks of qwen3 and zamba2 (the hybrid's
+    per-layer Mamba2 states) on the mesh against plain tensors."""
+    out = {}
+    for arch in ("qwen3-0.6b", "zamba2-2.7b"):
+        cfg = smoke_config(get_config(arch))
+        p = tfm.init_params(cfg, SEED, device="cpu")
+        batch = _batch(cfg, 4, 12)["tokens"]
+        ticks = _batch(cfg, 4, 3)["tokens"]
+
+        def serve(params, place):
+            logits, st = tfm.prefill(params, cfg, place(batch), 16)
+            outs = [logits]
+            for i in range(ticks.shape[1]):
+                logits, st = tfm.decode_step(params, cfg,
+                                             place(ticks[:, i:i + 1]), st)
+                outs.append(logits)
+            return outs, st
+        with torch.no_grad():
+            want, st0 = serve(p, lambda t: t)
+            with ctx.use_mesh(mesh8):
+                ps = sharding.distribute(p, _shardings(p, mesh8, "2d", cfg))
+
+                def place(t):
+                    specs = sharding.batch_specs({"t": t}, mesh8)
+                    return sharding.distribute(
+                        {"t": t}, sharding.tree_shardings(specs, mesh8))["t"]
+                got, st = serve(ps, place)
+        out[arch] = {
+            "logit_gap": max(float((a - _full(b)).abs().max())
+                             for a, b in zip(want, got)),
+            "k_gap": float((st0["k"] - _full(st["k"])).abs().max()),
+            "k_placements": [_name(x) for x in st["k"].placements]}
+    return out
+
+
+def case_constrain(mesh8):
+    x = torch.ones(8, 4)
+    outside = ctx.constrain(x, "batch", None) is x
+    with ctx.use_mesh(mesh8):
+        try:
+            ctx.constrain(x, "batch", None)
+            raised = ""
+        except TypeError as e:
+            raised = str(e)
+        d = sharding.distribute({"x": x}, sharding.tree_shardings(
+            {"x": sharding.P(None, None)}, mesh8))["x"]
+        placed = [_name(p) for p in
+                  ctx.constrain(d, "batch", None).placements]
+    return {"outside_is_identity": outside, "raised": raised,
+            "placed": placed}
+
+
+def case_production_mesh():
+    """256 and 512 ranks are the production meshes' sizes; 8 are not."""
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {}
+    for multi_pod in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi_pod, device="cpu")
+            out[str(multi_pod)] = ""
+        except ValueError as e:
+            out[str(multi_pod)] = str(e)
+    return out
+
+
+def case_save(mesh8, out_dir):
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    s0 = init_state(cfg, SEED, adamw(), device="cpu")
+    s8 = sharding.distribute(s0, _shardings(s0, mesh8, "2d", cfg))
+    checkpoint.save(str(Path(out_dir) / "ckpt"), 3,
+                    dataclasses.replace(s8, step=3))
+    return {"saved": sorted(p.name for p in (Path(out_dir) / "ckpt")
+                            .iterdir())}
+
+
+def case_elastic(mesh4, out_dir):
+    """The 8-rank checkpoint restored onto a 2x2 mesh of 4 ranks."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    s0 = init_state(cfg, SEED, adamw(), device="cpu")
+    restored, step = checkpoint.restore(
+        str(Path(out_dir) / "ckpt"), s0,
+        shardings=_shardings(s0, mesh4, "2d", cfg))
+    gap = max(float((a.detach() - _full(b).detach()).abs().max())
+              for a, b in zip(s0.params.parameters(),
+                              restored.params.parameters()))
+    meshes = {tuple(p.device_mesh.mesh.shape)
+              for p in restored.params.parameters()}
+    moments = max(float((_full(restored.opt["m"][n]) - t).abs().max())
+                  for n, t in s0.opt["m"].items())
+    trainer = Trainer(cfg, 8, 16, TrainerConfig(
+        checkpoint_dir=str(Path(out_dir) / "ckpt")), device="cpu")
+    resumed = trainer.restore_if_available(
+        shardings=_shardings(trainer.state, mesh4, "2d", cfg))
+    trainer_meshes = {tuple(p.device_mesh.mesh.shape)
+                      for p in trainer.state.params.parameters()}
+    return {"step": step, "param_gap": gap, "moment_gap": moments,
+            "meshes": [list(m) for m in meshes], "trainer_step": resumed,
+            "trainer_meshes": [list(m) for m in trainer_meshes]}
+
+
+def main(cases, rank, world, out_dir):
+    torch.set_num_threads(1)
+    store = dist.FileStore(str(Path(out_dir) / f"store_{cases}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    results = {}
+    try:
+        if cases == "mesh8":
+            mesh8 = make_smoke_mesh(8, model=2, device="cpu")
+            mesh24 = make_smoke_mesh(8, model=4, device="cpu")
+            run = [("2d", lambda: case_2d(mesh8)),
+                   ("dp", lambda: case_dp(mesh8)),
+                   ("sp", lambda: case_sp(mesh8)),
+                   ("accum", lambda: case_accum(mesh8)),
+                   ("gqa", lambda: case_gqa(mesh8, mesh24)),
+                   ("ep", lambda: case_ep(mesh8, mesh24)),
+                   ("decode", lambda: case_decode(mesh8)),
+                   ("constrain", lambda: case_constrain(mesh8)),
+                   ("production_mesh", case_production_mesh),
+                   ("save", lambda: case_save(mesh8, out_dir))]
+        else:
+            mesh4 = make_mesh((2, 2), ("data", "model"), device="cpu")
+            run = [("elastic", lambda: case_elastic(mesh4, out_dir))]
+        for name, fn in run:
+            try:
+                results[name] = fn()
+            except Exception:
+                results[name] = {"error": traceback.format_exc()}
+            # every rank reaches the next case together, a failed one too
+            dist.barrier()
+    finally:
+        if rank == 0:
+            tmp = Path(out_dir) / f".{cases}.json"
+            tmp.write_text(json.dumps(results))
+            os.replace(tmp, Path(out_dir) / f"{cases}.json")
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -42,7 +42,9 @@ def test_port_has_the_slice_modules():
                 "configs.internvl2_2b", "configs.musicgen_medium",
                 "train", "train.optim", "train.data", "train.train_step",
                 "train.checkpoint", "train.compression", "train.trainer",
-                "core.distributed", "launch.train"):
+                "core.distributed", "launch.train", "parallel",
+                "parallel.ctx", "parallel.sharding", "launch.mesh",
+                "launch.specs"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -1,0 +1,135 @@
+"""The port's sharded training on 8 gloo CPU ranks (the reference's
+``tests/test_sharding.py``, which runs on 8 placeholder devices).
+
+One spawn of 8 ranks (``tests/sharding_ranks.py``, a ``FileStore`` in a
+temporary directory for the rendezvous, one intra-op thread a rank) runs
+every 8-rank case once for the module, and a spawn of 4 ranks restores
+the checkpoint it saved; each test reads its own case's result.  Each
+case holds the mesh's result against the same computation on plain
+tensors, one AdamW step (lr 1e-3, clip 1.0) of a smoke config on 8 x 16
+seeded tokens, at the reference's tolerances (``tests/test_sharding.py:
+63-69``): loss within 1e-4, every parameter within 2e-4.  The plain
+single-device step is itself held against the reference's by
+``tests/test_torch_train_step.py::test_adamw_step_matches_reference``.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+HERE = Path(__file__).resolve().parent
+LOSS_TOL, PARAM_TOL = 1e-4, 2e-4
+#: a spawn's own limit: the 8-rank cases take about a minute here
+SPAWN_TIMEOUT_S = 600
+
+
+def _spawn(cases: str, world: int, out_dir: Path) -> dict:
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "sharding_ranks.py"), cases, str(rank),
+         str(world), str(out_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=SPAWN_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    result = out_dir / f"{cases}.json"
+    assert result.exists(), "\n".join(log[-3000:] for log in logs)
+    return json.loads(result.read_text())
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("sharding")
+    results = _spawn("mesh8", 8, out_dir)
+    if "error" not in results.get("save", {"error": "not run"}):
+        results.update(_spawn("mesh4", 4, out_dir))
+    return results
+
+
+def _case(runs, name):
+    got = runs.get(name)
+    assert got is not None, f"case {name} did not run"
+    assert "error" not in got, got.get("error")
+    return got
+
+
+@pytest.mark.parametrize("name", ["2d", "dp", "sp", "accum"])
+def test_sharded_train_step_matches_single_device(runs, name):
+    """qwen3-0.6b smoke on a 4x2 mesh under ``2d`` (with and without 2
+    accumulation microbatches) and ``dp``; mamba2-130m smoke under ``sp``
+    (the sequence over 'model': the SSD rule gathers it)."""
+    got = _case(runs, name)
+    assert got["loss_gap"] < LOSS_TOL, got
+    assert got["param_gap"] < PARAM_TOL, got
+    assert got["split_leaves"] > 0, got
+
+
+def test_gqa_heads_over_a_wider_model_axis(runs):
+    """4 query heads and 2 KV heads on a 2x4 mesh: q's heads split over
+    ``model=4`` beside k and v that cannot be, which the flash rule must
+    gather (a shard reading its own KV heads would read the wrong ones)."""
+    got = _case(runs, "gqa")
+    assert (got["heads"], got["kv_heads"]) == (4, 2)
+    assert got["loss_gap"] < LOSS_TOL, got
+    assert got["param_gap"] < PARAM_TOL, got
+
+
+def test_moe_expert_parallel_matches(runs):
+    """granite-moe smoke, 4 experts over ``model=4`` (EP), top-2 at
+    lossless capacity 4.0, on a 2x4 mesh: two dispatch groups, one a
+    batch shard, against one group on a single device."""
+    got = _case(runs, "ep")
+    assert got["expert_split"][1] == "Shard(0)", got
+    assert got["loss_gap"] < LOSS_TOL, got
+
+
+def test_prefill_and_decode_on_the_mesh(runs):
+    """A prefill and 3 decode ticks with the cache placed by
+    ``cache_specs``: qwen3 (KV caches) and zamba2 (per-layer Mamba2
+    states beside the shared block's caches), fp32, against plain
+    tensors (sums over split dims in another order)."""
+    got = _case(runs, "decode")
+    for arch, r in got.items():
+        assert r["logit_gap"] < 1e-4, (arch, r)
+        assert r["k_gap"] < 1e-4, (arch, r)
+
+
+def test_constrain_outside_and_inside_a_mesh(runs):
+    got = _case(runs, "constrain")
+    assert got["outside_is_identity"]
+    assert "escaped the sharding" in got["raised"], got
+    assert got["placed"] == ["Shard(0)", "Replicate"], got
+
+
+def test_production_mesh_needs_its_ranks(runs):
+    got = _case(runs, "production_mesh")
+    assert "needs 256 ranks" in got["False"], got
+    assert "needs 512 ranks" in got["True"], got
+
+
+def test_elastic_restore_8_to_4_devices(runs):
+    """Saved from the 8-rank 4x2 mesh (gathered, written by rank 0),
+    restored by 4 ranks onto a 2x2 mesh."""
+    assert "error" not in runs.get("save", {}), runs.get("save")
+    got = _case(runs, "elastic")
+    assert got["step"] == 3
+    assert got["param_gap"] < 1e-6, got
+    assert got["moment_gap"] < 1e-6, got
+    assert got["meshes"] == [[2, 2]], got
+    # the trainer's restore-on-start takes the same shardings
+    assert got["trainer_step"] == 3, got
+    assert got["trainer_meshes"] == [[2, 2]], got
