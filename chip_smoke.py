@@ -225,10 +225,10 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     backward differentiates.  Every layer's ``wq``, ``wk``, ``wv``,
     ``q_norm``, ``k_norm`` (``in_proj``'s x, B, C and dt columns,
     ``conv_w``, ``a_log``, ``dt_bias``) with a non-zero gradient.  (b)
-    ``Trainer(cfg, batch=2, seq=4096)``: 20 steps with an async
-    checkpoint every 10, then a run crashed at step 12 by the failure
-    injector and a fresh trainer that restores step 10 and runs to 20;
-    every loss finite, the resumed losses of steps 11-20 bitwise the
+    ``Trainer(cfg, batch=2, seq=4096)``: 10 steps with an async
+    checkpoint every 5, then a run crashed at step 7 by the failure
+    injector and a fresh trainer that restores step 5 and runs to 10;
+    every loss finite, the resumed losses of steps 6-10 bitwise the
     uninterrupted run's, and each run's launches exactly steps x layers
     x 2 (the forward and remat's recompute).  Logged: ms a step (median
     after 2 warm-ups), tokens/s, peak memory, checkpoint bytes and the
@@ -266,7 +266,21 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     ``SHARDED_TICKS`` decode ticks with the parameters on the mesh and
     the cache placed by ``cache_specs``: every logit bitwise the plain
     path's, flash launched once a layer.
-20. A line with the card's name and power limit, a ``{"kernels": [...]}``
+20. The dry run (``repro_torch.launch.dryrun``) on the production
+    meshes, read from the traced per-rank graph: ``DRYRUN_CELLS``, each
+    ``python -m repro_torch.launch.dryrun --device cuda`` as a process
+    of its own on a fake process group of 256 or 512 ranks (Qwen3-0.6B
+    and Mamba2-130M at ``train_4k``, Qwen3-0.6B at ``decode_32k``, whose
+    KV cache splits its sequence over ``model``, Mamba2-130M at
+    ``long_500k``, and a ``--multi-pod`` cell), and phase 18 (c)'s step
+    (Qwen3-0.6B, 2 x 4096) on a 1-rank fake mesh, all at once within
+    ``DRYRUN_TIMEOUT_S``.  Every cell ``ok``; each cell's compute, memory
+    and collective terms, bound, useful-FLOPs ratio and peak GiB a
+    device logged.  Gates on the 1-rank cell: its roofline step below
+    phase 18's measured ms a step, and its FLOPs within
+    ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s tracker summed
+    over that step.
+21. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels (flash attention and the SSD scan also
     with their training launches and their launches on the mesh), and
     last {"ok": true, "device": {...}}.
@@ -2494,7 +2508,8 @@ def front_end_bursts(fms, kind, server, service, rounds, check) -> dict:
     samples = np.asarray(service.export_pass_samples(),
                          np.float64).reshape(-1, 3)
     cold, warm = samples[samples[:, 0] > 0], samples[samples[:, 0] == 0]
-    log(f"    its last {len(samples)} engine passes: {len(cold)} cold, p50 "
+    log(f"    its last {len(samples)} engine passes (their threads' CPU "
+        f"time): {len(cold)} cold, p50 "
         f"{np.median(cold[:, 2]) * 1e3 if len(cold) else 0:.1f} ms for "
         f"p50 {np.median(cold[:, 0]) if len(cold) else 0:.0f} cold "
         f"op-cells; {len(warm)} warm, p50 "
@@ -2710,8 +2725,10 @@ class Cluster:
     """Phase 16 (b): ``launch.serve --cache-server`` and a routed,
     supervised pair of workers (``launch.serve --serve --router``) as
     processes on the card.  :meth:`start` spawns them and returns at
-    once (a worker takes seconds to load torch, CUDA and its MLPs, which
-    phase 16 (a) overlaps); :meth:`drive` waits for the router, sends the
+    once (a worker takes seconds to load torch, CUDA and its MLPs; phase
+    16 starts them only after (a), whose admission gates read the host's
+    clocks and would otherwise share its cores with three processes
+    starting up); :meth:`drive` waits for the router, sends the
     traffic and kills a worker; :meth:`finish` waits for its restart and
     ends the launcher; :meth:`stop` ends every process this started."""
 
@@ -2886,12 +2903,12 @@ def serve_predictions(torch, fms, batched, mlps, traces, new_traces,
     log(f"  {len(every)} traces and their CPU plain answers ready in "
         f"{time.perf_counter() - t0:.1f} s")
     everyone = list(traces) + list(tracked)
+    serve_in_process(torch, fms, batched, mlps, everyone, new_traces,
+                     tracked, extra, lambda t: docs[id(t)],
+                     lambda d: rows[id(d)], by_label, devs, fleet_minus,
+                     cold_doc, device=device)
     procs = Cluster(device=device).start()
     try:
-        serve_in_process(torch, fms, batched, mlps, everyone, new_traces,
-                         tracked, extra, lambda t: docs[id(t)],
-                         lambda d: rows[id(d)], by_label, devs, fleet_minus,
-                         cold_doc, device=device)
         procs.drive(everyone)
         cli_optimize()              # while the killed worker restarts
         procs.finish()
@@ -2960,7 +2977,7 @@ THROUGH_KERNEL = {"flash_attention": ("wq", "wk", "wv", "q_norm", "k_norm"),
                   "ssd": ("in_proj", "conv_w", "a_log", "dt_bias")}
 #: (b): Trainer(cfg, batch=2, seq=4096), train_4k's sequence length
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 20, 10, 12
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 10, 5, 7
 TRAIN_PROFILE_STEPS = 5
 #: op calls (each with its gradient) profiled for the VJP's device ms
 VJP_CALLS = 3
@@ -3374,10 +3391,10 @@ def vjp_device_ms(torch, cfg, device, kname) -> tuple:
 
 
 def train_lm(torch, cfg, device, kname, kmod, tmp) -> dict:
-    """Phase 18 (b) for one model: 20 steps uninterrupted, then a run
-    crashed at step 12 and a fresh trainer resumed from its step-10
-    checkpoint; launches counted exactly in each run; the resumed losses
-    bitwise the uninterrupted run's."""
+    """Phase 18 (b) for one model: TRAIN_STEPS steps uninterrupted, then
+    a run crashed at step TRAIN_CRASH and a fresh trainer resumed from its
+    step-TRAIN_EVERY checkpoint; launches counted exactly in each run; the
+    resumed losses bitwise the uninterrupted run's."""
     from repro_torch.train.trainer import Trainer, TrainerConfig, to_device
     per_step = 2 * cfg.n_layers     # forward + remat's recompute
 
@@ -3594,6 +3611,7 @@ def train_lms(torch, device, kernel_mods, mlps) -> dict:
         log("  (c) python -m repro_torch.launch.train --predict-on the "
             "registry's GPUs")
         trace, cfg = cli_train(torch, tmp)
+        out["tracked_flops"] = float(sum(op.cost.flops for op in trace.ops))
         log("  (d) distributed.predict_step on the tracked step")
         predict_distributed(torch, trace, cfg, mlps)
     return out
@@ -3889,6 +3907,119 @@ def train_sharded(torch, device, kernel_mods, trained) -> dict:
         finally:
             dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the dry run on the production meshes
+# ---------------------------------------------------------------------------
+#: the dry run's cells, each ``python -m repro_torch.launch.dryrun
+#: --device cuda`` as a process of its own (one fake process group a
+#: process), all at once: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
+                ("mamba2-130m", "train_4k", False),
+                ("qwen3-0.6b", "decode_32k", False),
+                ("mamba2-130m", "long_500k", False),
+                ("qwen3-0.6b", "decode_32k", True))
+#: the phase's limit: every process is killed past it
+DRYRUN_TIMEOUT_S = 110
+#: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
+#: TRAIN_SEQ) on a (1, 1) fake mesh, ``SHAPES["train_4k"]`` patched
+DRYRUN_ONE_RANK = """
+import json
+import sys
+from pathlib import Path
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import ShapeConfig
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+dryrun.make_production_mesh = lambda multi_pod=False, device=None: \\
+    make_mesh((1, 1), ("data", "model"), device=device)
+dryrun.SHAPES["train_4k"] = ShapeConfig("train_4k", int(sys.argv[1]),
+                                        int(sys.argv[2]), "train")
+cell = dryrun.run_cell("qwen3-0.6b", "train_4k", device="cuda")
+out = Path(sys.argv[3])
+out.mkdir(parents=True)
+(out / "qwen3-0.6b_train_4k_1rank.json").write_text(json.dumps(cell))
+"""
+#: the 1-rank cell's FLOPs against phase 18 (c)'s tracked step's
+DRYRUN_TRACKER_REL = 0.10
+
+
+def dry_run(trained) -> None:
+    """Phase 20: the dry run's cells at once, then the two gates of the
+    1-rank cell: its roofline step below phase 18's measured ms a step
+    (a bound above the measurement would mean the count is wrong) and
+    its FLOPs within DRYRUN_TRACKER_REL of the tracker's for that step."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for arch, shape, multi in DRYRUN_CELLS:
+            tag = f"{arch}_{shape}_{'2pod' if multi else '1pod'}"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--device", "cuda", "--arch", arch, "--shape", shape,
+                   "--out", str(Path(tmp) / tag)] + \
+                (["--multi-pod"] if multi else [])
+            procs[tag] = cmd
+        procs["one_rank"] = [sys.executable, "-c", DRYRUN_ONE_RANK,
+                             str(TRAIN_SEQ), str(TRAIN_BATCH),
+                             str(Path(tmp) / "one_rank")]
+        t0 = time.perf_counter()
+        running = {tag: subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=str(ROOT))
+            for tag, cmd in procs.items()}
+        logs = {}
+        try:
+            for tag, proc in running.items():
+                left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+                logs[tag] = proc.communicate(timeout=max(left, 1.0))[0]
+        except subprocess.TimeoutExpired:
+            fail(f"the dry run's cells took over {DRYRUN_TIMEOUT_S} s")
+        finally:
+            for proc in running.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        log(f"  {len(procs)} cells in {time.perf_counter() - t0:.1f} s, "
+            f"one process each")
+        cells = {}
+        for tag, proc in running.items():
+            found = list((Path(tmp) / tag).glob("*.json"))
+            cell = json.loads(found[0].read_text()) if found else {}
+            if proc.returncode != 0 or cell.get("status") != "ok":
+                log(logs[tag][-4000:])
+                fail(f"dry-run cell {tag}: exit {proc.returncode}, "
+                     f"{cell.get('status')} {cell.get('error', '')}")
+            cells[tag] = cell
+            log(f"  {tag} ({cell['chips']} ranks, {cell['profile']}): "
+                f"compute {cell['compute_s'] * 1e3:.2f} ms, memory "
+                f"{cell['memory_s'] * 1e3:.2f} ms, collective "
+                f"{cell['collective_s'] * 1e3:.2f} ms -> {cell['bound']}-"
+                f"bound; useful FLOPs {cell['useful_flops_ratio']:.2f}; peak "
+                f"{cell['peak_bytes_per_device'] / 2**30:.2f} GiB a device "
+                f"({'fits' if cell['peak_bytes_per_device'] <= 80e9 else 'over'}"
+                f" 80 GB); traced in {cell['compile_s']:.1f} s, "
+                f"{cell['graph_nodes']} nodes")
+    one = cells["one_rank"]
+    step_ms = trained["flash_attention"]["step_ms"]
+    bound_ms = one["step_s"] * 1e3
+    log(f"  1-rank Qwen3-0.6B step ({TRAIN_BATCH} x {TRAIN_SEQ}): roofline "
+        f"{bound_ms:.2f} ms against phase 18's {step_ms:.2f} ms a step "
+        f"({bound_ms / step_ms:.1%})")
+    if not bound_ms < step_ms:
+        fail(f"the 1-rank roofline step ({bound_ms:.2f} ms) is not below "
+             f"the measured step ({step_ms:.2f} ms): the count is wrong")
+    ratio = one["flops_per_device"] / trained["tracked_flops"]
+    log(f"  its FLOPs {one['flops_per_device']:.4e} against the tracked "
+        f"step's {trained['tracked_flops']:.4e} (phase 18 (c)): "
+        f"{ratio:.4f}")
+    if abs(ratio - 1.0) > DRYRUN_TRACKER_REL:
+        fail(f"the 1-rank dry run's FLOPs lie {ratio:.4f} of the tracker's "
+             f"(limit {DRYRUN_TRACKER_REL})")
 
 
 def main() -> int:
@@ -4189,7 +4320,15 @@ def main() -> int:
             entry["mesh_launches"] = sharded[entry["name"]]["launches"]
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
 
-    # -- 20. result lines ---------------------------------------------------
+    # -- 20. the dry run on the production meshes --------------------------
+    log(f"[20 dry run] {len(DRYRUN_CELLS)} cells on fake 256- and 512-rank "
+        f"meshes and phase 18's step on one rank, each a process, read "
+        f"from the traced per-rank graph")
+    t0 = time.perf_counter()
+    dry_run(trained)
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21. result lines ---------------------------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -357,5 +357,18 @@ H100_SXM = register(DeviceSpec(
     num_units=132, clock_hz=1.98e9, tiles_per_unit=8,
     link_bandwidth=0.0, num_links=0, cost_per_hour=None), origin_only=True)
 
+#: The dry run's roofline constants (``launch.hlo_analysis``), for one
+#: NVIDIA H100 SXM5 80GB at 700 W, from NVIDIA's datasheet: dense bf16 on
+#: the tensor cores, HBM3 bandwidth, and one GPU's link off its node, a
+#: 400 Gb/s NDR InfiniBand port (50 GB/s).  Each 16-wide axis of the
+#: production meshes spans two 8-GPU nodes, so its collectives cross that
+#: link; an axis inside one node would see NVLink's 450 GB/s per
+#: direction.  The first two are chip_smoke.py's ``BF16_PEAK_FLOPS`` and
+#: ``HBM_BYTES_PER_S``.  The reference's TPU v5e constants are not carried
+#: over.
+ROOFLINE_PEAK_FLOPS = 989e12
+ROOFLINE_HBM_BW = 3.35e12
+ROOFLINE_LINK_BW = 50e9
+
 #: The six paper GPUs, used by paper-parity benchmarks (Figs. 3/4, Sec. 5).
 PAPER_GPUS = ["P4000", "P100", "V100", "RTX2070", "RTX2080Ti", "T4"]

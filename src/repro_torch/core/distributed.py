@@ -22,10 +22,10 @@ framework targets:
       t = compute + max(0, collective - overlap_frac * compute).
 
 The reference's dry-run prices its collective term with the same ring
-model.  The port's sharding is ported (``repro_torch.parallel``: the
-plan whose ``comm_volumes`` feed ``MeshPlan``); its dry run, which reads
-the traced per-device graph where the reference reads XLA's HLO, is
-still to come (``ROADMAP.md``).
+model.  The port's sharding (``repro_torch.parallel``) is the plan whose
+``comm_volumes`` feed ``MeshPlan``; its dry run
+(``repro_torch.launch.dryrun``) reads the traced per-device graph where
+the reference reads XLA's HLO.
 """
 
 from __future__ import annotations

@@ -68,13 +68,45 @@ def init_dense(shape: Sequence[int], dtype: torch.dtype,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Token-level CE in fp32 (the reference's, whose z-loss term no
-    caller turns on).  On a mesh whose vocab shards the logits, the
-    label gather is a masked partial sum over the vocab shards; it is
-    made full while it still has the gather's shape (DTensor cannot
-    reduce it after the trailing dim is dropped)."""
+    caller turns on).  On a mesh the label logits are gathered per shard
+    (:func:`_label_logits`) and made full while they still have the
+    gather's shape (DTensor cannot reduce them after the trailing dim is
+    dropped)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    label_logits = ctx.constrain(torch.gather(
-        logits, -1, labels.to(torch.long)[..., None]), "batch", None,
-        None)[..., 0]
+    label_logits = ctx.constrain(_label_logits(logits, labels), "batch",
+                                 None, None)[..., 0]
     return torch.mean(logz - label_logits)
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """``logits[..., labels]`` as (B, S, 1).  On a mesh each rank gathers
+    from its own shard: where the vocab is split, the labels in its range
+    (the others give 0), so the result is a partial sum over the vocab
+    shards.  DTensor's own rule for ``gather`` builds the gradient as a
+    zeros tensor of the logits' global shape on every rank, which at
+    production scale is hundreds of GB."""
+    index = labels.to(torch.long)[..., None]
+    if not ctx.is_dtensor(logits):
+        return torch.gather(logits, -1, index)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(logits.placements)
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(logits.shape), logits.device_mesh, pl)
+    first, width = int(offset[-1]), int(local[-1])
+    rows = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                 for p in pl)
+    out = tuple(Partial() if p == Shard(2) else q for p, q in zip(pl, rows))
+
+    def gather(lg, idx):
+        idx = idx - first
+        mine = (idx >= 0) & (idx < width)
+        got = torch.gather(lg, -1, idx.clamp(0, width - 1))
+        return torch.where(mine, got, torch.zeros_like(got))
+    return local_map(gather, out_placements=(out,), in_placements=(pl, rows),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, index)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.parallel import ctx
 
 
 def ssd_reference(x, dt, a, b, c, d_skip=None):
@@ -177,7 +178,7 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
                            vjp_chunk=cfg.ssm_chunk)
     y = y.transpose(1, 2) + params["d_skip"][None, None, :, None] \
         * xs.to(torch.float32)
-    y = y.reshape(bs, l, di).to(x.dtype)
+    y = ctx.heads_in_grad(y.reshape(bs, l, di), 2, h).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     out = y @ params["out_proj"]
     if return_state:
@@ -185,16 +186,40 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     return out
 
 
+def mamba_state_shapes(cfg, batch: int, dtype: torch.dtype
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The decode state's (shape, dtype) by name: the conv window and the
+    fp32 SSM state."""
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    return {"conv": ((batch, cfg.ssm_conv - 1, di + 2 * g * n), dtype),
+            "ssm": ((batch, h, n, cfg.ssm_head_dim), torch.float32)}
+
+
 def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
-    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * g * n
-    return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
-                            device=device),
-        "ssm": torch.zeros((batch, h, n, cfg.ssm_head_dim),
-                           dtype=torch.float32, device=device),
-    }
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in mamba_state_shapes(cfg, batch,
+                                                     dtype).items()}
+
+
+def _read_state(ch: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhn,bhnp->bhp", ch, s)``.  On a mesh it runs on each
+    rank's shard of the state, as the state is split (a split N gives a
+    partial sum): some torch releases' DTensor cannot flatten the batch
+    and a split head dim into the product's batch."""
+    if not ctx.is_dtensor(s):
+        return torch.einsum("bhn,bhnp->bhp", ch, s)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ps = tuple(s.placements)
+    p_ch = tuple(p if isinstance(p, Shard) and p.dim < 3 else Replicate()
+                 for p in ps)
+    p_y = tuple(Partial() if p == Shard(2) else
+                Shard(2) if p == Shard(3) else p for p in ps)
+    return local_map(lambda c, st: torch.einsum("bhn,bhnp->bhp", c, st),
+                     out_placements=(p_y,), in_placements=(p_ch, ps),
+                     device_mesh=s.device_mesh,
+                     redistribute_inputs=True)(ch, s)
 
 
 def mamba_decode_step(params, x: torch.Tensor, state: Dict,
@@ -219,7 +244,7 @@ def mamba_decode_step(params, x: torch.Tensor, state: Dict,
     s = state["ssm"] * decay + \
         (dt[..., None] * bh)[..., :, None] \
         * xs.to(torch.float32)[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", ch, s)
+    y = _read_state(ch, s)
     y = y + params["d_skip"][None, :, None] * xs.to(torch.float32)
     y = y.reshape(bs, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)

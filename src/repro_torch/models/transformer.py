@@ -225,13 +225,18 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Blocks (prefill form)
 # ---------------------------------------------------------------------------
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd), whole heads on a mesh."""
+    b, s, _ = t.shape
+    return ctx.whole_heads(t, 2, n).reshape(b, s, n, hd)
+
+
 def _qkv(blk, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     hn = rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = (hn @ blk["wq"]).reshape(b, s, h, hd)
-    k = (hn @ blk["wk"]).reshape(b, s, kv, hd)
-    v = (hn @ blk["wv"]).reshape(b, s, kv, hd)
+    q = _split_heads(hn @ blk["wq"], h, hd)
+    k = _split_heads(hn @ blk["wk"], kv, hd)
+    v = _split_heads(hn @ blk["wv"], kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, blk["q_norm"], cfg.norm_eps)
         k = rms_norm(k, blk["k_norm"], cfg.norm_eps)
@@ -315,7 +320,17 @@ def _embed_inputs(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _head(params: LMParams, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The (D, V) output projection.  On a mesh its D is gathered first,
+    as FSDP gathers a weight: left split, DTensor's cheapest plan for the
+    product gathers the activations instead and makes a vocab-wide
+    logits block of many sequences on every rank (19 GB a rank for
+    Qwen3-0.6B's ``train_4k`` on 256 ranks)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if ctx.is_dtensor(head):
+        from torch.distributed.tensor import Replicate, Shard
+        head = head.redistribute(head.device_mesh, [
+            Replicate() if p == Shard(0) else p for p in head.placements])
+    return head
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -412,28 +427,33 @@ def loss_fn(params: LMParams, cfg: ModelConfig, batch: Dict
 # Serving: prefill + single-token decode with caches
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      device=None) -> Dict[str, Any]:
+                      device=None, make: Optional[Callable] = None
+                      ) -> Dict[str, Any]:
     """Per-slot positions (``index``) and, per family, the Mamba2 states
     stacked by layer, ``ssm_layers`` (L, B, ...), and the KV caches
     (n, B, max_seq, KV, hd), n one a layer or, for hybrid, one a group.
     The reference stacks hybrid states (n_groups, attn_every, B, ...);
-    here they are one a layer, so every state has the batch on axis 1."""
+    here they are one a layer, so every state has the batch on axis 1.
+    Each leaf is ``make(shape, dtype)``, zeros on ``device`` by default
+    (prefill on a mesh makes each rank's shard of them instead)."""
     _check_family(cfg)
-    dev = torch_device(device)
+    if make is None:
+        dev = torch_device(device)
+
+        def make(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
     dtype = _dtype(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    state: Dict[str, Any] = {
-        "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    state: Dict[str, Any] = {"index": make((batch,), torch.int32)}
     if cfg.family in ("ssm", "hybrid"):
-        st = ssm_mod.init_mamba_state(cfg, batch, dtype, dev)
         state["ssm_layers"] = {
-            k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype,
-                           device=dev) for k, v in st.items()}
+            k: make((cfg.n_layers,) + shape, dt) for k, (shape, dt) in
+            ssm_mod.mamba_state_shapes(cfg, batch, dtype).items()}
     if cfg.family != "ssm":
         n = _n_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
         shape = (n, batch, max_seq, kv, hd)
-        state["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        state["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        state["k"] = make(shape, dtype)
+        state["v"] = make(shape, dtype)
     return state
 
 
@@ -450,13 +470,22 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"prompt of {s} positions exceeds max_seq "
                          f"{max_seq}")
     positions = _positions(b, s, x.device)
-    state = init_decode_state(cfg, b, max_seq, device=x.device)
-    state["index"].fill_(s)
     mesh = ctx.current_mesh()
-    if mesh is not None:
+    if mesh is None:
+        state = init_decode_state(cfg, b, max_seq, device=x.device)
+        state["index"].fill_(s)
+    else:
+        # each rank makes only its shard of the caches, placed by
+        # cache_specs (the whole state is a global KV cache): the layout
+        # is shapes and dtypes, no tensor
+        from types import SimpleNamespace
         from repro_torch.parallel import sharding
-        state = sharding.distribute(state, sharding.tree_shardings(
-            sharding.cache_specs(state, mesh, b, cfg), mesh))
+        like = init_decode_state(cfg, b, max_seq, make=lambda shape, dtype:
+                                 SimpleNamespace(shape=shape, dtype=dtype))
+        state = sharding.distribute(like, sharding.tree_shardings(
+            sharding.cache_specs(like, mesh, b, cfg), mesh),
+            put=lambda t, sh: sharding.shard_of(
+                t, sh, x.device, fill=s if t is like["index"] else 0))
 
     def mamba(i, layer, x):
         x, st = _mamba_layer(layer, x, cfg, return_state=True)
@@ -466,8 +495,8 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
 
     def attend(i, blk, x, window):
         x, _, (k, v) = _attn_mlp_block(blk, x, cfg, window, positions)
-        state["k"][i, :, :s] = k
-        state["v"][i, :, :s] = v
+        _write_prefix(state["k"][i], k)
+        _write_prefix(state["v"][i], v)
         return x
 
     if cfg.family == "ssm":
@@ -486,28 +515,84 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     return x @ _head(params, cfg), state
 
 
+def _cache_shards(cache: torch.Tensor):
+    """A (B, S, KV, hd) cache DTensor's local shard and how to place what
+    is written into it: (local cache, this rank's first position, the
+    placements of a (B, ..., KV, hd) write split as the cache's batch and
+    KV heads are and whole on the mesh dims that split the sequence)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pc = tuple(cache.placements)
+    _, offset = compute_local_shape_and_global_offset(
+        tuple(cache.shape), cache.device_mesh, pc)
+    keep = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+            for p in pc]
+    return cache.to_local(), int(offset[1]), keep
+
+
+def _write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, :s] = new`` in place: cache (B, S, KV, hd), new (B, s,
+    KV, hd).  On a mesh each rank writes the positions of its own shard
+    (its slots and KV heads, and, where the sequence is split, its range
+    of it)."""
+    s = new.shape[1]
+    if not ctx.is_dtensor(cache):
+        cache[:, :s] = new
+        return
+    local, first, keep = _cache_shards(cache)
+    new = new.redistribute(cache.device_mesh, keep).to_local()
+    lo, hi = first, min(first + local.shape[1], s)
+    if hi > lo:
+        local[:, :hi - lo] = new[:, lo:hi]
+
+
 def _write_slots(cache: torch.Tensor, at: torch.Tensor,
                  new: torch.Tensor) -> None:
     """``cache[b, at[b]] = new[b]`` for every slot b, in place: cache (B,
     S, KV, hd), at (B,), new (B, KV, hd).  On a mesh (DTensor has no
     in-place strategy for the scatter) each rank writes its own shard: its
-    slots and KV heads, the sequence whole."""
+    slots and KV heads, and where the sequence is split over the mesh,
+    only the slots whose position falls in its range of it."""
     if not ctx.is_dtensor(cache):
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, at] = new
         return
     from torch.distributed.tensor import Replicate, Shard
-    pc = tuple(cache.placements)
-    if Shard(1) in pc:
-        raise NotImplementedError(
-            "decode with the KV cache's sequence split over the mesh")
     mesh = cache.device_mesh
+    local, first, keep = _cache_shards(cache)
     # the cache's dims (B, S, KV, hd) as new's (B, KV, hd) and at's (B,)
     p_new = [Shard({0: 0, 2: 1, 3: 2}[p.dim]) if isinstance(p, Shard)
-             else Replicate() for p in pc]
+             else Replicate() for p in keep]
     p_at = [p if p == Shard(0) else Replicate() for p in p_new]
-    _write_slots(cache.to_local(), at.redistribute(mesh, p_at).to_local(),
-                 new.redistribute(mesh, p_new).to_local())
+    at = at.redistribute(mesh, p_at).to_local() - first
+    new = new.redistribute(mesh, p_new).to_local()
+    mine = (at >= 0) & (at < local.shape[1])
+    at = at.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, at] = torch.where(mine[:, None, None], new, local[rows, at])
+
+
+def _decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, index: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """``attention.decode_attention`` on the caches.  On a mesh it runs on
+    each rank's shard: the slots and KV heads as the cache splits them
+    (q's heads split alike, since query head h reads KV head h // rep),
+    the sequence whole (where the cache splits it, it is gathered)."""
+    if not ctx.is_dtensor(k_cache):
+        return attn_mod.decode_attention(q, k_cache, v_cache, index, window)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    _, _, keep = _cache_shards(k_cache)
+    p_q = tuple(keep)        # q (B, 1, H, hd): dims 0 and 2 as the cache's
+    p_index = tuple(p if p == Shard(0) else Replicate() for p in keep)
+    return local_map(
+        lambda q_, k_, v_, i_: attn_mod.decode_attention(q_, k_, v_, i_,
+                                                         window),
+        out_placements=(p_q,), in_placements=(p_q, p_q, p_q, p_index),
+        device_mesh=k_cache.device_mesh,
+        redistribute_inputs=True)(q, k_cache, v_cache, index)
 
 
 def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
@@ -522,7 +607,7 @@ def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
     at = index.to(torch.long).clamp(max=k_cache.shape[1] - 1)
     _write_slots(k_cache, at, k[:, 0])
     _write_slots(v_cache, at, v[:, 0])
-    o = attn_mod.decode_attention(q, k_cache, v_cache, index, window)
+    o = _decode_attend(q, k_cache, v_cache, index, window)
     x = x + o.reshape(b, 1, -1) @ blk["wo"]
     m, _ = _mlp(blk, x, cfg)
     return x + m

@@ -31,6 +31,8 @@ import sys
 import threading
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 _state = threading.local()
 
 
@@ -76,15 +78,71 @@ def local_shards(tensors, mesh, placements_of) -> list:
     return out
 
 
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (worked out, not
+    read off an allocation, which a traced step would record)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
 def from_shards(grads, like, placements_of) -> tuple:
     """Local gradients as DTensors of their inputs' global shapes on
     ``placements_of(i)`` (None passes through)."""
-    import torch
     from torch.distributed.tensor import DTensor
     return tuple(None if g is None else DTensor.from_local(
         g, ref.device_mesh, placements_of(i), run_check=False,
-        shape=ref.shape, stride=torch.empty(ref.shape, device="meta").stride())
+        shape=ref.shape, stride=contiguous_stride(ref.shape))
         for i, (g, ref) in enumerate(zip(grads, like)))
+
+
+def _divides(x, dim: int, n: int) -> bool:
+    """Whether ``x``'s split of ``dim`` over the mesh divides ``n``."""
+    from torch.distributed.tensor import Shard
+    ways = 1
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            ways *= x.device_mesh.size(i)
+    return n % ways == 0
+
+
+def whole_heads(x, dim: int, n: int):
+    """``x`` with ``dim`` gathered where, on a mesh, its split does not
+    divide ``n``, the heads a reshape cuts it into (2 KV heads beside
+    ``model=4``); ``x`` itself otherwise.  DTensor cannot cut a split dim
+    into heads unevenly."""
+    if not is_dtensor(x) or _divides(x, dim, n):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in x.placements])
+
+
+def heads_in_grad(x, dim: int, n: int):
+    """``x``, whose gradient is put back on ``x``'s own placements where,
+    on a mesh, its split of ``dim`` divides no head of the ``n`` that the
+    reshape before ``x`` cut: some torch releases' DTensor cannot cut such
+    a gradient into heads (zamba2's 5120-wide d_inner over 256 ranks, 80
+    heads), and ``x``'s split cuts, or the forward would have failed."""
+    if not is_dtensor(x):
+        return x
+    return _HeadsInGrad.apply(x, dim, n)
+
+
+class _HeadsInGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.n = dim, n
+        ctx.placements, ctx.mesh = tuple(x.placements), x.device_mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not _divides(grad, ctx.dim, ctx.n):
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad, None, None
 
 
 def register_kernel_rules() -> None:

@@ -47,7 +47,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.parallel.ctx import (axis_names, axis_size, mesh_shape,
+from repro_torch.parallel.ctx import (axis_names, axis_size,
+                                      contiguous_stride, mesh_shape,
                                       register_kernel_rules)
 
 # weight names that are row-parallel (output dim is d_model)
@@ -438,24 +439,47 @@ def _put(leaf, sharding: Sharding):
     return out.requires_grad_(leaf.requires_grad)
 
 
-def distribute(tree: Any, shardings: Any) -> Any:
+def shard_of(leaf, sharding: Sharding, device, fill=None):
+    """A DTensor of ``leaf``'s shape and dtype on ``sharding`` of which
+    each rank makes only its own shard, on ``device``: filled with
+    ``fill``, or left unset where ``fill`` is None (the dry run's
+    ``meta`` shards).  Where :func:`distribute` cuts a whole tensor that
+    every rank holds, this never makes more than the shard."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape = tuple(leaf.shape)
+    pl = placements(sharding.spec, sharding.mesh, shape)
+    local, _ = compute_local_shape_and_global_offset(shape, sharding.mesh, pl)
+    t = torch.empty(tuple(local), dtype=leaf.dtype, device=device) \
+        if fill is None else torch.full(tuple(local), fill, dtype=leaf.dtype,
+                                        device=device)
+    return DTensor.from_local(t, sharding.mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def distribute(tree: Any, shardings: Any, put: Callable = _put) -> Any:
     """``tree`` with every tensor placed as ``shardings`` (a tree of
     :class:`Sharding` of the same structure, an ``LMParams`` matched by a
-    dict by name) says: the port's ``jax.device_put(tree, shardings)``."""
+    dict by name) says: the port's ``jax.device_put(tree, shardings)``.
+    ``put(leaf, sharding)`` places one leaf (the dry run passes one that
+    makes a DTensor of the leaf's shape without its values)."""
     register_kernel_rules()
     if isinstance(shardings, Sharding):
-        return _put(tree, shardings)
+        return put(tree, shardings)
     if isinstance(tree, torch.nn.Module):
-        return tree.map(lambda n, t: _put(t, shardings[n]))
+        return tree.map(lambda n, t: put(t, shardings[n]))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: distribute(getattr(tree, f.name),
-                               getattr(shardings, f.name))
+                               getattr(shardings, f.name), put)
             for f in dataclasses.fields(tree)})
     if isinstance(tree, Mapping):
-        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+        return {k: distribute(v, shardings[k], put) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(distribute(v, s) for v, s in zip(tree, shardings))
+        return type(tree)(distribute(v, s, put)
+                          for v, s in zip(tree, shardings))
     return tree
 
 

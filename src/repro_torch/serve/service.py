@@ -7,6 +7,18 @@ one the row scorer kernel.  Coalesced answers are bitwise equal to the
 direct planner call on the analytical paths, as in the reference; across
 the packages they agree to float rounding only.
 
+Where the port differs: an engine pass is timed by its thread's CPU
+seconds (``time.thread_time``), not the wall clock the reference reads.
+The pass model prices admission and the union/split plan from these
+samples.  Under a burst the front end's threads decode trace documents
+in the same interpreter, and a pass's wall time grows with the queue
+for the interpreter lock (tens of times a pass alone), not with its
+work.  Fitted from the wall clock, the model can price a sweep above the
+whole in-flight budget: it is then refused on an idle worker until its
+client gives up, and every refused retry decodes its document again.
+The pass's own CPU time counts its Python work and the device waits
+its thread spins through, and stays the same under such a burst.
+
 ``PredictionService`` sits between a transport (HTTP in
 :mod:`repro_torch.serve.http`, or plain Python threads in-process) and the
 :class:`~repro_torch.serve.fleet.FleetPlanner` policy layer.  Its job is
@@ -384,7 +396,8 @@ class PredictionService:
         self._split_batches = 0         # batches split into sub-unions
         self._split_passes = 0          # sub-union passes those batches ran
         #: per-pass samples (cold op-cells computed, rectangle op-cells,
-        #: seconds) — the cost model's time fit uses the cold cells, the
+        #: the pass thread's CPU seconds) — the cost model's time fit uses
+        #: the cold cells, the
         #: warmth discount uses the cold/rectangle ratio
         self._pass_samples: List[Tuple[int, int, float]] = []
         # what-if optimizer accounting (the ``/stats`` "optimizer"
@@ -1316,7 +1329,7 @@ class PredictionService:
         """(per-pass overhead s, per-op-cell s) of one engine pass.
 
         Seeded from the env-configurable constants, then refined by a
-        least-squares fit over the (op-cells, seconds) samples recorded
+        least-squares fit over the (op-cells, CPU seconds) samples recorded
         around every executed engine pass — the same pass granularity
         ``engine_passes`` counts.  The fit only replaces the seeds when
         BOTH terms come out positive: intercept and slope come from one
@@ -1377,11 +1390,11 @@ class PredictionService:
                                                  or req.deadline < scope):
                     scope = req.deadline
             faults.inject("engine.pass")
-            t0 = time.perf_counter()
+            t0 = time.thread_time()     # the pass's own CPU seconds
             with deadline_scope(scope):
                 rows = self.planner.sweep([uniq[fp] for fp in order],
                                           dests=union)
-            dt = time.perf_counter() - t0
+            dt = time.thread_time() - t0
             # credit the sample with the op-cells actually COMPUTED, not
             # the full rectangle: with cell-level cache fills a warm pass
             # computes almost nothing, and pricing it as the rectangle

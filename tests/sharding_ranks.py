@@ -125,40 +125,59 @@ def case_ep(mesh8, mesh24):
     return out
 
 
+def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16):
+    """A prefill of ``prompt`` tokens and ``ticks`` decode ticks of ``b``
+    slots with the parameters on ``mesh`` (``2d``) and the cache placed by
+    ``cache_specs``, against plain tensors: the largest logit and cache
+    gaps, and the placements the KV cache took."""
+    p = tfm.init_params(cfg, SEED, device="cpu")
+    batch = _batch(cfg, b, prompt)["tokens"]
+    steps = _batch(cfg, b, ticks)["tokens"]
+
+    def serve(params, place):
+        logits, st = tfm.prefill(params, cfg, place(batch), max_seq)
+        outs = [logits]
+        for i in range(steps.shape[1]):
+            logits, st = tfm.decode_step(params, cfg,
+                                         place(steps[:, i:i + 1]), st)
+            outs.append(logits)
+        return outs, st
+    with torch.no_grad():
+        want, st0 = serve(p, lambda t: t)
+        with ctx.use_mesh(mesh):
+            ps = sharding.distribute(p, _shardings(p, mesh, "2d", cfg))
+
+            def place(t):
+                specs = sharding.batch_specs({"t": t}, mesh)
+                return sharding.distribute(
+                    {"t": t}, sharding.tree_shardings(specs, mesh))["t"]
+            got, st = serve(ps, place)
+    return {
+        "logit_gap": max(float((a - _full(b_)).abs().max())
+                         for a, b_ in zip(want, got)),
+        "k_gap": float((st0["k"] - _full(st["k"])).abs().max()),
+        "v_gap": float((st0["v"] - _full(st["v"])).abs().max()),
+        "k_placements": [_name(x) for x in st["k"].placements]}
+
+
 def case_decode(mesh8):
     """A prefill and 3 decode ticks of qwen3 and zamba2 (the hybrid's
     per-layer Mamba2 states) on the mesh against plain tensors."""
-    out = {}
-    for arch in ("qwen3-0.6b", "zamba2-2.7b"):
-        cfg = smoke_config(get_config(arch))
-        p = tfm.init_params(cfg, SEED, device="cpu")
-        batch = _batch(cfg, 4, 12)["tokens"]
-        ticks = _batch(cfg, 4, 3)["tokens"]
+    return {arch: _serve_gaps(smoke_config(get_config(arch)), mesh8)
+            for arch in ("qwen3-0.6b", "zamba2-2.7b")}
 
-        def serve(params, place):
-            logits, st = tfm.prefill(params, cfg, place(batch), 16)
-            outs = [logits]
-            for i in range(ticks.shape[1]):
-                logits, st = tfm.decode_step(params, cfg,
-                                             place(ticks[:, i:i + 1]), st)
-                outs.append(logits)
-            return outs, st
-        with torch.no_grad():
-            want, st0 = serve(p, lambda t: t)
-            with ctx.use_mesh(mesh8):
-                ps = sharding.distribute(p, _shardings(p, mesh8, "2d", cfg))
 
-                def place(t):
-                    specs = sharding.batch_specs({"t": t}, mesh8)
-                    return sharding.distribute(
-                        {"t": t}, sharding.tree_shardings(specs, mesh8))["t"]
-                got, st = serve(ps, place)
-        out[arch] = {
-            "logit_gap": max(float((a - _full(b)).abs().max())
-                             for a, b in zip(want, got)),
-            "k_gap": float((st0["k"] - _full(st["k"])).abs().max()),
-            "k_placements": [_name(x) for x in st["k"].placements]}
-    return out
+def case_decode_seq(mesh8, mesh24):
+    """Decode with the KV cache's sequence split over the mesh: smoke
+    qwen3's 2 KV heads on ``model=4`` (``cache_specs`` splits the
+    sequence over 'model'); one slot on the 2x4 mesh (the ``long_500k``
+    rule: the sequence over the whole mesh, 2 positions a rank) and on
+    the 4x2 mesh (over 'data', the KV heads over 'model').  A 12-token
+    prefill and 4 ticks, which write into other ranks' ranges."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    return {"model": _serve_gaps(cfg, mesh24, ticks=4),
+            "whole_mesh": _serve_gaps(cfg, mesh24, b=1, ticks=4),
+            "data": _serve_gaps(cfg, mesh8, b=1, ticks=4)}
 
 
 def case_constrain(mesh8):
@@ -243,6 +262,7 @@ def main(cases, rank, world, out_dir):
                    ("gqa", lambda: case_gqa(mesh8, mesh24)),
                    ("ep", lambda: case_ep(mesh8, mesh24)),
                    ("decode", lambda: case_decode(mesh8)),
+                   ("decode_seq", lambda: case_decode_seq(mesh8, mesh24)),
                    ("constrain", lambda: case_constrain(mesh8)),
                    ("production_mesh", case_production_mesh),
                    ("save", lambda: case_save(mesh8, out_dir))]

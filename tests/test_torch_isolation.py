@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor the repo's
-``chip_smoke.py``) imports ``jax`` or the reference package ``repro``."""
+``chip_smoke.py``, nor the port's ``examples/torch/*.py``) imports
+``jax`` or the reference package ``repro``."""
 
 import pkgutil
 import subprocess
@@ -44,20 +45,28 @@ def test_port_has_the_slice_modules():
                 "train.checkpoint", "train.compression", "train.trainer",
                 "core.distributed", "launch.train", "parallel",
                 "parallel.ctx", "parallel.sharding", "launch.mesh",
-                "launch.specs"):
+                "launch.specs", "launch.hlo_analysis", "launch.dryrun"):
         assert f"repro_torch.{mod}" in names
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def _load(path: Path) -> str:
+    return ("import importlib.util; "
+            "spec = importlib.util.spec_from_file_location("
+            f"{path.stem!r}, {str(path)!r}); "
+            "mod = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(mod)")
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "examples"])
 def test_imports_pull_in_neither_jax_nor_reference(target):
     if target == "package":
         imports = "; ".join(f"import {m}" for m in _port_modules())
+    elif target == "chip_smoke":
+        imports = _load(ROOT / "chip_smoke.py")
     else:
-        imports = ("import importlib.util; "
-                   "spec = importlib.util.spec_from_file_location("
-                   f"'chip_smoke', {str(ROOT / 'chip_smoke.py')!r}); "
-                   "mod = importlib.util.module_from_spec(spec); "
-                   "spec.loader.exec_module(mod)")
+        examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+        assert len(examples) == 7
+        imports = "; ".join(_load(p) for p in examples)
     code = (f"import sys; sys.path.insert(0, {str(SRC)!r}); {imports}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "

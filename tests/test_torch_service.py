@@ -718,6 +718,28 @@ def test_warm_pass_samples_not_credited_with_rectangle(traces):
     assert samples[1][0] == 0   # warm burst computed (and records) ~none
 
 
+def test_a_pass_is_timed_by_its_threads_cpu_not_the_wall_clock(traces):
+    """The port records a pass's thread CPU time: time the pass spends
+    waiting (here a sleep; under a burst, the interpreter lock) is not
+    priced as engine work."""
+    import time
+    service = _split_service(split_planner=False)
+    sweep = service.planner.sweep
+
+    def waiting_sweep(*args, **kwargs):
+        time.sleep(0.5)
+        return sweep(*args, **kwargs)
+
+    service.planner.sweep = waiting_sweep
+    t0 = time.perf_counter()
+    service.sweep([traces[0]], dests=FLEET_A)
+    wall = time.perf_counter() - t0
+    with service._cond:
+        (sample,) = service._pass_samples
+    assert wall >= 0.5
+    assert sample[2] < 0.25
+
+
 # ===========================================================================
 # admission and the adaptive window (tests/test_admission.py)
 # ===========================================================================

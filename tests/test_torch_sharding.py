@@ -108,6 +108,22 @@ def test_prefill_and_decode_on_the_mesh(runs):
         assert r["k_gap"] < 1e-4, (arch, r)
 
 
+@pytest.mark.parametrize("split, placements", [
+    ("model", ["Shard(1)", "Shard(2)"]),
+    ("whole_mesh", ["Shard(2)", "Shard(2)"]),
+    ("data", ["Shard(2)", "Shard(3)"])])
+def test_decode_with_the_sequence_split(runs, split, placements):
+    """Prefill and 4 decode ticks with the KV cache's sequence split over
+    the mesh (2 KV heads cannot split over ``model=4``; one slot cannot
+    split over 'data'): logits and both caches as the plain path's, at
+    the prefill/decode tolerance above."""
+    got = _case(runs, "decode_seq")[split]
+    assert got["k_placements"] == placements, got
+    assert got["logit_gap"] < 1e-4, got
+    assert got["k_gap"] < 1e-4, got
+    assert got["v_gap"] < 1e-4, got
+
+
 def test_constrain_outside_and_inside_a_mesh(runs):
     got = _case(runs, "constrain")
     assert got["outside_is_identity"]
