@@ -270,16 +270,21 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     meshes, read from the traced per-rank graph: ``DRYRUN_CELLS``, each
     ``python -m repro_torch.launch.dryrun --device cuda`` as a process
     of its own on a fake process group of 256 or 512 ranks (Qwen3-0.6B
-    and Mamba2-130M at ``train_4k``, Qwen3-0.6B at ``decode_32k``, whose
-    KV cache splits its sequence over ``model``, Mamba2-130M at
-    ``long_500k``, and a ``--multi-pod`` cell), and phase 18 (c)'s step
-    (Qwen3-0.6B, 2 x 4096) on a 1-rank fake mesh, all at once within
-    ``DRYRUN_TIMEOUT_S``.  Every cell ``ok``; each cell's compute, memory
-    and collective terms, bound, useful-FLOPs ratio and peak GiB a
-    device logged.  Gates on the 1-rank cell: its roofline step below
-    phase 18's measured ms a step, and its FLOPs within
-    ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s tracker summed
-    over that step.
+    and Mamba2-130M at ``train_4k``, Qwen3-0.6B at ``prefill_32k``, whose
+    16 query heads split one a ``model`` rank beside 8 KV heads that
+    cannot, and at ``decode_32k``, whose KV cache splits its sequence
+    over ``model``, Mamba2-130M at ``long_500k``, and a ``--multi-pod``
+    decode cell), and phase 18 (c)'s step (Qwen3-0.6B, 2 x 4096) on a
+    1-rank fake mesh, all at once within ``DRYRUN_TIMEOUT_S``.  Every
+    cell ``ok``; each cell's compute, memory and collective terms,
+    bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
+    prefill cell's useful-FLOPs ratio at least ``DRYRUN_PREFILL_USEFUL``
+    (each head run once); both decode cells' collective bytes a device
+    below ``DRYRUN_DECODE_COLLECTIVE_BYTES`` (the cache read from
+    per-shard softmax partials, not gathered); and on the 1-rank cell,
+    its roofline step below phase 18's measured ms a step, and its
+    FLOPs within ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s
+    tracker summed over that step.
 21. A line with the card's name and power limit, a ``{"kernels": [...]}``
     line with all five kernels (flash attention and the SSD scan also
     with their training launches and their launches on the mesh), and
@@ -3917,6 +3922,7 @@ def train_sharded(torch, device, kernel_mods, trained) -> dict:
 #: process), all at once: (arch, shape, multi-pod)
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("mamba2-130m", "train_4k", False),
+                ("qwen3-0.6b", "prefill_32k", False),
                 ("qwen3-0.6b", "decode_32k", False),
                 ("mamba2-130m", "long_500k", False),
                 ("qwen3-0.6b", "decode_32k", True))
@@ -3945,13 +3951,23 @@ out.mkdir(parents=True)
 """
 #: the 1-rank cell's FLOPs against phase 18 (c)'s tracked step's
 DRYRUN_TRACKER_REL = 0.10
+#: Qwen3-0.6B ``prefill_32k``'s useful-FLOPs ratio, at least: its 16
+#: query heads split one a ``model`` rank (0.02 while every ``model``
+#: rank ran all of them)
+DRYRUN_PREFILL_USEFUL = 0.10
+#: collective bytes a device of each Qwen3-0.6B ``decode_32k`` cell, below:
+#: its cache's sequence split over ``model`` is read from per-shard softmax
+#: partials (about 30 GB while every rank gathered the whole cache)
+DRYRUN_DECODE_COLLECTIVE_BYTES = 1e9
 
 
 def dry_run(trained) -> None:
-    """Phase 20: the dry run's cells at once, then the two gates of the
-    1-rank cell: its roofline step below phase 18's measured ms a step
-    (a bound above the measurement would mean the count is wrong) and
-    its FLOPs within DRYRUN_TRACKER_REL of the tracker's for that step."""
+    """Phase 20: the dry run's cells at once, then the gates of the
+    sharded attention (the Qwen3 prefill cell's useful-FLOPs ratio, the
+    decode cells' collective bytes) and the two of the 1-rank cell: its
+    roofline step below phase 18's measured ms a step (a bound above the
+    measurement would mean the count is wrong) and its FLOPs within
+    DRYRUN_TRACKER_REL of the tracker's for that step."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
@@ -4004,6 +4020,24 @@ def dry_run(trained) -> None:
                 f"({'fits' if cell['peak_bytes_per_device'] <= 80e9 else 'over'}"
                 f" 80 GB); traced in {cell['compile_s']:.1f} s, "
                 f"{cell['graph_nodes']} nodes")
+    prefill = cells["qwen3-0.6b_prefill_32k_1pod"]
+    log(f"  Qwen3-0.6B prefill_32k: useful FLOPs "
+        f"{prefill['useful_flops_ratio']:.4f} (at least "
+        f"{DRYRUN_PREFILL_USEFUL}), {prefill['flops_per_device']:.4e} FLOPs "
+        f"a device")
+    if not prefill["useful_flops_ratio"] >= DRYRUN_PREFILL_USEFUL:
+        fail(f"Qwen3-0.6B prefill_32k's useful-FLOPs ratio "
+             f"{prefill['useful_flops_ratio']:.4f} is below "
+             f"{DRYRUN_PREFILL_USEFUL}: the heads are not split over model")
+    for tag in ("qwen3-0.6b_decode_32k_1pod", "qwen3-0.6b_decode_32k_2pod"):
+        coll = cells[tag]["collective_bytes_per_device"]
+        log(f"  {tag}: {coll:.4e} collective bytes a device "
+            f"({cells[tag]['collective_detail']}), below "
+            f"{DRYRUN_DECODE_COLLECTIVE_BYTES:.0e}")
+        if not coll < DRYRUN_DECODE_COLLECTIVE_BYTES:
+            fail(f"{tag} reads {coll:.4e} collective bytes a device, not "
+                 f"below {DRYRUN_DECODE_COLLECTIVE_BYTES:.0e}: the cache "
+                 f"is gathered")
     one = cells["one_rank"]
     step_ms = trained["flash_attention"]["step_ms"]
     bound_ms = one["step_s"] * 1e3

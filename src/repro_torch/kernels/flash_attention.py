@@ -256,10 +256,20 @@ def register_sharding_rule() -> None:
         heads split alike, offered only where KV divides by the whole
         mesh's size (so by every product of mesh dims that could split
         the heads): query head h of a shard then reads KV head h // rep
-        of the same shard, as it reads ``h // (H / KV)`` whole.  A
-        head-sharded q beside replicated k and v (GQA: 4 heads and 2 KV
-        heads on a ``model=4`` mesh) matches no strategy and is gathered,
-        since every shard but the first would read the wrong KV heads;
+        of the same shard, as it reads ``h // (H / KV)`` whole.  The
+        test must stay that strict: a strategy is written for one mesh
+        dim, DTensor expands it to every combination of mesh dims and
+        keeps a combination that splits the KV heads unevenly (12 over
+        8 ranks), whose shards would read the wrong KV heads; a looser
+        test (every product of mesh dims up to KV dividing it) ran torch
+        2.11's data-parallel step into a local shape that did not match
+        its shard.
+        A head-sharded q beside replicated k and v (GQA: 4 heads and 2
+        KV heads on a ``model=4`` mesh) matches no strategy and is
+        gathered here; the model splits such heads itself, per shard,
+        with a slice of the KV heads for each rank
+        (``models.transformer._flash_attend``), which no strategy of
+        one mesh dim can express;
       * replicated.
 
     A dim of size 1 is never split (DTensor's views refuse to squeeze a

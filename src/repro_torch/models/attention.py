@@ -6,13 +6,17 @@ the Hopper kernel (:mod:`repro_torch.kernels.flash_attention`), which on
 CPU tensors computes its plain version.  ``dense_attention`` (the
 reference's score-matrix attention) and ``decode_attention`` (one token
 against a KV cache, per-slot positions) are plain PyTorch, as they are
-plain jnp in the reference.  ``chunked_attention`` is the reference's
+plain jnp in the reference; ``decode_attention_split`` is the same read
+on one range of a cache whose sequence is split over ranks, combined
+from per-range softmax partials.  ``chunked_attention`` is the reference's
 online-softmax jnp attention (its ``flash_attention``), the function the
 reference trains through: the kernel's backward is its vector-Jacobian
 product.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +132,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2)
 
 
+def _decode_logits(q: torch.Tensor, k_cache: torch.Tensor,
+                   index: torch.Tensor, window: int,
+                   first: int = 0) -> torch.Tensor:
+    """The scaled logits (B, KV, rep, S) of one query token against cache
+    positions ``[first, first + S)``, NEG_INF where a slot may not read
+    the position (past its ``index``, or outside the window)."""
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kv
+    scale = hd ** -0.5
+    qr = q.reshape(b, kv, rep, hd).to(torch.float32)
+    logits = torch.einsum("bkrd,bskd->bkrs", qr,
+                          k_cache.to(torch.float32)) * scale
+    kpos = torch.arange(first, first + s, device=q.device)[None, :]
+    idx = index[:, None]
+    ok = kpos <= idx
+    if window > 0:
+        ok = ok & ((idx - kpos) < window)
+    return logits.masked_fill(~ok[:, None, None, :], NEG_INF)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, index: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
@@ -136,18 +161,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, hd); caches: (B, S, KV, hd); index: (B,) per-slot
     positions (continuous batching: every slot has its own length)."""
     b, _, h, hd = q.shape
-    s, kv = k_cache.shape[1], k_cache.shape[2]
-    rep = h // kv
-    scale = hd ** -0.5
-    qr = q.reshape(b, kv, rep, hd).to(torch.float32)
-    logits = torch.einsum("bkrd,bskd->bkrs", qr,
-                          k_cache.to(torch.float32)) * scale
-    kpos = torch.arange(s, device=q.device)[None, :]
-    idx = index[:, None]
-    ok = kpos <= idx
-    if window > 0:
-        ok = ok & ((idx - kpos) < window)
-    logits = logits.masked_fill(~ok[:, None, None, :], NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(_decode_logits(q, k_cache, index, window), dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(torch.float32))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, index: torch.Tensor,
+                           window: int, first: int,
+                           all_reduce: Callable[[torch.Tensor, str],
+                                                torch.Tensor]
+                           ) -> torch.Tensor:
+    """:func:`decode_attention` where the caches hold only positions
+    ``[first, first + S_l)`` of the sequence and the other ranges lie on
+    other ranks: the masked logits of this range, their max over every
+    range (``all_reduce(m, "max")``), then the exponentials' sums and
+    their products with v, summed over every range in one
+    ``all_reduce(x, "sum")``, and their quotient.  A range that holds no
+    live key of a slot adds exactly zero to it (its masked logits lie
+    NEG_INF below the max, whose exponential underflows to 0); a slot
+    with no live key anywhere reads the uniform average, as the softmax
+    of :func:`decode_attention` does."""
+    b, _, h, hd = q.shape
+    logits = _decode_logits(q, k_cache, index, window, first)
+    m = all_reduce(logits.amax(-1), "max")
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(torch.float32))
+    both = all_reduce(torch.cat([acc, p.sum(-1)[..., None]], -1), "sum")
+    out = both[..., :hd] / both[..., hd:]
     return out.reshape(b, 1, h, hd).to(q.dtype)

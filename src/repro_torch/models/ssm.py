@@ -246,6 +246,8 @@ def mamba_decode_step(params, x: torch.Tensor, state: Dict,
         * xs.to(torch.float32)[..., None, :]
     y = _read_state(ch, s)
     y = y + params["d_skip"][None, :, None] * xs.to(torch.float32)
-    y = y.reshape(bs, 1, di).to(x.dtype)
+    # P whole before the flatten: some torch releases' DTensor cannot
+    # flatten heads beside a split head dim
+    y = ctx.whole(y, 2).reshape(bs, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     return y @ params["out_proj"], {"conv": conv_state, "ssm": s}

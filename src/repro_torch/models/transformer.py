@@ -28,7 +28,11 @@ attention by length; all three compute the same function) unless
 the Mamba2 scan runs kernel 2; both kernels are dispatcher ops with a
 gradient, so ``loss_fn`` trains through them.  MoE layers add their
 load-balancing loss to ``forward``'s aux loss, which ``loss_fn`` adds to
-the cross-entropy.
+the cross-entropy.  On a mesh, attention runs on each rank's shard as
+XLA partitions the reference's: prefill and training split the query
+heads over ``model`` (:func:`_flash_attend`), and decode reads a cache
+whose sequence is split from per-shard softmax partials
+(:func:`_decode_attend`).
 
 With ``cfg.remat``, ``forward`` checkpoints each layer body (hybrid: each
 group, and each Mamba2 layer inside it) as the reference wraps its scan
@@ -69,6 +73,18 @@ def _shard_act(x: torch.Tensor) -> torch.Tensor:
     profile, sequence-) sharded through the layers (a no-op off a
     mesh)."""
     return ctx.constrain(x, "batch", "seq", None)
+
+
+def _shard_decode(x: torch.Tensor) -> torch.Tensor:
+    """Decode's (B, 1, D) residual stream held as :func:`_shard_act` holds
+    it where the mesh splits the batch; left as it is where it does not
+    (one slot, ``long_500k``: every rank holds the row anyway, and the
+    hint would only replicate the layer's products)."""
+    mesh = ctx.current_mesh()
+    if mesh is None or ctx.resolve(tuple(x.shape), ("batch",), mesh)[0] \
+            is None:
+        return x
+    return _shard_act(x)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -254,14 +270,82 @@ def _mlp(blk, x: torch.Tensor, cfg: ModelConfig):
     return swiglu(hn, blk["w_gate"], blk["w_up"], blk["w_down"]), None
 
 
+def _head_split(q: torch.Tensor, kv: int) -> Optional[int]:
+    """The mesh dim ``model`` (the reference's tensor-parallel axis, over
+    which ``wq`` splits its heads) where a DTensor q (B, S, H, hd) may
+    split its heads over it: it has more than one rank, does not split
+    q's batch, divides H, and each rank's ``Hl = H / model`` query heads
+    read whole KV heads of their own, because ``Hl`` divides ``rep = H /
+    KV`` (the rank's heads share one KV head) or ``rep`` divides ``Hl``
+    (they read ``Hl / rep`` of them).  None off a mesh and where that
+    fails (4 heads on ``model=16``; ``Hl`` 3 beside ``rep`` 2)."""
+    if not ctx.is_dtensor(q):
+        return None
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    names = ctx.axis_names(mesh)
+    if "model" not in names:
+        return None
+    dim = names.index("model")
+    ways, h = mesh.size(dim), q.shape[2]
+    if ways == 1 or q.placements[dim] == Shard(0) or h % ways or h % kv:
+        return None
+    hl, rep = h // ways, h // kv
+    return dim if rep % hl == 0 or hl % rep == 0 else None
+
+
+def _flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """Causal kernel-1 attention, (B, S, H, hd) out.  Where q's heads can
+    split over ``model`` (:func:`_head_split`), the op runs on each
+    rank's shard, as XLA partitions the reference's attention: the
+    rank's query heads ``[h0, h0 + Hl)`` of its batch rows, against KV
+    heads ``[h0 // rep, (h0 + Hl - 1) // rep]`` of those rows, which are
+    its own shard of k and v where their heads split alike (``model``
+    divides KV), else a slice of them gathered over ``model``.  The
+    output stays split over the heads into ``wo``.  The backward is the
+    op's VJP on the plain shards; the gradients of gathered k and v are
+    partial sums over the ranks that read the same KV head.  Elsewhere
+    the op runs on the DTensors under its own sharding rule."""
+    dim = _head_split(q, k.shape[2])
+    if dim is None:
+        return attn_mod.flash_attention(q, k, v, causal=True, window=window)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    h, kv, ways = q.shape[2], k.shape[2], mesh.size(dim)
+    rep, hl = h // kv, h // ways
+    own = kv % ways == 0            # each rank's KV heads are its k shard
+    rows = [p == Shard(0) and q.shape[0] > 1 for p in q.placements]
+    p_q = tuple(Shard(2) if i == dim else Shard(0) if rows[i]
+                else Replicate() for i in range(mesh.ndim))
+    p_kv = tuple(Replicate() if i == dim and not own else p
+                 for i, p in enumerate(p_q))
+    g_kv = tuple(Partial() if i == dim and not own else p
+                 for i, p in enumerate(p_q))
+    h0 = mesh.get_local_rank(dim) * hl
+    lo, hi = h0 // rep, (h0 + hl - 1) // rep + 1
+
+    def attend(q_, k_, v_):
+        if not own:
+            k_, v_ = k_[:, :, lo:hi], v_[:, :, lo:hi]
+        return attn_mod.flash_attention(q_, k_, v_, causal=True,
+                                        window=window)
+    return local_map(attend, out_placements=(p_q,),
+                     in_placements=(p_q, p_kv, p_kv),
+                     in_grad_placements=(p_q, g_kv, g_kv),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
                     positions: torch.Tensor):
     """(x after the block, its aux loss or None, (k, v))."""
     b, s, _ = x.shape
     q, k, v = _qkv(blk, x, cfg, positions)
-    attend = (attn_mod.flash_attention if cfg.use_flash
-              else attn_mod.dense_attention)
-    o = attend(q, k, v, causal=True, window=window)
+    if cfg.use_flash:
+        o = _flash_attend(q, k, v, window)
+    else:
+        o = attn_mod.dense_attention(q, k, v, causal=True, window=window)
     x = _shard_act(x + o.reshape(b, s, -1) @ blk["wo"])
     m, aux = _mlp(blk, x, cfg)
     return _shard_act(x + m), aux, (k, v)
@@ -579,27 +663,54 @@ def _decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     """``attention.decode_attention`` on the caches.  On a mesh it runs on
     each rank's shard: the slots and KV heads as the cache splits them
     (q's heads split alike, since query head h reads KV head h // rep),
-    the sequence whole (where the cache splits it, it is gathered)."""
+    whole over the mesh dims that split the cache's sequence.  Where
+    dims of more than one rank split it, each rank reads only its own
+    range of it, ``[first, first + S_l)``, with
+    ``attention.decode_attention_split``: its max logit all-reduced
+    (max) and its exponentials' sums and products with v all-reduced
+    (sum) over exactly those dims (one all-reduce a dim, which every
+    rank runs in the same order), as XLA combines softmax partials over
+    a split sequence; no rank gathers the cache.  Where nothing splits
+    it, the read is the plain one on the rank's shard."""
     if not ctx.is_dtensor(k_cache):
         return attn_mod.decode_attention(q, k_cache, v_cache, index, window)
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    _, _, keep = _cache_shards(k_cache)
+    mesh = k_cache.device_mesh
+    _, first, keep = _cache_shards(k_cache)
     p_q = tuple(keep)        # q (B, 1, H, hd): dims 0 and 2 as the cache's
     p_index = tuple(p if p == Shard(0) else Replicate() for p in keep)
-    return local_map(
-        lambda q_, k_, v_, i_: attn_mod.decode_attention(q_, k_, v_, i_,
-                                                         window),
-        out_placements=(p_q,), in_placements=(p_q, p_q, p_q, p_index),
-        device_mesh=k_cache.device_mesh,
-        redistribute_inputs=True)(q, k_cache, v_cache, index)
+    p_cache = tuple(k_cache.placements)
+    seq = tuple(i for i, p in enumerate(p_cache)
+                if p == Shard(1) and mesh.size(i) > 1)
+
+    def all_reduce(t, op):
+        import torch.distributed._functional_collectives as funcol
+        for dim in seq:
+            t = funcol.all_reduce(t, op, (mesh, dim))
+        return t
+
+    def read(q_, k_, v_, i_):
+        if not seq:
+            return attn_mod.decode_attention(q_, k_, v_, i_, window)
+        return attn_mod.decode_attention_split(q_, k_, v_, i_, window,
+                                               first, all_reduce)
+    return local_map(read, out_placements=(p_q,),
+                     in_placements=(p_q, p_cache, p_cache, p_index),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, index)
 
 
 def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
                             window: int, index: torch.Tensor,
                             k_cache: torch.Tensor, v_cache: torch.Tensor):
     """x: (B, 1, D); index: (B,) per-slot positions.  Writes this token's
-    k and v into the caches in place."""
+    k and v into the caches in place.  On a mesh the residual stream is
+    held batch-split and whole over ``model`` after the attention and
+    after the MLP (:func:`_shard_decode`), as prefill holds it: left to
+    DTensor, the attention's output projection leaves it a partial sum
+    over ``model``, and each product of the MLP then gathered its whole
+    weight, or ran on the data group's whole batch, on every rank."""
     b = x.shape[0]
     q, k, v = _qkv(blk, x, cfg, index[:, None])
     # each slot writes at its own position, clamped into the cache as the
@@ -608,20 +719,21 @@ def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
     _write_slots(k_cache, at, k[:, 0])
     _write_slots(v_cache, at, v[:, 0])
     o = _decode_attend(q, k_cache, v_cache, index, window)
-    x = x + o.reshape(b, 1, -1) @ blk["wo"]
+    x = _shard_decode(x + o.reshape(b, 1, -1) @ blk["wo"])
     m, _ = _mlp(blk, x, cfg)
-    return x + m
+    return _shard_decode(x + m)
 
 
 def _decode_mamba(layer, x: torch.Tensor, cfg: ModelConfig, sts: Dict,
                   i: int) -> torch.Tensor:
-    """One token through Mamba2 layer ``i``; its state updated in place."""
+    """One token through Mamba2 layer ``i``; its state updated in place
+    (the residual held as :func:`_decode_attention_block` holds it)."""
     hn = rms_norm(x, layer["ln"], cfg.norm_eps)
     out, st = ssm_mod.mamba_decode_step(
         layer, hn, {k: v[i] for k, v in sts.items()}, cfg)
     for key, val in st.items():
         sts[key][i] = val
-    return x + out
+    return _shard_decode(x + out)
 
 
 def decode_step(params: LMParams, cfg: ModelConfig, token: torch.Tensor,

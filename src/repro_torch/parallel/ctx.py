@@ -108,6 +108,16 @@ def _divides(x, dim: int, n: int) -> bool:
     return n % ways == 0
 
 
+def whole(x, dim: int):
+    """``x`` with ``dim`` gathered on every mesh dim that splits it; ``x``
+    itself off a mesh."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in x.placements])
+
+
 def whole_heads(x, dim: int, n: int):
     """``x`` with ``dim`` gathered where, on a mesh, its split does not
     divide ``n``, the heads a reshape cuts it into (2 KV heads beside
@@ -115,9 +125,7 @@ def whole_heads(x, dim: int, n: int):
     into heads unevenly."""
     if not is_dtensor(x) or _divides(x, dim, n):
         return x
-    from torch.distributed.tensor import Replicate, Shard
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p == Shard(dim) else p for p in x.placements])
+    return whole(x, dim)
 
 
 def heads_in_grad(x, dim: int, n: int):

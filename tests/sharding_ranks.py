@@ -125,17 +125,23 @@ def case_ep(mesh8, mesh24):
     return out
 
 
-def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16):
+def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16,
+                index=None):
     """A prefill of ``prompt`` tokens and ``ticks`` decode ticks of ``b``
     slots with the parameters on ``mesh`` (``2d``) and the cache placed by
     ``cache_specs``, against plain tensors: the largest logit and cache
-    gaps, and the placements the KV cache took."""
+    gaps, and the placements the KV cache took.  ``index`` (one position
+    a slot) sets the slots' lengths after the prefill, as a continuous
+    batch holds slots of different lengths."""
     p = tfm.init_params(cfg, SEED, device="cpu")
     batch = _batch(cfg, b, prompt)["tokens"]
     steps = _batch(cfg, b, ticks)["tokens"]
 
     def serve(params, place):
         logits, st = tfm.prefill(params, cfg, place(batch), max_seq)
+        if index is not None:
+            st["index"] = _like(torch.tensor(index, dtype=torch.int32),
+                                st["index"])
         outs = [logits]
         for i in range(steps.shape[1]):
             logits, st = tfm.decode_step(params, cfg,
@@ -160,6 +166,90 @@ def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16):
         "k_placements": [_name(x) for x in st["k"].placements]}
 
 
+def _like(t, ref):
+    """``t`` placed as the DTensor ``ref`` is (``t`` itself off a mesh)."""
+    if not ctx.is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, ref.device_mesh, ref.placements)
+
+
+class _OpCalls:
+    """Records each flash-op call the model makes, as (on DTensors, query
+    heads, KV heads): a call on plain tensors is one on a rank's shard."""
+
+    def __init__(self):
+        self.calls = []
+        self._op = tfm.attn_mod.flash_attention
+
+    def __enter__(self):
+        def op(q, k, v, **kwargs):
+            self.calls.append((ctx.is_dtensor(q), q.shape[2], k.shape[2]))
+            return self._op(q, k, v, **kwargs)
+        tfm.attn_mod.flash_attention = op
+        return self
+
+    def __exit__(self, *exc):
+        tfm.attn_mod.flash_attention = self._op
+
+
+def _prefill_heads(cfg, mesh, b=2, prompt=16):
+    """A prefill of ``b`` x ``prompt`` tokens with the parameters on
+    ``mesh`` against plain tensors: the largest logit gap, and the flash
+    op's calls on the mesh."""
+    p = tfm.init_params(cfg, SEED, device="cpu")
+    tokens = _batch(cfg, b, prompt)["tokens"]
+    with torch.no_grad():
+        want, _ = tfm.prefill(p, cfg, tokens, prompt)
+        with ctx.use_mesh(mesh):
+            ps = sharding.distribute(p, _shardings(p, mesh, "2d", cfg))
+            ts = sharding.distribute({"t": tokens}, sharding.tree_shardings(
+                sharding.batch_specs({"t": tokens}, mesh), mesh))["t"]
+            with _OpCalls() as rec:
+                got, _ = tfm.prefill(ps, cfg, ts, prompt)
+    return {"logit_gap": float((want - _full(got)).abs().max()),
+            "calls": rec.calls}
+
+
+def case_prefill_heads(mesh8, mesh24):
+    """Smoke qwen3 (4 heads, 2 KV heads) prefill with its query heads
+    split over ``model``: 2 a rank on the 4x2 mesh, reading their own KV
+    head's shard, and 1 a rank on the 2x4 mesh, reading a slice of the
+    gathered KV heads (2 ranks a KV head)."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    return {"4x2": _prefill_heads(cfg, mesh8, b=8),
+            "2x4": _prefill_heads(cfg, mesh24)}
+
+
+def case_grads_heads(mesh24):
+    """The gradients of every layer's ``wq``, ``wk`` and ``wv`` from smoke
+    qwen3's loss on the 2x4 mesh (query heads split one a ``model`` rank,
+    k and v gathered, so each KV head's gradient sums over the two ranks
+    that read it) against plain tensors."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    batch = _batch(cfg)
+    params = init_state(cfg, SEED, adamw(), device="cpu").params
+    names = [n for n, _ in params.named_parameters()
+             if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")]
+
+    def grads(ps, b):
+        loss, _ = tfm.loss_fn(ps, cfg, b)
+        named = dict(ps.named_parameters())
+        return torch.autograd.grad(loss, [named[n] for n in names])
+    want = grads(params, batch)
+    with ctx.use_mesh(mesh24):
+        ps = sharding.distribute(params, _shardings(params, mesh24, "2d",
+                                                    cfg))
+        bs = sharding.distribute(batch, sharding.tree_shardings(
+            sharding.batch_specs(batch, mesh24), mesh24))
+        with _OpCalls() as rec:
+            got = grads(ps, bs)
+    return {"grad_gap": {n: float((a - _full(g)).abs().max())
+                         for n, a, g in zip(names, want, got)},
+            "grad_scale": max(float(a.abs().max()) for a in want),
+            "calls": rec.calls}
+
+
 def case_decode(mesh8):
     """A prefill and 3 decode ticks of qwen3 and zamba2 (the hybrid's
     per-layer Mamba2 states) on the mesh against plain tensors."""
@@ -168,16 +258,27 @@ def case_decode(mesh8):
 
 
 def case_decode_seq(mesh8, mesh24):
-    """Decode with the KV cache's sequence split over the mesh: smoke
-    qwen3's 2 KV heads on ``model=4`` (``cache_specs`` splits the
-    sequence over 'model'); one slot on the 2x4 mesh (the ``long_500k``
-    rule: the sequence over the whole mesh, 2 positions a rank) and on
-    the 4x2 mesh (over 'data', the KV heads over 'model').  A 12-token
-    prefill and 4 ticks, which write into other ranks' ranges."""
+    """Decode with the KV cache's sequence split over the mesh, read from
+    per-shard softmax partials: smoke qwen3's 2 KV heads on ``model=4``
+    (``cache_specs`` splits the sequence over 'model'); one slot on the
+    2x4 mesh (the ``long_500k`` rule: the sequence over the whole mesh,
+    2 positions a rank) and on the 4x2 mesh (over 'data', the KV heads
+    over 'model').  A 12-token prefill and 4 ticks, which write into
+    other ranks' ranges.  On the 2x4 mesh also slots of lengths 2, 11, 5
+    and 8 (``ragged``), so that some ranks hold no live key of a slot,
+    and smoke gemma3 (one KV head, a window of 8 on every other layer)
+    with equal and with those lengths, where the window empties ranges
+    too."""
     cfg = smoke_config(get_config("qwen3-0.6b"))
+    gemma = smoke_config(get_config("gemma3-1b"))
+    lengths = [2, 11, 5, 8]
     return {"model": _serve_gaps(cfg, mesh24, ticks=4),
             "whole_mesh": _serve_gaps(cfg, mesh24, b=1, ticks=4),
-            "data": _serve_gaps(cfg, mesh8, b=1, ticks=4)}
+            "data": _serve_gaps(cfg, mesh8, b=1, ticks=4),
+            "ragged": _serve_gaps(cfg, mesh24, ticks=4, index=lengths),
+            "window": _serve_gaps(gemma, mesh24, ticks=4),
+            "ragged_window": _serve_gaps(gemma, mesh24, ticks=4,
+                                         index=lengths)}
 
 
 def case_constrain(mesh8):
@@ -263,6 +364,9 @@ def main(cases, rank, world, out_dir):
                    ("ep", lambda: case_ep(mesh8, mesh24)),
                    ("decode", lambda: case_decode(mesh8)),
                    ("decode_seq", lambda: case_decode_seq(mesh8, mesh24)),
+                   ("prefill_heads",
+                    lambda: case_prefill_heads(mesh8, mesh24)),
+                   ("grads_heads", lambda: case_grads_heads(mesh24)),
                    ("constrain", lambda: case_constrain(mesh8)),
                    ("production_mesh", case_production_mesh),
                    ("save", lambda: case_save(mesh8, out_dir))]

@@ -12,6 +12,8 @@ sums in another order (the reference's own kernel-vs-oracle test uses
 2e-5).  The CUDA kernel itself is held against the plain version on the
 card (``test_torch_kernels_cuda.py``)."""
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,6 +109,64 @@ def test_decode_attention_per_slot_index_matches_reference(window):
                                      jnp.asarray(vc), jnp.asarray(index),
                                      window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+class _Ranks:
+    """``n`` ranks as threads, with an all-reduce over them (in rank
+    order, so every rank gets the same sum)."""
+
+    def __init__(self, n):
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.parts = [None] * n
+
+    def all_reduce(self, rank, t, op):
+        self.parts[rank] = t
+        self.barrier.wait()
+        out = self.parts[0]
+        for part in self.parts[1:]:
+            out = torch.maximum(out, part) if op == "max" else out + part
+        self.barrier.wait()
+        return out
+
+    def run(self, fn):
+        out = [None] * self.n
+        threads = [threading.Thread(target=lambda r=r: out.__setitem__(
+            r, fn(r))) for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        return out
+
+
+@pytest.mark.parametrize("ranges", [2, 3, 4])
+@pytest.mark.parametrize("window", [0, 4])
+def test_decode_attention_split_matches_reference(window, ranges):
+    """The read of a cache whose sequence is split into ``ranges`` equal
+    ranges, one a rank, combined from per-range softmax partials, against
+    the reference's read of the whole cache: slots at positions 0, 9 and
+    23 (most ranges hold no live key of the first, the window empties
+    more) and one past the cache at 40 (with the window, no live key
+    anywhere: the uniform average).  Every rank gets the same output,
+    without NaN."""
+    rng = np.random.default_rng(7 + window)
+    q = _rand(rng, (4, 1, 8, 16))
+    kc = _rand(rng, (4, 24, 2, 16))
+    vc = _rand(rng, (4, 24, 2, 16))
+    index = np.array([0, 9, 23, 40], np.int32)
+    want = ref_attn.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                     jnp.asarray(vc), jnp.asarray(index),
+                                     window)
+    n = 24 // ranges
+    group = _Ranks(ranges)
+    outs = group.run(lambda r: attn.decode_attention_split(
+        torch.from_numpy(q), torch.from_numpy(kc[:, r * n:(r + 1) * n]),
+        torch.from_numpy(vc[:, r * n:(r + 1) * n]), torch.from_numpy(index),
+        window, r * n, lambda t, op: group.all_reduce(r, t, op)))
+    for got in outs:
+        assert not torch.isnan(got).any()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 def test_flash_wrapper_rejects_bad_shapes():

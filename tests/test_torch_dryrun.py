@@ -2,41 +2,52 @@
 reference's (``repro.launch.dryrun``) on smoke configs.
 
 Both packages run qwen3-0.6b, granite-moe-3b-a800m and zamba2-2.7b smoke
-configs in train, prefill and decode on a (4, 2) mesh of 8: each
-package's ``make_production_mesh``, ``get_config`` and ``SHAPES`` are
+configs in train, prefill and decode on a (4, 2) mesh of 8, and smoke
+qwen3 in prefill and decode on a (2, 4) mesh, where its 4 query heads
+split one a ``model`` rank beside 2 KV heads that cannot, and its decode
+cache's sequence is split over ``model``: each package's
+``make_production_mesh``, ``get_config`` and ``SHAPES`` are
 monkeypatched in its ``dryrun`` module, inside a subprocess of its own
 (the reference sets 512 host devices when imported; the port starts a
 fake process group, one default group a process).  The shapes keep the
-cells' names and modes at CPU sizes: train 16 x 256, prefill 8 x 512,
-decode 16 slots over a 512-deep cache.  The reference's attention
-chunks are set to what the port runs (with the smoke config's 8, XLA
-compiles a 32-chunk loop for about 35 s a cell on a CPU): 1024 in
-training, the chunks of the flash op's VJP, and 64 in prefill and
-decode, where the kernel skips masked tiles of 64 keys.  The reference
-runs one subprocess a cell, beside the port's, all at once.
+cells' names and modes at CPU sizes: train 16 x 256, prefill 8 x 512 (2
+x 512 on the (2, 4) mesh, one row a data rank), decode 16 slots over a
+512-deep cache.  The reference's attention chunks are set to what the
+port runs (with the smoke config's 8, XLA compiles a 32-chunk loop for
+about 35 s a cell on a CPU): 1024 in training, the chunks of the flash
+op's VJP, and 64 in prefill and decode, where the kernel skips masked
+tiles of 64 keys.  The reference runs one subprocess a cell, beside the
+port's, all at once, and also reports the FLOPs of the dots of its
+compiled program (each loop body times its trips).
 
 Held, with each tolerance's reason:
 
   * ``chips``, ``mesh`` and ``model_flops`` equal (rel 1e-12: the same
     formula on the same config);
   * ``flops_per_device`` within 10% of the reference's HLO count
-    (:data:`FLOPS_REL`) where both programs do the same work: the train
-    and the qwen3 and granite prefill cells and qwen3's decode.  The
-    other three read within :data:`FLOPS_BAND` (a count of the global
-    op, or of one rank's op on another rank's share, would read 8x):
-    zamba2's prefill counts the SSD kernel as ``core.costmodel`` does,
-    the causal half of each chunk's score block, where the reference's
-    jnp scan computes whole blocks; granite's decode reads 0.71 because
-    the reference counts its KV cache moves as work (the fusions of its
-    ``dynamic-update-slice``, ``dynamic-slice``, ``scatter`` and
-    transposing copies of the cache), where the
-    port counts each cache write once, as its ``index_put_``'s output
-    (the cache shard), and its views nothing; zamba2's decode reads 1.35 because DTensor plans the
-    shared block's SwiGLU and the LM head on the data group's whole
-    batch and vocab (it gathers the activations, which are smaller at
-    decode than the FSDP-split weights XLA gathers), so the rank's
-    products count more than the reference's.  Each ratio is printed
-    (``-s``);
+    (:data:`FLOPS_REL`) where both programs count the same work: the
+    train cells, the qwen3 and granite prefill cells (and qwen3's on the
+    (2, 4) mesh, where each rank runs its own query head: 2.23x before
+    the split) and zamba2's decode.  The other three read within
+    :data:`FLOPS_BAND` (a count of the global op, or of one rank's op on
+    another rank's share, would read 8x): zamba2's prefill counts the
+    SSD kernel as ``core.costmodel`` does, the causal half of each
+    chunk's score block, where the reference's jnp scan computes whole
+    blocks; qwen3's and granite's decode read 0.67 and 0.65 because the
+    reference counts its KV cache moves as work (the fusions of its
+    scan's ``dynamic-update-slice`` and ``dynamic-slice`` of the stacked
+    cache, its ``scatter`` and transposing copies of it), where the port
+    counts each cache write once, as its ``index_put_``'s output (the
+    cache shard), and its views nothing.  So every decode cell is also
+    held on its products: the port's matmul FLOPs (``flop_registry``'s
+    count) within FLOPS_REL of the reference's dots, each slot's layers
+    run once on the rank's own slots (equal to the FLOP in each cell
+    here).
+    Each ratio is printed (``-s``);
+  * on the (2, 4) mesh, decode's collective bytes a device at most
+    :data:`SPLIT_COLLECTIVES` times the reference's: the sequence-split
+    cache is read from per-shard softmax partials, not gathered (20x
+    before), and FLOPs within FLOPS_BAND;
   * on the ``dp`` train cell, all-reduce plus reduce-scatter bytes a rank
     of at least the model's parameter bytes: a data-parallel step must
     reduce every gradient;
@@ -72,30 +83,73 @@ FLOPS_BAND = (0.5, 2.0)
 #: names each cause)
 NOT_PRODUCTS = {("zamba2-2.7b", "prefill_32k"),
                 ("granite-moe-3b-a800m", "decode_32k"),
-                ("zamba2-2.7b", "decode_32k")}
+                ("qwen3-0.6b", "decode_32k")}
 TRACKER_REL = 0.10
 
 _SHAPES_CODE = """
 SHAPES = {"train_4k": ShapeConfig("train_4k", 256, 16, "train"),
           "prefill_32k": ShapeConfig("prefill_32k", 512, 8, "prefill"),
           "decode_32k": ShapeConfig("decode_32k", 512, 16, "decode")}
+SPLIT_SHAPES = {"prefill_32k": ShapeConfig("prefill_32k", 512, 2, "prefill"),
+                "decode_32k": ShapeConfig("decode_32k", 512, 16, "decode")}
 """
+#: the (2, 4) mesh's cells: smoke qwen3's 4 heads split one a ``model``
+#: rank in prefill (2 x 512: one row a data rank), and its 2 KV heads,
+#: which do not divide ``model=4``, leave the decode cache's sequence
+#: split over ``model``
+SPLIT_MESH = (2, 4)
+SPLIT_CELLS = ("prefill_32k", "decode_32k")
+#: the split mesh's decode collective bytes a device over the
+#: reference's, at most
+SPLIT_COLLECTIVES = 2.0
 
 _REFERENCE = textwrap.dedent("""
-    import dataclasses, json, sys
-    from repro.launch import dryrun
+    import dataclasses, json, re, sys
+    from repro.launch import dryrun, hlo_analysis
     from repro.launch.mesh import make_mesh
     from repro.configs import get_config
     from repro.models.config import ShapeConfig, smoke_config
 """) + _SHAPES_CODE + textwrap.dedent("""
+    mesh = tuple(int(n) for n in sys.argv[3].split(","))
     dryrun.make_production_mesh = lambda multi_pod=False: make_mesh(
-        (4, 2), ("data", "model"))
+        mesh, ("data", "model"))
     chunk = 1024 if SHAPES[sys.argv[2]].mode == "train" else 64
     dryrun.get_config = lambda a: dataclasses.replace(
         smoke_config(get_config(a)), attn_chunk_q=chunk, attn_chunk_kv=chunk)
-    dryrun.SHAPES = SHAPES
-    print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2],
-                                     verbose=False)))
+    dryrun.SHAPES = SHAPES if mesh == (4, 2) else SPLIT_SHAPES
+    texts = []
+    analyze = hlo_analysis.analyze
+    dryrun.hlo_analysis.analyze = lambda compiled, chips: (
+        texts.append(compiled.as_text()) or analyze(compiled, chips))
+    cell = dryrun.run_cell(sys.argv[1], sys.argv[2], verbose=False)
+    mod = hlo_analysis.HloModule(texts[0])
+
+    def dots(name):
+        # the reference's own dot count, each loop body times its trips
+        total, lines, symtab = 0.0, mod.computations.get(name, []), {}
+        for line in lines:
+            m = hlo_analysis._INSTR_RE.match(line)
+            if m and hlo_analysis._shape_dims(m.group(2)):
+                symtab[m.group(1)] = hlo_analysis._shape_dims(m.group(2))[0][1]
+        for line in lines:
+            m = hlo_analysis._INSTR_RE.match(line)
+            if not m:
+                continue
+            op = m.group(3)
+            if op == "dot":
+                total += mod._dot_flops(hlo_analysis._shape_dims(m.group(2)),
+                                        line, symtab)
+            elif op == "while":
+                trips = re.search(r"known_trip_count[^\\d]*(\\d+)", line)
+                body = re.search(r"body=%?([\\w.\\-]+)", line).group(1)
+                total += dots(body) * (float(trips.group(1)) if trips else 1)
+            else:
+                for c in re.finditer(r"(?:to_apply|calls|called_computations)"
+                                     r"=%?\\{?%?([\\w.\\-]+)", line):
+                    total += dots(c.group(1))
+        return total
+    cell["dot_flops"] = dots(mod.entry)
+    print(json.dumps(cell))
 """)
 
 _PORT = textwrap.dedent("""
@@ -107,7 +161,7 @@ _PORT = textwrap.dedent("""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.config import ShapeConfig, smoke_config
 """) + _SHAPES_CODE + textwrap.dedent("""
-    out = {"cells": {}, "tracked": {}}
+    out = {"cells": {}, "tracked": {}, "split": {}}
     mesh = [(4, 2)]
     dryrun.make_production_mesh = lambda multi_pod=False, device=None: \\
         make_mesh(mesh[0], ("data", "model"), device=device)
@@ -123,6 +177,11 @@ _PORT = textwrap.dedent("""
                                              "decode")
     out["skipped"] = dryrun.run_cell("qwen3-0.6b", "long_500k",
                                      device="cpu")
+    mesh[0] = %(split_mesh)r
+    dryrun.SHAPES = SPLIT_SHAPES
+    for s in SPLIT_SHAPES:
+        out["split"][s] = dryrun.run_cell("qwen3-0.6b", s, verbose=False,
+                                          device="cpu")
     dist.destroy_process_group()
 
     # one rank: the dry run against the tracker on the same eager step
@@ -159,7 +218,7 @@ _PORT = textwrap.dedent("""
         out["refused"] = str(e)
     dist.destroy_process_group()
     print(json.dumps(out))
-""" % {"archs": ARCHS})
+""" % {"archs": ARCHS, "split_mesh": SPLIT_MESH})
 
 
 def _start(args, env):
@@ -181,9 +240,13 @@ def runs(tmp_path_factory):
     port's cells, and two production cells through the CLI."""
     out_dir = tmp_path_factory.mktemp("dryrun")
     env = {"OMP_NUM_THREADS": "1"}
-    refs = {(a, s): _start(["-c", _REFERENCE, a, s],
-                           dict(env, JAX_PLATFORMS="cpu"))
+    ref_env = dict(env, JAX_PLATFORMS="cpu")
+    refs = {(a, s): _start(["-c", _REFERENCE, a, s, "4,2"], ref_env)
             for a in ARCHS for s in SHAPES}
+    split = ",".join(str(n) for n in SPLIT_MESH)
+    refs.update({("split", s): _start(["-c", _REFERENCE, "qwen3-0.6b", s,
+                                       split], ref_env)
+                 for s in SPLIT_CELLS})
     port = _start(["-c", _PORT], env)
     cli = [_start(["-m", "repro_torch.launch.dryrun", "--device", "cpu",
                    "--arch", "mamba2-130m", "--shape", shape, "--out",
@@ -221,6 +284,51 @@ def test_cell_matches_the_reference(runs, arch, shape):
         assert FLOPS_BAND[0] < ratio < FLOPS_BAND[1], ratio
     else:
         assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+
+
+@pytest.mark.parametrize("shape", SPLIT_CELLS)
+def test_split_mesh_cell_matches_the_reference(runs, shape):
+    """Smoke qwen3 on the (2, 4) mesh, where its 4 query heads split over
+    ``model=4`` beside 2 KV heads that cannot: prefill runs each head
+    once (FLOPs within FLOPS_REL of the reference's); decode reads the
+    sequence-split cache from per-shard softmax partials (FLOPs within
+    FLOPS_BAND, collective bytes at most SPLIT_COLLECTIVES times the
+    reference's: no rank gathers the cache)."""
+    port, ref = runs["port"]["split"][shape], runs["ref"]["split", shape]
+    assert port["status"] == ref["status"] == "ok"
+    assert port["mesh"] == ref["mesh"] == {"data": 2, "model": 4}
+    assert port["profile"] == "2d"
+    assert port["model_flops"] == pytest.approx(ref["model_flops"],
+                                                rel=1e-12)
+    ratio = port["flops_per_device"] / ref["flops_per_device"]
+    coll = (port["collective_bytes_per_device"]
+            / ref["collective_bytes_per_device"])
+    print(f"(2, 4) {shape}: port/reference FLOPs a device {ratio:.3f}, "
+          f"collective bytes {coll:.3f}")
+    if shape == "prefill_32k":
+        assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+    else:
+        assert FLOPS_BAND[0] < ratio < FLOPS_BAND[1], ratio
+        assert coll <= SPLIT_COLLECTIVES, coll
+
+
+@pytest.mark.parametrize("cell", [f"{a}/decode_32k" for a in ARCHS]
+                         + ["split/decode_32k"])
+def test_decode_products_match_the_reference(runs, cell):
+    """Decode's products: the FLOPs of the port's matmuls
+    (``flop_registry``'s count, ``xla_cost_analysis``) within FLOPS_REL
+    of the dots of the reference's compiled program, each loop body
+    counted times its trips.  Each slot's layers run once, on the rank's
+    own slots and its share of each weight, as XLA runs them (without the
+    decode path's residual constraints DTensor ran the MLPs, and
+    zamba2's Mamba2 projections, on the data group's whole batch)."""
+    group, shape = cell.split("/")
+    port = (runs["port"]["split"][shape] if group == "split"
+            else runs["port"]["cells"][cell])
+    ref = runs["ref"][group, shape]
+    ratio = port["xla_cost_analysis"]["flops"] / ref["dot_flops"]
+    print(f"{cell}: port/reference product FLOPs a device {ratio:.3f}")
+    assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
 
 
 def test_data_parallel_step_reduces_every_gradient(runs):

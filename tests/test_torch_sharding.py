@@ -11,6 +11,11 @@ seeded tokens, at the reference's tolerances (``tests/test_sharding.py:
 63-69``): loss within 1e-4, every parameter within 2e-4.  The plain
 single-device step is itself held against the reference's by
 ``tests/test_torch_train_step.py::test_adamw_step_matches_reference``.
+The attention cases hold the model's per-shard paths on the 2x4 and 4x2
+meshes: prefill logits and the loss's ``wq``/``wk``/``wv`` gradients
+with the query heads split over ``model`` (a KV head's gradient summed
+over the ranks that read it), and decode from per-shard softmax partials
+where the cache's sequence is split, at the same tolerances.
 """
 
 import json
@@ -80,8 +85,9 @@ def test_sharded_train_step_matches_single_device(runs, name):
 
 def test_gqa_heads_over_a_wider_model_axis(runs):
     """4 query heads and 2 KV heads on a 2x4 mesh: q's heads split over
-    ``model=4`` beside k and v that cannot be, which the flash rule must
-    gather (a shard reading its own KV heads would read the wrong ones)."""
+    ``model=4`` beside k and v that cannot be, so each rank reads a slice
+    of the gathered KV heads (a shard reading its own KV heads would read
+    the wrong ones)."""
     got = _case(runs, "gqa")
     assert (got["heads"], got["kv_heads"]) == (4, 2)
     assert got["loss_gap"] < LOSS_TOL, got
@@ -111,17 +117,51 @@ def test_prefill_and_decode_on_the_mesh(runs):
 @pytest.mark.parametrize("split, placements", [
     ("model", ["Shard(1)", "Shard(2)"]),
     ("whole_mesh", ["Shard(2)", "Shard(2)"]),
-    ("data", ["Shard(2)", "Shard(3)"])])
+    ("data", ["Shard(2)", "Shard(3)"]),
+    ("ragged", ["Shard(1)", "Shard(2)"]),
+    ("window", ["Shard(1)", "Shard(2)"]),
+    ("ragged_window", ["Shard(1)", "Shard(2)"])])
 def test_decode_with_the_sequence_split(runs, split, placements):
     """Prefill and 4 decode ticks with the KV cache's sequence split over
     the mesh (2 KV heads cannot split over ``model=4``; one slot cannot
-    split over 'data'): logits and both caches as the plain path's, at
-    the prefill/decode tolerance above."""
+    split over 'data'), each rank reading its own range from softmax
+    partials: logits and both caches as the plain path's, at the
+    prefill/decode tolerance above.  ``ragged``: slots of lengths 2, 11,
+    5 and 8, so that some ranks hold no live key of a slot; ``window``:
+    smoke gemma3, a window of 8 on every other layer (with those lengths
+    in ``ragged_window``)."""
     got = _case(runs, "decode_seq")[split]
     assert got["k_placements"] == placements, got
     assert got["logit_gap"] < 1e-4, got
     assert got["k_gap"] < 1e-4, got
     assert got["v_gap"] < 1e-4, got
+
+
+@pytest.mark.parametrize("mesh, heads", [("4x2", (2, 1)),
+                                          ("2x4", (1, 1))])
+def test_head_split_prefill_matches_single_device(runs, mesh, heads):
+    """Smoke qwen3's prefill with its 4 query heads split over ``model``:
+    every flash call runs on a rank's plain shard with ``heads`` (query,
+    KV) heads (2x4: one query head against a slice of the gathered KV
+    heads), and the logits are the plain path's, at the prefill/decode
+    tolerance above."""
+    got = _case(runs, "prefill_heads")[mesh]
+    assert got["calls"], got
+    assert all(c == [False, *heads] for c in got["calls"]), got
+    assert got["logit_gap"] < 1e-4, got
+
+
+def test_head_split_gradients_sum_over_shared_kv_heads(runs):
+    """The loss's gradients of ``wq``, ``wk`` and ``wv`` on the 2x4 mesh,
+    where two ``model`` ranks read each KV head (its gradient a sum over
+    them), against plain tensors, at the parameter tolerance above."""
+    got = _case(runs, "grads_heads")
+    assert got["calls"] and all(c == [False, 1, 1] for c in got["calls"]), \
+        got
+    assert len(got["grad_gap"]) == 6, got
+    assert got["grad_scale"] > 0, got
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
 
 
 def test_constrain_outside_and_inside_a_mesh(runs):
