@@ -60,7 +60,9 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
    card: flash in bf16 (the tensor-core kernel) and fp32 (FFMA), causal
    or not, window 0, 100, 256 or 1024, GQA rep 1, 2, 4, 8 and 16, D 16,
    32, 64, 80, 128 and 256 (phase 17's shapes among them), lengths off
-   the 16-row fragments and 64-key tiles (each output row
+   the 16-row fragments and 64-key tiles, query chunks at a ``q_offset``
+   (both chunks of a zig-zag rank, D 256 with its window's keys, D 64,
+   offsets off the tiles) (each output row
    within FLASH_BF16_REL = 8e-3 * max(max |plain row|, FLASH_ROW_FLOOR)
    in bf16, one to two bf16 ulps of the row; fp32 within 1e-4 * that);
    SSD in bf16 (tensor cores, fp32 operands split in two bf16 terms) and
@@ -92,7 +94,9 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
 9. The two LM kernels timed on the largest inputs their path gave them,
    beside the plain version, the bound, (flash) SDPA and, in the log
    text only, the first kernel's time before the tensor-core redesign (a
-   constant from PERF.md).  Phases 5, 9 and 13 time every call twice:
+   constant from PERF.md); flash also on the last half of its queries at
+   ``q_offset`` S / 2 against all the keys (``offset_*`` keys of the
+   kernels line).  Phases 5, 9 and 13 time every call twice:
    with a spin kernel ahead (the device time, in the kernels line) and
    without (the host's enqueue inside the events too).
 10. Training, default predictor: ``default_predictor(force_retrain=True)``
@@ -219,8 +223,10 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     a zero gradient fails: flash; the random Mamba2's floor is above it),
     and the bf16 loss within a limit that a broken kernel (attention
     without its mask, the scan without its carry) must exceed.  At the op,
-    each layer's inputs from a bf16 forward at (b)'s batch: y row by row
-    against the plain function, a broken kernel's y outside that gate,
+    each layer's inputs from a bf16 forward at (b)'s batch (flash also
+    the first layer's last half of queries at their ``q_offset``): y row
+    by row against the plain function, a broken kernel's y outside that
+    gate,
     and the op's gradient against autograd through the function its
     backward differentiates.  Every layer's ``wq``, ``wk``, ``wv``,
     ``q_norm``, ``k_norm`` (``in_proj``'s x, B, C and dt columns,
@@ -274,14 +280,20 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     16 query heads split one a ``model`` rank beside 8 KV heads that
     cannot, and at ``decode_32k``, whose KV cache splits its sequence
     over ``model``, Mamba2-130M at ``long_500k``, and a ``--multi-pod``
-    decode cell), and phase 18 (c)'s step (Qwen3-0.6B, 2 x 4096) on a
-    1-rank fake mesh, all at once within ``DRYRUN_TIMEOUT_S``.  Every
+    decode cell, and gemma3-1b at ``train_4k`` and at ``prefill_32k``,
+    whose 4 heads do not divide ``model=16``, so its query sequence
+    splits over ``model``), and phase 18 (c)'s step (Qwen3-0.6B, 2 x
+    4096) on a 1-rank fake mesh, all at once within
+    ``DRYRUN_TIMEOUT_S``.  Every
     cell ``ok``; each cell's compute, memory and collective terms,
     bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
     prefill cell's useful-FLOPs ratio at least ``DRYRUN_PREFILL_USEFUL``
     (each head run once); both decode cells' collective bytes a device
     below ``DRYRUN_DECODE_COLLECTIVE_BYTES`` (the cache read from
-    per-shard softmax partials, not gathered); and on the 1-rank cell,
+    per-shard softmax partials and the embedding looked up in each
+    rank's shard, neither gathered); the gemma3 cells' FLOPs a device at
+    most ``DRYRUN_FLOPS_OVER_REFERENCE`` times the reference's count
+    (``DRYRUN_REFERENCE_FLOPS``); and on the 1-rank cell,
     its roofline step below phase 18's measured ms a step, and its
     FLOPs within ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s
     tracker summed over that step.
@@ -948,6 +960,15 @@ FLASH_CASES = [
     (1, 4, 1, 1100, 1100, 256, True, 1024),
     (1, 4, 1, 2048, 2048, 256, True, 1024),
     (1, 32, 2, 1031, 1031, 128, True, 0),
+    # a query offset (the 9th entry; 0 where absent): the two chunks of
+    # zig-zag rank 0 in a prefill of 8192 over 16 ranks (the first and
+    # the last 256 rows), a bf16 D 128 GQA chunk off the tiles, a D 256
+    # chunk whose keys start where its window of 1024 does, D 64
+    (1, 16, 8, 256, 256, 128, True, 0, 0),
+    (1, 16, 8, 256, 8192, 128, True, 0, 7936),
+    (1, 16, 8, 300, 1337, 128, True, 0, 1037),
+    (1, 4, 1, 512, 1535, 256, True, 1024, 1023),
+    (1, 24, 8, 333, 1000, 64, True, 0, 667),
 ]
 #: b, h, l, p, n, chunk, b and c shared by the heads (head stride 0); the
 #: last case's P, N and chunk are off the kernel's 16-padding and its rows
@@ -1009,17 +1030,21 @@ def lm_kernel_checks(torch, fa, sk, device) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    for b, h, kv, sq, skv, d, causal, window in FLASH_CASES:
+    for b, h, kv, sq, skv, d, causal, window, *off in FLASH_CASES:
+        q_offset = off[0] if off else 0
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (randn(b, n, s_, d).to(dtype)
                        for n, s_ in ((h, sq), (kv, skv), (kv, skv)))
-            got = fa.flash_attention(q, k, v, causal=causal, window=window)
-            want = fa.flash_attention_plain(q, k, v, causal, window)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+            want = fa.flash_attention_plain(q, k, v, causal, window,
+                                            q_offset)
             err, tol, top = _flash_err(torch, got, want, FLASH_BF16_REL
                                        if dtype == torch.bfloat16 else 1e-4)
             worst["flash_attention"] = max(worst["flash_attention"], top)
             log(f"  flash {str(dtype)[6:]} B{b} H{h}/KV{kv} Sq{sq} Skv{skv} "
-                f"D{d} causal={causal} window={window}: worst row max "
+                f"D{d} causal={causal} window={window} q_offset={q_offset}: "
+                f"worst row max "
                 f"|err| {err:.3e} (its tol {tol:.3e}, {err / tol:.3f} of "
                 f"it); max |err| {top:.3e}")
             if not err <= tol:
@@ -1625,7 +1650,8 @@ def flash_bound(args) -> tuple:
     from repro_torch.core.costmodel import flash_attention_cost
     (q, k, v), kw = args[0][:3], args[1]
     cost = flash_attention_cost(q, k, v, kw.get("causal", True),
-                                int(kw.get("window", 0)))
+                                int(kw.get("window", 0)),
+                                int(kw.get("q_offset", 0)))
     peak = FP32_PEAK_FLOPS if q.dtype.itemsize == 4 else BF16_PEAK_FLOPS
     return roofline(cost.flops, cost.bytes_accessed, peak)
 
@@ -1722,6 +1748,37 @@ def time_lm_kernel(torch, kmod, kname: str, args, kwargs,
     return {"ms": ms[0], "plain_ms": plain_ms[0], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None if library_ms is None else library_ms[0]}
+
+
+def time_flash_offset(torch, fa, args, kwargs) -> dict:
+    """Flash attention timed at a query offset on the path's largest
+    inputs: the last half of q's rows at ``q_offset`` S / 2 against all
+    S keys (the heavier chunk of a two-way query split), beside its plain
+    version and its bound; held against the plain version first, at the
+    bf16 gate.  Log text and ``offset_*`` keys of the kernels line."""
+    (q, k, v), kw = args[:3], dict(kwargs)
+    half = q.shape[2] // 2
+    kw["q_offset"] = half
+    qh = q[:, :, half:]
+    got = fa.flash_attention(qh, k, v, **kw)
+    want = fa.flash_attention_plain(qh, k, v, kw.get("causal", True),
+                                    int(kw.get("window", 0)), half)
+    err, tol, _ = _flash_err(torch, got, want, FLASH_BF16_REL)
+    del got, want
+    if not err <= tol:
+        fail("flash_attention at a query offset disagrees with its plain "
+             "version on the path's inputs")
+    ms = time_both(torch, lambda: fa.flash_attention(qh, k, v, **kw))
+    plain = time_both(torch, lambda: fa.flash_attention_plain(
+        qh, k, v, kw.get("causal", True), int(kw.get("window", 0)), half),
+        iters=10, warmup=1)
+    bound_ms, bound_by = flash_bound(((qh, k, v), kw))
+    log(f"  flash_attention at q_offset {half}: q {tuple(qh.shape)} against "
+        f"{k.shape[2]} keys, {ms_text(ms)} (plain {ms_text(plain)}, bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {bound_ms / ms[0]:.1%} of peak); "
+        f"worst row {err / tol:.3f} of its tolerance")
+    return {"offset_ms": ms[0], "offset_plain_ms": plain[0],
+            "offset_bound_ms": bound_ms, "q_offset": half}
 
 
 # ---------------------------------------------------------------------------
@@ -3217,24 +3274,36 @@ def op_gate(torch, cfg, device, kname) -> None:
     y_worst = grad_worst = (0.0, "")
     broken_worst = float("inf")
     calls = op_inputs(torch, cfg, device, kname)
+    if kname == "flash_attention":
+        # and the first layer's last half of queries at their offset, as a
+        # query-split prefill calls the op
+        (q, k, v), kw = calls[0][0][:3], calls[0][1]
+        half = q.shape[2] // 2
+        calls.append(((q[:, :, half:], k, v), dict(kw, q_offset=half)))
     for layer, (args, kwargs) in enumerate(calls):
+        where = (f"layer {layer}" if not kwargs.get("q_offset") else
+                 f"layer 0 at q_offset {kwargs['q_offset']}")
         if kname == "flash_attention":
             q, k, v = (t.detach().requires_grad_(True) for t in args[:3])
             leaves, causal = [q, k, v], kwargs.get("causal", True)
             window = kwargs.get("window", 0)
-            y = fa.flash_attention(q, k, v, causal=causal, window=window)
+            q_offset = kwargs.get("q_offset", 0)
+            y = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
             with torch.no_grad():
-                want = fa.flash_attention_plain(q, k, v, causal, window)
+                want = fa.flash_attention_plain(q, k, v, causal, window,
+                                                q_offset)
                 err, tol, _ = _flash_err(torch, y, want, FLASH_BF16_REL)
                 b_err, b_tol, _ = _flash_err(torch, fa.flash_attention_plain(
-                    q, k, v, False, window), want, FLASH_BF16_REL)
+                    q, k, v, False, window, q_offset), want,
+                    FLASH_BF16_REL)
                 del want
 
             def plain():
                 o = attn.chunked_attention(
                     *(t.transpose(1, 2) for t in leaves), causal=causal,
                     window=window, chunk_q=fa.VJP_CHUNKS[0],
-                    chunk_kv=fa.VJP_CHUNKS[1])
+                    chunk_kv=fa.VJP_CHUNKS[1], q_offset=q_offset)
                 return o.transpose(1, 2)
         else:
             x, dt, a, bm, cm = args[:5]
@@ -3268,14 +3337,17 @@ def op_gate(torch, cfg, device, kname) -> None:
                                 ("x", "dt", "a", "b", "c"), got, want_g):
             d = float((gk.float() - gp.float()).abs().max()) / max(
                 float(gp.float().abs().max()), 1e-30)
-            grad_worst = max(grad_worst, (d, f"layer {layer} d{name}"))
-        y_worst = max(y_worst, (err / tol, f"layer {layer}"))
+            grad_worst = max(grad_worst, (d, f"{where} d{name}"))
+        y_worst = max(y_worst, (err / tol, where))
         broken_worst = min(broken_worst, b_err / b_tol)
         del y, got, want_g, leaves
     del calls
     torch.cuda.empty_cache()
+    offset = " and layer 0's last half of queries at their offset" \
+        if kname == "flash_attention" else ""
     log(f"  {cfg.name} at the op, bf16, {kname} on each of the "
-        f"{layer + 1} layers' inputs at {TRAIN_BATCH} x {TRAIN_SEQ}: y "
+        f"{layer + 1} inputs (the layers' at {TRAIN_BATCH} x {TRAIN_SEQ}"
+        f"{offset}): y "
         f"against plain, worst row {y_worst[0]:.3f} of its tolerance "
         f"({y_worst[1]}); a broken kernel's y in the layer it fits best "
         f"{broken_worst:.1f} of it; gradient against the VJP of the "
@@ -3925,7 +3997,9 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("qwen3-0.6b", "prefill_32k", False),
                 ("qwen3-0.6b", "decode_32k", False),
                 ("mamba2-130m", "long_500k", False),
-                ("qwen3-0.6b", "decode_32k", True))
+                ("qwen3-0.6b", "decode_32k", True),
+                ("gemma3-1b", "train_4k", False),
+                ("gemma3-1b", "prefill_32k", False))
 #: the phase's limit: every process is killed past it
 DRYRUN_TIMEOUT_S = 110
 #: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
@@ -3957,8 +4031,26 @@ DRYRUN_TRACKER_REL = 0.10
 DRYRUN_PREFILL_USEFUL = 0.10
 #: collective bytes a device of each Qwen3-0.6B ``decode_32k`` cell, below:
 #: its cache's sequence split over ``model`` is read from per-shard softmax
-#: partials (about 30 GB while every rank gathered the whole cache)
-DRYRUN_DECODE_COLLECTIVE_BYTES = 1e9
+#: partials (about 30 GB while every rank gathered the whole cache), and
+#: each rank looks tokens up in its own shard of the embedding table (311
+#: MB a step while every rank gathered the whole table)
+DRYRUN_DECODE_COLLECTIVE_BYTES = 0.25e9
+#: the reference's FLOPs a device of gemma3-1b's cells on 256 devices (its
+#: HLO count, ``python -m repro.launch.dryrun --arch gemma3-1b --shape
+#: ...`` on a CPU host, which the card has no JAX to run), as PERF.md §5
+#: records it: the port's count in the card's dry run before the per-shard
+#: SwiGLU and the query split (``python -m repro_torch.launch.dryrun
+#: --device cuda``: 8.306724e13 for ``train_4k``, 2.930838e13 for
+#: ``prefill_32k``) over its ratio to the reference's there (2.51x, 2.23x)
+DRYRUN_REFERENCE_FLOPS = {"gemma3-1b_train_4k_1pod": 8.306724e13 / 2.51,
+                          "gemma3-1b_prefill_32k_1pod": 2.930838e13 / 2.23}
+#: the port's FLOPs a device of those cells over the reference's, at most:
+#: training runs the SwiGLU on each rank's own tokens (2.51x while DTensor
+#: planned its backward on 16 gathered sequences), and a prefill whose 4
+#: heads do not divide ``model=16`` splits its query sequence (2.23x while
+#: every ``model`` rank ran every head)
+DRYRUN_FLOPS_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
+                               "gemma3-1b_prefill_32k_1pod": 1.5}
 
 
 def dry_run(trained) -> None:
@@ -4029,15 +4121,24 @@ def dry_run(trained) -> None:
         fail(f"Qwen3-0.6B prefill_32k's useful-FLOPs ratio "
              f"{prefill['useful_flops_ratio']:.4f} is below "
              f"{DRYRUN_PREFILL_USEFUL}: the heads are not split over model")
+    for tag, limit in DRYRUN_FLOPS_OVER_REFERENCE.items():
+        ratio = (cells[tag]["flops_per_device"]
+                 / DRYRUN_REFERENCE_FLOPS[tag])
+        log(f"  {tag}: {cells[tag]['flops_per_device']:.4e} FLOPs a device, "
+            f"{ratio:.3f}x the reference's {DRYRUN_REFERENCE_FLOPS[tag]:.4e} "
+            f"(at most {limit}x)")
+        if not ratio <= limit:
+            fail(f"{tag} reads {ratio:.3f}x the reference's FLOPs a device, "
+                 f"above {limit}x: a rank does another rank's work")
     for tag in ("qwen3-0.6b_decode_32k_1pod", "qwen3-0.6b_decode_32k_2pod"):
         coll = cells[tag]["collective_bytes_per_device"]
         log(f"  {tag}: {coll:.4e} collective bytes a device "
             f"({cells[tag]['collective_detail']}), below "
-            f"{DRYRUN_DECODE_COLLECTIVE_BYTES:.0e}")
+            f"{DRYRUN_DECODE_COLLECTIVE_BYTES:.3g}")
         if not coll < DRYRUN_DECODE_COLLECTIVE_BYTES:
             fail(f"{tag} reads {coll:.4e} collective bytes a device, not "
-                 f"below {DRYRUN_DECODE_COLLECTIVE_BYTES:.0e}: the cache "
-                 f"is gathered")
+                 f"below {DRYRUN_DECODE_COLLECTIVE_BYTES:.3g}: the cache "
+                 f"or the embedding table is gathered")
     one = cells["one_rank"]
     step_ms = trained["flash_attention"]["step_ms"]
     bound_ms = one["step_s"] * 1e3
@@ -4252,6 +4353,8 @@ def main() -> int:
             torch, kmod, kname, args, kwargs,
             earlier=f"; the first kernel {earlier_ms[kname]:.3f} ms "
                     f"without the spin")
+        if kname == "flash_attention":
+            times.update(time_flash_offset(torch, fa, args, kwargs))
         src, line = lm_sources[kname]
         kernels.append({
             "name": kname, "route": "cuda",

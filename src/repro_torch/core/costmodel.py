@@ -250,13 +250,16 @@ def conv_grad_costs(args, out) -> List[Tuple[str, OpCost, Dict[str, int]]]:
 
 
 def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: int) -> OpCost:
+                         causal: bool, window: int,
+                         q_offset: int = 0) -> OpCost:
     """One flash-attention call: 4 D FLOPs per allowed (query, key) pair
-    per head (q.k and p.v), counted under the causal mask and the window;
-    q, k, v read once and o (q's shape and dtype) written once."""
+    per head (q.k and p.v), counted under the causal mask and the window
+    with query row r at position ``q_offset + r`` (so a query chunk counts
+    the work its shard does); q, k, v read once and o (q's shape and
+    dtype) written once."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    i = torch.arange(sq, dtype=torch.float64)
+    i = q_offset + torch.arange(sq, dtype=torch.float64)
     hi = torch.clamp(i, max=skv - 1) if causal else \
         torch.full((sq,), skv - 1.0, dtype=torch.float64)
     lo = torch.clamp(i - window + 1, min=0) if window > 0 else \
@@ -296,7 +299,8 @@ def ssd_cost(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 _KERNEL_COSTS = {
     "repro_torch::flash_attention": lambda args: flash_attention_cost(
-        *args[:3], bool(args[3]), int(args[4])),
+        *args[:3], bool(args[3]), int(args[4]),
+        int(args[5]) if len(args) > 5 else 0),   # q_offset, default 0
     "repro_torch::ssd": lambda args: ssd_cost(*args[:5], int(args[5])),
 }
 

@@ -44,9 +44,10 @@ KERNELS = {
     "fused_mlp": ("fused_mlp.cu", "repro_fused_mlp",
                   [_P] * 6 + [_I] * 4 + [_P]),
     # q, k, v, o; dtype, B, H, KV, Sq, Skv, D; 4 x (b, h, s) strides;
-    # causal, window, scale; stream
+    # causal, window, q_offset, scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
-                        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _F, _P]),
+                        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I] * 3
+                        + [_F, _P]),
     # x, dt, a, bmat, cmat, y, state, chunk-state and cum_last scratch;
     # dtype, B, H, L, P, N, chunk; 5 x (b, h, l) strides; stream
     "ssd": ("ssd.cu", "repro_ssd", [_P] * 9 + [_I] * 7 + [_L] * 15 + [_P]),

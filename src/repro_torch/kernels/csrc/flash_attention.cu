@@ -6,7 +6,9 @@
 // and k, v (B, KV, Skv, D):
 //   o[b, h, i] = softmax_j(q_i . k_j * D^-0.5 over allowed j) @ v
 // where key j is allowed for query i when j < Skv, j <= i if causal, and
-// i - j < window if window > 0.  Query head h reads kv head h / (H / KV):
+// i - j < window if window > 0, query row r standing at position
+// i = q_offset + r and key j at position j (a query chunk of a longer
+// sequence against its keys: q_offset 0 is the whole sequence).  Query head h reads kv head h / (H / KV):
 // K and V are never repeated.  m, l and the accumulator are fp32; the
 // output takes the inputs' type.
 //
@@ -92,7 +94,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int H,
                   int KV, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-                  Strides so, int causal, int window, float scale) {
+                  Strides so, int causal, int window, int q_offset,
+                  float scale) {
   constexpr int QS = D + 4;     // q tile row stride: rows 16 apart hit other banks
   constexpr int KS = D + 1;     // k/v tile row stride: 16 keys in 16 banks
   constexpr int SS = kBKV + 4;  // score tile row stride
@@ -134,8 +137,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // the key tiles any row of this q tile can see
   const int q_last = min(q0 + kBQ, Sq) - 1;
-  const int hi = causal ? min(Skv, q_last + 1) : Skv;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / kBKV * kBKV : 0;
+  const int hi = causal ? min(Skv, q_offset + q_last + 1) : Skv;
+  const int lo =
+      window > 0 ? max(0, q_offset + q0 - window + 1) / kBKV * kBKV : 0;
 
   for (int k0 = lo; k0 < hi; k0 += kBKV) {
     __syncthreads();  // q tile and stats written / last tile's P V done
@@ -166,7 +170,7 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
-      const int qpos = q0 + r;
+      const int qpos = q_offset + q0 + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
@@ -281,7 +285,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int B,
                   int KV, int rep, int Sq, int Skv, int n_tiles, Strides sq,
                   Strides sk, Strides sv, Strides so, int causal, int window,
-                  float scale_log2) {
+                  int q_offset, float scale_log2) {
   using namespace warp_mma;
   constexpr int kMT = TcTiling<D>::kMT;
   constexpr int kWarpRows = TcTiling<D>::kWarpRows;
@@ -326,9 +330,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  // the key tiles any row of this CTA can see
-  const int p_lo = t0 / rep;
-  const int p_hi = (min(t0 + kRowsTC, total) - 1) / rep;
+  // the key tiles any row of this CTA can see (positions, not packed rows:
+  // the offset goes on t / rep)
+  const int p_lo = q_offset + t0 / rep;
+  const int p_hi = q_offset + (min(t0 + kRowsTC, total) - 1) / rep;
   const int k_end = causal ? min(Skv, p_hi + 1) : Skv;
   const int k_begin = window > 0 ? max(0, p_lo - window + 1) / kBN * kBN : 0;
   const int n_k = k_end > k_begin ? (k_end - k_begin + kBN - 1) / kBN : 0;
@@ -336,14 +341,14 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this warp's rows; lane rows wr + 16 mt + 8 hf + g, hf = 0, 1
   const int wr = warp * kWarpRows;
   const bool live = t0 + wr < total;
-  const int w_lo = (t0 + wr) / rep;
-  const int w_hi = (min(t0 + wr + kWarpRows - 1, total - 1)) / rep;
+  const int w_lo = q_offset + (t0 + wr) / rep;
+  const int w_hi = q_offset + (min(t0 + wr + kWarpRows - 1, total - 1)) / rep;
   int qpos[kMT][2];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
-      qpos[mt][hf] = (t0 + wr + 16 * mt + 8 * hf + g) / rep;
+      qpos[mt][hf] = q_offset + (t0 + wr + 16 * mt + 8 * hf + g) / rep;
 
   float acc[kMT][D / 8][4];
   float m[kMT][2], l[kMT][2];
@@ -524,8 +529,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int KV, int Sq, int Skv, Strides sq, Strides sk,
-                Strides sv, Strides so, int causal, int window, float scale,
-                cudaStream_t stream) {
+                Strides sv, Strides so, int causal, int window, int q_offset,
+                float scale, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -535,15 +540,15 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
   flash_fp32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Skv,
-      sq, sk, sv, so, causal, window, scale);
+      sq, sk, sv, so, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int KV, int Sq, int Skv, Strides sq, Strides sk,
-                Strides sv, Strides so, int causal, int window, float scale,
-                cudaStream_t stream) {
+                Strides sv, Strides so, int causal, int window, int q_offset,
+                float scale, cudaStream_t stream) {
   const int rep = H / KV;
   const long long rows = static_cast<long long>(Sq) * rep;
   const long long n_tiles = (rows + kRowsTC - 1) / kRowsTC;
@@ -561,21 +566,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), B, KV, rep, Sq,
       Skv, static_cast<int>(n_tiles), sq, sk, sv, so, causal, window,
-      scale * 1.4426950408889634f);
+      q_offset, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBf16>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                int B, int H, int KV, int Sq, int Skv, Strides sq, Strides sk,
-               Strides sv, Strides so, int causal, int window, float scale,
-               cudaStream_t stream) {
+               Strides sv, Strides so, int causal, int window, int q_offset,
+               float scale, cudaStream_t stream) {
 #define REPRO_FLASH_CASE(d)                                                   \
   case d:                                                                     \
     return kBf16 ? launch_bf16<d>(q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv,  \
-                                  so, causal, window, scale, stream)          \
+                                  so, causal, window, q_offset, scale,        \
+                                  stream)                                     \
                  : launch_fp32<d>(q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv,  \
-                                  so, causal, window, scale, stream);
+                                  so, causal, window, q_offset, scale,        \
+                                  stream);
   switch (D) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
@@ -598,31 +605,33 @@ bool aligned16(const void* p, const Strides& s) {
 // q (B, H, Sq, D), k and v (B, KV, Skv, D), o (B, H, Sq, D), all of one
 // type (dtype 0 = fp32, 1 = bf16), addressed by (batch, head, seq) element
 // strides with unit stride on D; bf16 pointers 16-byte aligned and strides
-// multiples of 8.  D in {16, 32, 64, 80, 128, 256}, H a multiple of KV.  Returns a
-// cudaError_t (0 = ok).
+// multiples of 8.  D in {16, 32, 64, 80, 128, 256}, H a multiple of KV.
+// Query row r sits at position q_offset + r (q_offset >= 0), key j at j.
+// Returns a cudaError_t (0 = ok).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KV, int Sq, int Skv, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, int causal, int window, float scale,
-    void* stream) {
+    long long o_sh, long long o_ss, int causal, int window, int q_offset,
+    float scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || Skv <= 0 ||
-      B > 65535 || H > 65535 || window < 0) {
+      B > 65535 || H > 65535 || window < 0 || q_offset < 0 ||
+      q_offset > INT_MAX - Sq) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
       sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch_d<false>(D, q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv, so, causal, window, scale, s);
+    return dispatch_d<false>(D, q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv, so, causal, window, q_offset, scale, s);
   }
   if (dtype == 1) {
     if (!aligned16(q, sq) || !aligned16(k, sk) || !aligned16(v, sv) ||
         !aligned16(o, so)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    return dispatch_d<true>(D, q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv, so, causal, window, scale, s);
+    return dispatch_d<true>(D, q, k, v, o, B, H, KV, Sq, Skv, sq, sk, sv, so, causal, window, q_offset, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

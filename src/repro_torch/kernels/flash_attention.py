@@ -5,10 +5,13 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 
   q (B, H, Sq, D);  k, v (B, KV, Skv, D)  ->  o (B, H, Sq, D), q's dtype
 
-with scale ``D ** -0.5``, a causal mask (key j <= query i, both counted
-from 0), an optional sliding window (``i - j < window`` when
-``window > 0``) and grouped-query heads (query head h reads kv head
-``h // (H // KV)``).  Softmax state is fp32.
+with scale ``D ** -0.5``, a causal mask (key j <= query i), an optional
+sliding window (``i - j < window`` when ``window > 0``) and grouped-query
+heads (query head h reads kv head ``h // (H // KV)``).  Keys stand at
+positions ``0 .. Skv-1`` and query row r at ``q_offset + r``: 0 (the
+default) is the whole sequence, and a query chunk of a longer sequence
+passes its first position, as the reference's attention takes
+``q_offset``.  Softmax state is fp32.
 
 :func:`flash_attention` launches the CUDA kernel (``csrc/
 flash_attention.cu``) for CUDA tensors and counts the launch in
@@ -61,10 +64,11 @@ def reset_launches() -> None:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
+                          causal: bool = True, window: int = 0,
+                          q_offset: int = 0) -> torch.Tensor:
     """The reference's oracle in PyTorch: repeated K/V, the whole (Sq, Skv)
-    score matrix in fp32, masked with the finite NEG_INF."""
+    score matrix in fp32, masked with the finite NEG_INF; query row r at
+    position ``q_offset + r``."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -72,7 +76,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = torch.repeat_interleave(v, rep, dim=1).to(torch.float32)
     s = torch.einsum("bhqd,bhsd->bhqs", q.to(torch.float32), kr) \
         * (d ** -0.5)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -86,7 +90,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
+           window: int, q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-d: (B, H, Sq, D), (B, KV, Skv, D)")
     b, h, _, d = q.shape
@@ -99,6 +103,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"({k.shape[1]})")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -148,15 +154,15 @@ def _empty_out(q: torch.Tensor) -> torch.Tensor:
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, window: int) -> torch.Tensor:
+              causal: bool, window: int, q_offset: int = 0) -> torch.Tensor:
     out = _empty_out(q)
-    out.copy_(flash_attention_plain(q, k, v, causal, window))
+    out.copy_(flash_attention_plain(q, k, v, causal, window, q_offset))
     return out
 
 
 @_flash_op.register_kernel("cuda")
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, window: int) -> torch.Tensor:
+                causal: bool, window: int, q_offset: int = 0) -> torch.Tensor:
     _check_cuda(q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if _rows_aligned(t) else
@@ -173,35 +179,35 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h,
                      kv, sq, skv, d, *strides, int(bool(causal)), window,
-                     d ** -0.5, stream)
+                     q_offset, d ** -0.5, stream)
     build.count_launch(LAUNCHES, "flash_attention")
     return out
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal, window):
+def _flash_fake(q, k, v, causal, window, q_offset=0):
     return _empty_out(q)
 
 
 def _flash_setup(ctx, inputs, output) -> None:
-    q, k, v, causal, window = inputs
+    q, k, v, causal, window, q_offset = inputs
     ctx.save_for_backward(q, k, v)
-    ctx.causal, ctx.window = causal, window
+    ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
 
 
-def _flash_vjp(leaves, grad: torch.Tensor, causal: bool, window: int
-               ) -> Tuple[Optional[torch.Tensor], ...]:
+def _flash_vjp(leaves, grad: torch.Tensor, causal: bool, window: int,
+               q_offset: int = 0) -> Tuple[Optional[torch.Tensor], ...]:
     """The VJP of the chunked attention at ``leaves`` (q, k, v in the
     kernel's (B, H, S, D) layout, each requiring grad where wanted)."""
     from repro_torch.models.attention import chunked_attention
     wanted = [t for t in leaves if t.requires_grad]
-    out: list = [None] * 5
+    out: list = [None] * 6
     if wanted:
         with torch.enable_grad():
             o = chunked_attention(*(t.transpose(1, 2) for t in leaves),
                                   causal=causal, window=window,
                                   chunk_q=VJP_CHUNKS[0],
-                                  chunk_kv=VJP_CHUNKS[1])
+                                  chunk_kv=VJP_CHUNKS[1], q_offset=q_offset)
             got = iter(torch.autograd.grad(o, wanted, grad.transpose(1, 2)))
         for i, t in enumerate(leaves):
             if t.requires_grad:
@@ -224,7 +230,7 @@ def _flash_backward(ctx, grad: torch.Tensor
     if not is_dtensor(saved[0]):
         return _flash_vjp([t.detach().requires_grad_(n)
                            for t, n in zip(saved, needs)],
-                          grad, ctx.causal, ctx.window)
+                          grad, ctx.causal, ctx.window, ctx.q_offset)
     from torch.distributed.tensor import Replicate, Shard
     q, k, v = saved
     heads = k.shape[1] > 1 and k.shape[1] % q.device_mesh.size() == 0
@@ -235,7 +241,7 @@ def _flash_backward(ctx, grad: torch.Tensor
                              lambda _: want)
     out = _flash_vjp([t.detach().requires_grad_(n)
                       for t, n in zip(local, needs)], g, ctx.causal,
-                     ctx.window)
+                     ctx.window, ctx.q_offset)
     return from_shards(out[:3], saved, lambda _: want) + out[3:]
 
 
@@ -273,10 +279,11 @@ def register_sharding_rule() -> None:
       * replicated.
 
     A dim of size 1 is never split (DTensor's views refuse to squeeze a
-    split dim).  The sequence is never split: the op counts positions
-    from 0 (it has no query offset), so a sequence-sharded q (the ``sp``
-    profile) or k, v is gathered on the sequence before the op, as the
-    causal mask is right only for the whole sequence.  D is never split.
+    split dim).  The sequence is never split: one ``q_offset`` holds for
+    the whole call, so a sequence-sharded q (the ``sp`` profile) or k, v
+    is gathered on the sequence before the op (the model splits the
+    query sequence itself, per shard, with an offset a chunk:
+    ``models.transformer._flash_attend``).  D is never split.
     The backward needs no rule: it runs the chunked attention's VJP on
     each rank's shards, placed as these strategies place them."""
     if _RULE:
@@ -285,9 +292,11 @@ def register_sharding_rule() -> None:
     from torch.distributed.tensor.experimental import register_sharding
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _flash_strategies(q, k, v, causal, window):
+    def _flash_strategies(q, k, v, causal, window, *q_offset):
+        # (DTensor passes the arguments as given: q_offset, left at its
+        # default, may be missing)
         def on(p):
-            return ([p], [p, p, p, None, None])
+            return ([p], [p, p, p, None, None] + [None] * len(q_offset))
         out = [on(Replicate())]
         if q.shape[0] > 1:
             out.append(on(Shard(0)))
@@ -298,13 +307,15 @@ def register_sharding_rule() -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """q (B, H, Sq, D); k, v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype,
-    a view of (B, Sq, H, D) memory; differentiable in q, k and v.
+    a view of (B, Sq, H, D) memory; differentiable in q, k and v.  Query
+    row r stands at position ``q_offset + r``, key j at j.
 
     H must be a multiple of KV.  On CUDA: float32 or bfloat16, D in
     :data:`HEAD_DIMS`, any strides with a unit stride on D."""
-    window = int(window)
-    _check(q, k, v, window)
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window, q_offset)
     return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
-                                                 window)
+                                                 window, q_offset)

@@ -66,16 +66,20 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, window: int = 0,
-                      chunk_q: int = 1024,
-                      chunk_kv: int = 1024) -> torch.Tensor:
+                      chunk_q: int = 1024, chunk_kv: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
     """Online-softmax chunked attention (never materializes Sq x Skv).
 
-    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); positions count from 0
-    for queries and keys alike (the reference's ``q_offset=0``, the only
-    offset its training path passes).  Query chunks run in a Python loop,
-    so each chunk's kv loop covers only the blocks inside the causal
-    triangle and, with a window, the band: fully masked blocks are never
-    built, as in the reference (``attention.py:103-112``)."""
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); query row r stands at
+    position ``q_offset + r`` and key j at j, as in the reference's loop
+    (``attention.py:105``).  Query chunks run in a Python loop, so each
+    chunk's kv loop covers only the blocks inside the causal triangle
+    and, with a window, the band, their bounds shifted by the offset:
+    fully masked blocks are never built.  The reference skips blocks only
+    at ``q_offset == 0`` (``attention.py:108-112``); a skipped block is
+    wholly masked, so its output is the same: a masked block's weights
+    are wiped by the next live block's correction, and a row's live
+    blocks all lie inside the bounds."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -93,9 +97,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for qi in range(nq):
         qb = qr[qi].to(torch.float32)                # (B, KV, rep, cq, hd)
-        qpos = qi * cq + torch.arange(cq, device=q.device)
-        hi = min(nkv, ((qi + 1) * cq + ckv - 1) // ckv) if causal else nkv
-        lo = max(0, (qi * cq - window) // ckv) if window > 0 else 0
+        first = q_offset + qi * cq
+        qpos = first + torch.arange(cq, device=q.device)
+        hi = min(nkv, (first + cq + ckv - 1) // ckv) if causal else nkv
+        lo = max(0, (first - window) // ckv) if window > 0 else 0
         m_run = torch.full((b, kv, rep, cq), NEG_INF, dtype=torch.float32,
                            device=q.device)
         l_run = torch.zeros((b, kv, rep, cq), dtype=torch.float32,
@@ -122,13 +127,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Kernel 1 in the model's layout: q (B, S, H, hd); k, v (B, S, KV, hd)
-    -> (B, S, H, hd).  Positions count from 0 for queries and keys alike
-    (the reference's ``q_offset=0``); the kernel picks its own tiles, so the
-    reference's ``chunk_q`` / ``chunk_kv`` have no counterpart."""
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Kernel 1 in the model's layout: q (B, Sq, H, hd); k, v (B, Skv, KV,
+    hd) -> (B, Sq, H, hd).  Query row r stands at position ``q_offset +
+    r``, key j at j, as in the reference's ``flash_attention``; the kernel
+    picks its own tiles, so the reference's ``chunk_q`` / ``chunk_kv``
+    have no counterpart."""
     o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=causal, window=window)
+                           v.transpose(1, 2), causal=causal, window=window,
+                           q_offset=q_offset)
     return o.transpose(1, 2)
 
 

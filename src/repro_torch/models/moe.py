@@ -23,7 +23,9 @@ a group's routing, dispatch and combine, all local to the group, run on
 each rank's own groups (``local_map``, the group dim sharded as
 ``constrain(xg, "batch", None, None)`` leaves it): routing and capacity
 are per group, so no token leaves its batch shard until the experts'
-all-to-all in front of the expert FFN.
+all-to-all in front of the expert FFN, which runs per shard too
+(``layers.ffn_per_shard``: each rank's experts on its tokens, the weights'
+D gathered, their gradients reduced back).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_dense
+from repro_torch.models.layers import ffn_per_shard, init_dense
 from repro_torch.parallel import ctx
 
 
@@ -143,6 +145,13 @@ def _per_group(fn, xg, n_out: int, n_in: int):
         device_mesh=xg.device_mesh, redistribute_inputs=True)(*args)
 
 
+def _expert_ffn(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over (E, T, D) rows: batched products over E."""
+    gate = F.silu(torch.bmm(h, w_gate))
+    return torch.bmm(gate * torch.bmm(h, w_up), w_down)
+
+
 def moe_layer(params: Mapping[str, torch.Tensor], x: torch.Tensor,
               top_k: int, capacity_factor: float = 1.25,
               aux_weight: float = 0.01, groups: Optional[int] = None
@@ -172,9 +181,9 @@ def moe_layer(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     # g@batch): the only cross-device movement is this reshard
     h = ctx.constrain(buf.transpose(0, 1), "model", "batch", None, None)
     h = h.reshape(n_experts, g * cap, d)
-    gate = F.silu(torch.bmm(h, params["w_gate"]))
-    up = torch.bmm(h, params["w_up"])
-    out = torch.bmm(gate * up, params["w_down"])
+    ffn = [h, params["w_gate"], params["w_up"], params["w_down"]]
+    out = (ffn_per_shard(_expert_ffn, *ffn, experts=True)
+           if ctx.is_dtensor(h) else _expert_ffn(*ffn))
     out = ctx.constrain(out.reshape(n_experts, g, cap, d), "model", "batch",
                         None, None).transpose(0, 1)       # (g, E, C, D)
 

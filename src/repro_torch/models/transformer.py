@@ -306,7 +306,8 @@ def _flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output stays split over the heads into ``wo``.  The backward is the
     op's VJP on the plain shards; the gradients of gathered k and v are
     partial sums over the ranks that read the same KV head.  Elsewhere
-    the op runs on the DTensors under its own sharding rule."""
+    the op runs on the DTensors under its own sharding rule (a prefill
+    whose heads cannot split takes :func:`_zigzag_attend` before this)."""
     dim = _head_split(q, k.shape[2])
     if dim is None:
         return attn_mod.flash_attention(q, k, v, causal=True, window=window)
@@ -328,7 +329,11 @@ def _flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     def attend(q_, k_, v_):
         if not own:
-            k_, v_ = k_[:, :, lo:hi], v_[:, :, lo:hi]
+            # narrow, not a slice: indexing returns the tensor itself for
+            # a slice of the whole dim, which would give the ranks whose
+            # slice it is an autograd graph of other nodes, their
+            # backward collectives in another order, and a deadlock
+            k_, v_ = k_.narrow(2, lo, hi - lo), v_.narrow(2, lo, hi - lo)
         return attn_mod.flash_attention(q_, k_, v_, causal=True,
                                         window=window)
     return local_map(attend, out_placements=(p_q,),
@@ -337,16 +342,138 @@ def _flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
+def _zigzag(s: int, ways: int, rank: int, window: int
+            ) -> List[Tuple[int, int, int]]:
+    """The query chunks of ``rank`` in a zig-zag split of ``s`` positions
+    over ``ways`` ranks: chunks ``rank`` and ``2 * ways - 1 - rank`` of
+    ``s / (2 * ways)`` rows, each as (first query, end, first key).  Its
+    keys are ``[first key, end)``: from 0, or with a window from where the
+    window of its first query starts.  Causal, every rank's two chunks
+    then hold the same number of (query, key) pairs; with a window, every
+    rank's but rank 0's, whose first chunk holds the window's first
+    rows."""
+    c = s // (2 * ways)
+    out = []
+    for j in (rank, 2 * ways - 1 - rank):
+        q0 = j * c
+        out.append((q0, q0 + c, max(0, q0 - window + 1) if window > 0
+                    else 0))
+    return out
+
+
+def _zigzag_split(q: torch.Tensor, kv: int) -> Optional[int]:
+    """The mesh dim ``model`` where prefill's query sequence splits over
+    it (:func:`_zigzag_attend`): q (B, S, H, hd) is a DTensor whose heads
+    cannot split over ``model`` (:func:`_head_split` is None: 4 heads, or
+    24, on ``model=16``), ``model`` has more than one rank and does not
+    split q's batch, and ``2 * model`` divides S.  None elsewhere, S not
+    dividing included (the op then runs on the DTensors under its own
+    rule, every ``model`` rank running every head of its batch rows)."""
+    if not ctx.is_dtensor(q) or _head_split(q, kv) is not None:
+        return None
+    from torch.distributed.tensor import Shard
+    names = ctx.axis_names(q.device_mesh)
+    if "model" not in names:
+        return None
+    dim = names.index("model")
+    ways = q.device_mesh.size(dim)
+    if ways == 1 or q.placements[dim] == Shard(0) or \
+            q.shape[1] % (2 * ways):
+        return None
+    return dim
+
+
+def _unzigzag(y: torch.Tensor, ways: int) -> torch.Tensor:
+    """(B, S, D) rows in rank order, rank r's chunks r and ``2 * ways - 1
+    - r`` side by side, back in sequence order."""
+    b, s, d = y.shape
+    y = y.reshape(b, ways, 2, s // (2 * ways), d)
+    return torch.cat([y[:, :, 0], y[:, :, 1].flip(1)], 1).reshape(b, s, d)
+
+
+def _zigzag_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int, wo: torch.Tensor, dim: int) -> torch.Tensor:
+    """Causal kernel-1 attention and its output projection, ``o @ wo``
+    (B, S, D), with the query sequence split over mesh dim ``dim``
+    (``model``, :func:`_zigzag_split`), as the heads cannot be.  Each
+    rank takes its batch rows and the two chunks :func:`_zigzag` gives
+    it, and makes one op call a chunk at the chunk's ``q_offset``, its
+    keys cut to ``[first key, end)``; k and v stay as they are placed
+    (whole over ``model``: their KV heads do not split it either).  So
+    every rank runs every head on 1 / ``model`` of the sequence, and the
+    traced rank counts a rank's share of the causal work.
+
+    The output: each rank projects its chunks with ``wo`` gathered whole
+    (FSDP's gather of a weight) and the projected rows are gathered over
+    ``model`` and put back in sequence order, whole over ``model`` as
+    :func:`_shard_act` holds the residual stream.  That moves ``wo``
+    (``H hd x D``, a few MB) and one (B, S, D) gather of the rank's rows.
+    Gathering the attention output instead moves (B, S, H hd), as large,
+    and then the product with ``wo``'s ``model``-split rows leaves a
+    partial sum over ``model`` whose all-reduce moves the (B, S, D) rows
+    again: so ``wo`` is gathered.
+
+    The backward is the op's VJP on the chunks: q's gradient is nonzero
+    only on the rank's chunks and k's and v's cover the keys its chunks
+    read, so all three are partial sums over ``model``; ``wo``'s is a
+    partial sum over ``model`` and the dims that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    b, s = q.shape[:2]
+    ways = mesh.size(dim)
+    rows = [i != dim and p == Shard(0) and b > 1
+            for i, p in enumerate(q.placements)]
+    p_in = tuple(Shard(0) if r else Replicate() for r in rows)
+    g_in = tuple(Partial() if i == dim else p for i, p in enumerate(p_in))
+    whole = tuple(Replicate() for _ in rows)
+    g_wo = tuple(Partial() if i == dim or r else Replicate()
+                 for i, r in enumerate(rows))
+    # the rank's chunks side by side: read as a split of the sequence in
+    # rank order, which the gather below keeps and _unzigzag undoes
+    p_out = tuple(Shard(1) if i == dim else p for i, p in enumerate(p_in))
+    chunks = _zigzag(s, ways, mesh.get_local_rank(dim), window)
+
+    def attend(q_, k_, v_, wo_):
+        # narrow, not slices: see _flash_attend
+        outs = []
+        for q0, q1, k0 in chunks:
+            o = attn_mod.flash_attention(
+                q_.narrow(1, q0, q1 - q0), k_.narrow(1, k0, q1 - k0),
+                v_.narrow(1, k0, q1 - k0), causal=True, window=window,
+                q_offset=q0 - k0)
+            outs.append(o.reshape(o.shape[0], q1 - q0, -1) @ wo_)
+        return torch.cat(outs, 1)
+    y = local_map(attend, out_placements=(p_out,),
+                  in_placements=(p_in, p_in, p_in, whole),
+                  in_grad_placements=(g_in, g_in, g_in, g_wo),
+                  device_mesh=mesh, redistribute_inputs=True)(q, k, v, wo)
+    y = y.redistribute(mesh, p_in)
+    return local_map(functools.partial(_unzigzag, ways=ways),
+                     out_placements=(p_in,), in_placements=(p_in,),
+                     device_mesh=mesh)(y)
+
+
+def _attention_out(blk, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: ModelConfig, window: int) -> torch.Tensor:
+    """Causal attention of q (B, S, H, hd) over k, v and its output
+    projection ``wo``: (B, S, D)."""
+    b, s = q.shape[:2]
+    if not cfg.use_flash:
+        o = attn_mod.dense_attention(q, k, v, causal=True, window=window)
+    else:
+        dim = _zigzag_split(q, k.shape[2])
+        if dim is not None:
+            return _zigzag_attend(q, k, v, window, blk["wo"], dim)
+        o = _flash_attend(q, k, v, window)
+    return o.reshape(b, s, -1) @ blk["wo"]
+
+
 def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
                     positions: torch.Tensor):
     """(x after the block, its aux loss or None, (k, v))."""
-    b, s, _ = x.shape
     q, k, v = _qkv(blk, x, cfg, positions)
-    if cfg.use_flash:
-        o = _flash_attend(q, k, v, window)
-    else:
-        o = attn_mod.dense_attention(q, k, v, causal=True, window=window)
-    x = _shard_act(x + o.reshape(b, s, -1) @ blk["wo"])
+    x = _shard_act(x + _attention_out(blk, q, k, v, cfg, window))
     m, aux = _mlp(blk, x, cfg)
     return _shard_act(x + m), aux, (k, v)
 
@@ -370,25 +497,101 @@ def _embed(params: LMParams, cfg: ModelConfig,
     return _lookup(emb, tokens) * scale
 
 
+def _lookup_plan(emb: torch.Tensor, tokens: torch.Tensor) -> Tuple:
+    """Which of the mesh dims that split the (V, D) table ``emb`` keep it
+    split in :func:`_lookup` (the others gather it), by the bytes a rank
+    receives: (the kept vocab dims, the kept D dims).
+
+    A dim that gathers the table receives ``(n - 1) / n`` of the gathered
+    slice, ``V_f x D_f`` (the rows and columns that the kept dims leave a
+    rank); FSDP gathers a weight so.  A dim that keeps it gathers the
+    tokens that it splits instead (a few bytes each) and moves the
+    looked-up rows, ``T_f x D_f`` (``T_f`` the rank's tokens times the
+    kept dims that split them): ``(n - 1) / n`` of them by a
+    reduce-scatter of the vocab shards' partial sums or an all-to-all
+    that gives the D slices back to the tokens' ranks, where the dim
+    splits the tokens; where it does not, an all-reduce (twice that) or
+    an all-gather of the D slices (``n - 1`` times).  So the rule for D's
+    split over ``data`` reads: gather the table slice, ``V / model x D``,
+    where it moves fewer bytes than the data group's tokens' rows, ``T x
+    D / data`` for each of its ``data`` ranks: in decode the tokens are
+    few and the slice stays split; in a 32k prefill the slice is gathered.
+    At least one vocab dim keeps its split, so no rank ever holds the
+    whole table or its gradient.  Where one tensor dim is split over
+    several mesh dims (the ``dp`` profile's vocab over (data, model)),
+    only an inner run of them is gathered (one all-gather each; an outer
+    one would gather through the inner ones)."""
+    from torch.distributed.tensor import Shard
+    mesh = emb.device_mesh
+    sizes = [mesh.size(i) for i in range(mesh.ndim)]
+    split_t = [isinstance(p, Shard) for p in tokens.placements]
+    vocab = [i for i, p in enumerate(emb.placements) if p == Shard(0)]
+    cols = [i for i, p in enumerate(emb.placements) if p == Shard(1)]
+    v, d = emb.shape
+    tok = tokens.numel() / math.prod(n for n, t in zip(sizes, split_t)
+                                     if t)
+    best = None
+    for kv in range(1 if vocab else 0, len(vocab) + 1):
+        for kd in range(len(cols) + 1):
+            keep_v, keep_d = vocab[:kv], cols[:kd]
+            vf = v / math.prod(sizes[i] for i in keep_v)
+            df = d / math.prod(sizes[i] for i in keep_d)
+            tf = tok * math.prod(sizes[i] for i in keep_v + keep_d
+                                 if split_t[i])
+            cost = sum(vf * df * (sizes[i] - 1) / sizes[i]
+                       for i in vocab[kv:] + cols[kd:])
+            for i in keep_v + keep_d:
+                part = tf * df * (sizes[i] - 1) / sizes[i]
+                cost += part if split_t[i] else \
+                    part * (2 if i in keep_v else sizes[i])
+            if best is None or cost < best[0]:
+                best = (cost, keep_v, keep_d)
+    return best[1], best[2]
+
+
 def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``emb[tokens]``.  On a mesh each rank looks its own tokens up in the
-    whole table, gathered (DTensor's rule for the backward's
-    ``index_put`` fails in some torch releases); the table's gradient is
-    then a partial sum over the mesh dims that split the tokens."""
+    """``emb[tokens]``.  On a mesh each rank looks tokens up only in its
+    own shard of the table, placed as :func:`_lookup_plan` keeps it: on a
+    dim that keeps the vocab split, every token of the dim's group in the
+    rank's vocab rows, those outside them giving 0 (as ``layers.
+    _label_logits`` gathers the labels), so the rows are a partial sum
+    over the vocab shards; on a dim that keeps D split, the group's
+    tokens in the rank's D columns.  The rows are then reduced to the
+    tokens' own placement (the activation's).  The table's gradient stays
+    on the rank's shard: complete over the kept dims, whose ranks saw
+    every token of the group, and a partial sum over the other dims that
+    split the tokens, reduced back to the parameter's placement."""
     if not ctx.is_dtensor(emb):
         return emb[tokens.to(torch.long)]
     from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
-    split = [isinstance(p, Shard) for p in tokens.placements]
-    whole = tuple(Replicate() for _ in split)
-    return local_map(
-        lambda e, t: e[t.to(torch.long)],
-        out_placements=(tuple(tokens.placements),),
-        in_placements=(whole, tuple(tokens.placements)),
-        in_grad_placements=(tuple(Partial() if s else Replicate()
-                                  for s in split),
-                            tuple(tokens.placements)),
-        device_mesh=emb.device_mesh, redistribute_inputs=True)(emb, tokens)
+    mesh = emb.device_mesh
+    keep_v, keep_d = _lookup_plan(emb, tokens)
+    p_tok = tuple(tokens.placements)
+    p_emb, p_in, p_out, g_emb = [], [], [], []
+    for i, p in enumerate(p_tok):
+        split = isinstance(p, Shard)
+        kept = Shard(0) if i in keep_v else Shard(1) if i in keep_d else None
+        p_emb.append(kept or Replicate())
+        p_in.append(Replicate() if kept else p)
+        p_out.append(Partial() if i in keep_v else Shard(2) if kept else p)
+        g_emb.append(kept or (Partial() if split else Replicate()))
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(emb.shape), mesh, tuple(p_emb))
+    first, rows = int(offset[0]), int(local[0])
+
+    def look(e, t):
+        idx = t.to(torch.long) - first
+        mine = (idx >= 0) & (idx < rows)
+        got = e[idx.clamp(0, rows - 1)]
+        return torch.where(mine[..., None], got, torch.zeros_like(got))
+    out = local_map(look, out_placements=(tuple(p_out),),
+                    in_placements=(tuple(p_emb), tuple(p_in)),
+                    in_grad_placements=(tuple(g_emb), tuple(p_in)),
+                    device_mesh=mesh, redistribute_inputs=True)(emb, tokens)
+    return out.redistribute(mesh, p_tok)
 
 
 def _embed_inputs(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,

@@ -180,11 +180,14 @@ class _OpCalls:
 
     def __init__(self):
         self.calls = []
+        self.offsets = []
         self._op = tfm.attn_mod.flash_attention
 
     def __enter__(self):
         def op(q, k, v, **kwargs):
             self.calls.append((ctx.is_dtensor(q), q.shape[2], k.shape[2]))
+            self.offsets.append((q.shape[1], k.shape[1],
+                                 kwargs.get("q_offset", 0)))
             return self._op(q, k, v, **kwargs)
         tfm.attn_mod.flash_attention = op
         return self
@@ -248,6 +251,158 @@ def case_grads_heads(mesh24):
                          for n, a, g in zip(names, want, got)},
             "grad_scale": max(float(a.abs().max()) for a in want),
             "calls": rec.calls}
+
+
+def _grad_gaps(cfg, mesh, profile="2d", seq_axes=()):
+    """Every parameter's gradient of ``cfg``'s loss on 8 x 16 tokens with
+    the parameters and the batch on ``mesh`` (``profile``) against plain
+    tensors: the largest gap by name, the largest gradient, the flash
+    op's calls and the logits' gap."""
+    batch = _batch(cfg)
+    params = init_state(cfg, SEED, adamw(), device="cpu").params
+
+    def grads(ps, b):
+        logits, _ = tfm.forward(ps, cfg, b["tokens"])
+        loss, _ = tfm.loss_fn(ps, cfg, b)
+        named = dict(ps.named_parameters())
+        return logits, dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))
+    want_logits, want = grads(params, batch)
+    with ctx.use_mesh(mesh):
+        ctx.set_seq_axes(seq_axes)
+        try:
+            ps = sharding.distribute(params, _shardings(params, mesh,
+                                                        profile, cfg))
+            bs = sharding.distribute(batch, sharding.tree_shardings(
+                sharding.batch_specs(batch, mesh, profile=profile), mesh))
+            with _OpCalls() as rec:
+                logits, got = grads(ps, bs)
+        finally:
+            ctx.set_seq_axes(())
+    return {"grad_gap": {n: float((a - _full(got[n])).abs().max())
+                         for n, a in want.items()},
+            "grad_scale": max(float(a.abs().max()) for a in want.values()),
+            "logit_gap": float((want_logits - _full(logits).detach())
+                               .abs().max()),
+            "calls": rec.calls, "offsets": rec.offsets}
+
+
+def _six_heads(window):
+    """Smoke qwen3 with 6 query heads over 2 KV heads, which do not divide
+    ``model=4``; with a window of 5 on its first layer."""
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-0.6b")),
+                              n_heads=6, n_kv_heads=2)
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window,
+                                  global_every=2)
+    return cfg
+
+
+def case_zigzag(mesh24):
+    """Prefill and training where the heads do not divide ``model``: 6
+    query heads over 2 KV heads on the 2x4 mesh, 16 positions split into
+    8 chunks of 2, two a ``model`` rank (the zig-zag), with and without a
+    window: a 16-token prefill and 2 ticks (logits and both caches) and
+    the loss's gradients, against plain tensors."""
+    out = {}
+    for tag, window in (("causal", 0), ("window", 5)):
+        cfg = _six_heads(window)
+        try:
+            with _OpCalls() as rec:
+                got = _serve_gaps(cfg, mesh24, prompt=16, ticks=2,
+                                  max_seq=20)
+            got["offsets"] = rec.offsets
+        except Exception:
+            got = {"error": traceback.format_exc()}
+        try:
+            got["grads"] = _grad_gaps(cfg, mesh24)
+        except Exception:
+            # the prefill's results stand where a torch release's DTensor
+            # refuses the backward (torch 2.11: the KV heads' view)
+            got["grads"] = {"error": traceback.format_exc()}
+        out[tag] = got
+    return out
+
+
+def case_lookup(mesh8):
+    """The per-shard embedding lookup under ``2d`` and ``dp`` (smoke qwen3
+    on the 4x2 mesh) and ``sp`` (smoke mamba2, as ``case_sp`` trains it:
+    the sequence over 'model'): logits and every gradient, the table's
+    among them, against plain tensors, and the dims that keep the table
+    split."""
+    out = {}
+    for profile, seq, arch in (("2d", (), "qwen3-0.6b"),
+                               ("dp", (), "qwen3-0.6b"),
+                               ("sp", ("model",), "mamba2-130m")):
+        try:
+            out[profile] = _lookup_gaps(arch, mesh8, profile, seq)
+        except Exception:
+            # one profile's failure (some torch releases' DTensor refuses
+            # a view under dp) leaves the others' results standing
+            out[profile] = {"error": traceback.format_exc()}
+    return out
+
+
+def _lookup_gaps(arch, mesh8, profile, seq):
+    """:func:`_grad_gaps` of ``arch`` under ``profile``, and the lookup's
+    plan and the table's placements."""
+    cfg = smoke_config(get_config(arch))
+    got = _grad_gaps(cfg, mesh8, profile, seq)
+    p = tfm.init_params(cfg, SEED, device="cpu")
+    batch = _batch(cfg)
+    with ctx.use_mesh(mesh8):
+        ctx.set_seq_axes(seq)
+        try:
+            ps = sharding.distribute(p, _shardings(p, mesh8, profile, cfg))
+            bs = sharding.distribute(batch, sharding.tree_shardings(
+                sharding.batch_specs(batch, mesh8, profile=profile), mesh8))
+            got["plan"] = [list(x) for x in tfm._lookup_plan(
+                ps["embed"], bs["tokens"])]
+            got["embed"] = [_name(x) for x in ps["embed"].placements]
+        finally:
+            ctx.set_seq_axes(())
+    return got
+
+
+def case_swiglu(mesh8, mesh24):
+    """``layers.swiglu`` per shard on x (8, 16, 64) and weights of F 128
+    placed by the ``2d`` rules (x batch-split over 'data', F over
+    'model') on both meshes and by ``dp`` (x and the weights over the
+    whole mesh) on the 4x2 mesh: its output and the gradients of x and
+    the three weights, against plain tensors."""
+    from repro_torch.models.layers import swiglu
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(8, 16, 64, generator=gen)
+    w = {"w_gate": torch.randn(64, 128, generator=gen) / 8,
+         "w_up": torch.randn(64, 128, generator=gen) / 8,
+         "w_down": torch.randn(128, 64, generator=gen) / 12}
+    g = torch.randn(8, 16, 64, generator=gen)
+    leaves = [x] + list(w.values())
+
+    def run(ts):
+        ts = [t.detach().requires_grad_(True) for t in ts]
+        y = swiglu(*ts)
+        return [y] + list(torch.autograd.grad(y, ts, g if not
+                                              ctx.is_dtensor(y) else
+                                              _like(g, y)))
+    want = run(leaves)
+    out = {}
+    for tag, mesh, profile in (("2d_4x2", mesh8, "2d"),
+                               ("2d_2x4", mesh24, "2d"),
+                               ("dp_4x2", mesh8, "dp")):
+        with ctx.use_mesh(mesh):
+            ws = sharding.distribute(w, sharding.tree_shardings(
+                sharding.param_specs(w, mesh, profile), mesh))
+            xs = sharding.distribute({"x": x}, sharding.tree_shardings(
+                sharding.batch_specs({"x": x}, mesh, profile=profile),
+                mesh))["x"]
+            got = run([xs] + list(ws.values()))
+        out[tag] = {
+            "gaps": [float((a - _full(b).detach()).abs().max())
+                     for a, b in zip(want, got)],
+            "scale": max(float(a.abs().max()) for a in want),
+            "placements": [_name(p) for p in ws["w_gate"].placements]}
+    return out
 
 
 def case_decode(mesh8):
@@ -367,6 +522,9 @@ def main(cases, rank, world, out_dir):
                    ("prefill_heads",
                     lambda: case_prefill_heads(mesh8, mesh24)),
                    ("grads_heads", lambda: case_grads_heads(mesh24)),
+                   ("zigzag", lambda: case_zigzag(mesh24)),
+                   ("lookup", lambda: case_lookup(mesh8)),
+                   ("swiglu", lambda: case_swiglu(mesh8, mesh24)),
                    ("constrain", lambda: case_constrain(mesh8)),
                    ("production_mesh", case_production_mesh),
                    ("save", lambda: case_save(mesh8, out_dir))]

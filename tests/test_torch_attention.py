@@ -169,6 +169,144 @@ def test_decode_attention_split_matches_reference(window, ranges):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+#: query offsets of the offset cases: none, one, inside a chunk, past
+#: several chunks and past the window
+OFFSETS = (0, 1, 37, 200)
+
+
+def _offset_inputs(q_offset, window, rep, sq=40):
+    """q (1, sq, 2 * rep, 16) at positions q_offset.., k and v (1, q_offset
+    + sq + 5, 2, 16): keys past the last query too (causally masked)."""
+    rng = np.random.default_rng(100 + q_offset + window + rep)
+    skv = q_offset + sq + 5
+    return (_rand(rng, (1, sq, 2 * rep, 16)), _rand(rng, (1, skv, 2, 16)),
+            _rand(rng, (1, skv, 2, 16)))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("window", [0, 23])
+@pytest.mark.parametrize("q_offset", OFFSETS)
+def test_offset_attention_matches_reference(q_offset, window, rep):
+    """A query chunk at ``q_offset``, causal, with and without a window,
+    GQA rep 1 and 4: the port's ``chunked_attention`` (its block skip
+    shifted by the offset) and ``flash_attention_plain`` (the kernel's
+    oracle, (B, H, S, D)) against the reference's ``dense_attention`` and
+    its chunked ``flash_attention`` at the same offset, fp32, rtol 1e-5
+    (atol ATOL for outputs near 0)."""
+    q, k, v = _offset_inputs(q_offset, window, rep)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    dense = np.asarray(ref_attn.dense_attention(
+        jq, jk, jv, causal=True, window=window, q_offset=q_offset))
+    chunked = np.asarray(ref_attn.flash_attention(
+        jq, jk, jv, causal=True, window=window, q_offset=q_offset,
+        chunk_q=16, chunk_kv=16))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = attn.chunked_attention(tq, tk, tv, causal=True, window=window,
+                                 chunk_q=16, chunk_kv=16,
+                                 q_offset=q_offset).numpy()
+    plain = fa.flash_attention_plain(
+        tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), True,
+        window, q_offset).transpose(1, 2).numpy()
+    layout = attn.flash_attention(tq, tk, tv, causal=True, window=window,
+                                  q_offset=q_offset).numpy()
+    for name, out in (("chunked", got), ("plain", plain),
+                      ("model layout", layout)):
+        for want in (dense, chunked):
+            np.testing.assert_allclose(out, want, rtol=1e-5, atol=ATOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("window", [0, 23])
+@pytest.mark.parametrize("q_offset", OFFSETS[1:])
+def test_offset_gradient_matches_autograd_through_plain(q_offset, window):
+    """The op's gradient at ``q_offset`` > 0 (the VJP of the chunked
+    attention at the offset, in small chunks so that blocks are skipped)
+    against autograd through ``flash_attention_plain``."""
+    q, k, v = (torch.from_numpy(t).transpose(1, 2)
+               for t in _offset_inputs(q_offset, window, 2))
+    g = torch.from_numpy(_rand(np.random.default_rng(q_offset),
+                               tuple(q.shape)))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    old = fa.VJP_CHUNKS
+    fa.VJP_CHUNKS = (16, 16)
+    try:
+        got = torch.autograd.grad(fa.flash_attention(
+            *leaves, causal=True, window=window, q_offset=q_offset),
+            leaves, g)
+    finally:
+        fa.VJP_CHUNKS = old
+    want = torch.autograd.grad(fa.flash_attention_plain(
+        *leaves, True, window, q_offset), leaves, g)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=ATOL, err_msg=f"d{name}")
+
+
+def _pairs_by_mask(sq, skv, q_offset, window):
+    """Allowed (query, key) pairs counted on the whole boolean mask."""
+    qpos = q_offset + np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    ok = kpos <= qpos
+    if window:
+        ok &= qpos - kpos < window
+    return int(ok.sum())
+
+
+@pytest.mark.parametrize("window", [0, 23])
+@pytest.mark.parametrize("q_offset", OFFSETS)
+def test_flash_cost_counts_the_offset_mask(q_offset, window):
+    """``costmodel.flash_attention_cost`` at an offset: 4 D FLOPs a pair
+    per head, the pairs those of a brute-force count of the mask."""
+    from repro_torch.core.costmodel import flash_attention_cost
+    for skv in (q_offset + 40, q_offset + 45, 30):
+        q = torch.zeros(2, 3, 40, 16)
+        k = torch.zeros(2, 1, skv, 16)
+        cost = flash_attention_cost(q, k, k, True, window, q_offset)
+        pairs = _pairs_by_mask(40, skv, q_offset, window)
+        assert cost.flops == 4.0 * 2 * 3 * 16 * pairs, (skv, pairs)
+
+
+@pytest.mark.parametrize("s, ways, window", [(32768, 16, 0),
+                                             (32768, 16, 1024),
+                                             (32832, 16, 0), (64, 4, 0),
+                                             (64, 4, 5)])
+def test_zigzag_chunks_give_every_rank_the_same_work(s, ways, window):
+    """The query-sequence split of a prefill whose heads do not divide
+    ``model`` (``transformer._zigzag``): every rank's two chunks cover
+    the sequence once between them, each chunk's keys start where its
+    window does, and the cost model (with the chunks' offsets, as the dry
+    run counts them) sums them to the whole sequence's count.  Causal,
+    every rank's pair of chunks counts the same FLOPs within 1%.  With a
+    window a row's work is flat past the window's first rows, so every
+    rank but rank 0 counts the same within 1%, and rank 0, whose first
+    chunk holds those rows, less by their triangle."""
+    from repro_torch.core.costmodel import flash_attention_cost
+    from repro_torch.models.transformer import _zigzag
+
+    def cost(sq, skv, q_offset):
+        q = torch.empty(1, 1, sq, 8, device="meta")
+        k = torch.empty(1, 1, skv, 8, device="meta")
+        return flash_attention_cost(q, k, k, True, window, q_offset).flops
+    rows, flops = [], []
+    for r in range(ways):
+        chunks = _zigzag(s, ways, r, window)
+        assert len(chunks) == 2
+        total = 0.0
+        for q0, q1, k0 in chunks:
+            rows.extend(range(q0, q1))
+            assert k0 == (max(0, q0 - window + 1) if window else 0)
+            total += cost(q1 - q0, q1 - k0, q0 - k0)
+        flops.append(total)
+    assert sorted(rows) == list(range(s))
+    assert sum(flops) == cost(s, s, 0)
+    if not window:
+        assert max(flops) / min(flops) - 1 < 0.01, flops
+    else:
+        assert max(flops) / min(flops[1:]) - 1 < 0.01, flops
+        triangle = 4.0 * 8 * window * (window - 1) / 2
+        assert flops[0] == max(flops[1:]) - triangle, flops
+
+
 def test_flash_wrapper_rejects_bad_shapes():
     x = torch.zeros((1, 3, 8, 16))
     with pytest.raises(ValueError, match="multiple of kv heads"):
@@ -176,3 +314,5 @@ def test_flash_wrapper_rejects_bad_shapes():
                            torch.zeros((1, 2, 8, 16)))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(x, x, x, window=-1)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(x, x, x, q_offset=-1)

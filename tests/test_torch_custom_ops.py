@@ -99,7 +99,8 @@ def _ssd_op_grads(arrays, chunk):
 
 def test_opcheck_flash_attention():
     """Plain inputs and the model's transposed views (B, S, H, D) ->
-    (B, H, S, D), causal with a window and not."""
+    (B, H, S, D), causal with a window and not, and a query chunk at a
+    ``q_offset`` (the schema's default 0 where it is left out)."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 9, 4, 16)).astype(
         np.float32)).requires_grad_(True)
@@ -112,7 +113,9 @@ def test_opcheck_flash_attention():
                   True, 3),
                  (q.detach().transpose(1, 2).contiguous(),
                   k.detach().transpose(1, 2).contiguous(),
-                  v.detach().transpose(1, 2).contiguous(), False, 0)):
+                  v.detach().transpose(1, 2).contiguous(), False, 0),
+                 (q.transpose(1, 2)[:, :, 4:], k.transpose(1, 2),
+                  v.transpose(1, 2), True, 3, 4)):
         result = torch.library.opcheck(op, args)
         assert set(result.values()) == {"SUCCESS"}, result
 

@@ -102,6 +102,10 @@ SPLIT_CELLS = ("prefill_32k", "decode_32k")
 #: the split mesh's decode collective bytes a device over the
 #: reference's, at most
 SPLIT_COLLECTIVES = 2.0
+#: the (1, 8) mesh: smoke qwen3's 4 heads do not divide ``model=8``, so
+#: prefill splits the query sequence over ``model`` (two chunks of 32 of
+#: the 512 positions a rank)
+ZIGZAG_MESH = (1, 8)
 
 _REFERENCE = textwrap.dedent("""
     import dataclasses, json, re, sys
@@ -163,6 +167,51 @@ _PORT = textwrap.dedent("""
 """) + _SHAPES_CODE + textwrap.dedent("""
     out = {"cells": {}, "tracked": {}, "split": {}}
     mesh = [(4, 2)]
+    # each traced graph's kernel-op FLOPs, and the output shapes of the
+    # collectives recorded while the embedding lookup ran, written into
+    # the cell they were read for
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models import transformer as tfm
+    seen = {"lookup": []}
+    inside = []
+    lookup, record, analyze = (tfm._lookup, hlo_analysis._Recorder._record,
+                               hlo_analysis.analyze)
+
+    def looking(*args):
+        inside.append(True)
+        try:
+            return lookup(*args)
+        finally:
+            inside.pop()
+
+    def noting(self, func, args, kwargs, out):
+        if inside and hlo_analysis.collective_class(func):
+            seen["lookup"].append(list(getattr(out, "shape", ())))
+        return record(self, func, args, kwargs, out)
+
+    def spy(graphs, chips):
+        kernel = 0.0
+        for g in hlo_analysis._graphs(graphs):
+            for node in g.nodes:
+                if node.op == "call_function" and \
+                        getattr(node.target, "namespace", "") == "repro_torch":
+                    kernel += hlo_analysis.node_flops(
+                        node.target, hlo_analysis._vals(node.args),
+                        hlo_analysis._vals(node.kwargs),
+                        node.meta.get("val"))[0]
+        seen["kernel_flops"] = kernel
+        return analyze(graphs, chips)
+    tfm._lookup, hlo_analysis._Recorder._record = looking, noting
+    hlo_analysis.analyze = spy
+    run_cell = dryrun.run_cell
+
+    def run_and_spy(*args, **kwargs):
+        seen["lookup"] = []
+        cell = run_cell(*args, **kwargs)
+        cell["lookup_collectives"] = seen["lookup"]
+        cell["kernel_flops"] = seen.get("kernel_flops", 0.0)
+        return cell
+    dryrun.run_cell = run_and_spy
     dryrun.make_production_mesh = lambda multi_pod=False, device=None: \\
         make_mesh(mesh[0], ("data", "model"), device=device)
     dryrun.get_config = lambda a: smoke_config(get_config(a))
@@ -182,6 +231,9 @@ _PORT = textwrap.dedent("""
     for s in SPLIT_SHAPES:
         out["split"][s] = dryrun.run_cell("qwen3-0.6b", s, verbose=False,
                                           device="cpu")
+    mesh[0] = %(zigzag_mesh)r
+    out["zigzag"] = dryrun.run_cell("qwen3-0.6b", "prefill_32k",
+                                    verbose=False, device="cpu")
     dist.destroy_process_group()
 
     # one rank: the dry run against the tracker on the same eager step
@@ -218,7 +270,8 @@ _PORT = textwrap.dedent("""
         out["refused"] = str(e)
     dist.destroy_process_group()
     print(json.dumps(out))
-""" % {"archs": ARCHS, "split_mesh": SPLIT_MESH})
+""" % {"archs": ARCHS, "split_mesh": SPLIT_MESH,
+       "zigzag_mesh": ZIGZAG_MESH})
 
 
 def _start(args, env):
@@ -247,6 +300,9 @@ def runs(tmp_path_factory):
     refs.update({("split", s): _start(["-c", _REFERENCE, "qwen3-0.6b", s,
                                        split], ref_env)
                  for s in SPLIT_CELLS})
+    refs["zigzag", "prefill_32k"] = _start(
+        ["-c", _REFERENCE, "qwen3-0.6b", "prefill_32k",
+         ",".join(str(n) for n in ZIGZAG_MESH)], ref_env)
     port = _start(["-c", _PORT], env)
     cli = [_start(["-m", "repro_torch.launch.dryrun", "--device", "cpu",
                    "--arch", "mamba2-130m", "--shape", shape, "--out",
@@ -310,6 +366,70 @@ def test_split_mesh_cell_matches_the_reference(runs, shape):
     else:
         assert FLOPS_BAND[0] < ratio < FLOPS_BAND[1], ratio
         assert coll <= SPLIT_COLLECTIVES, coll
+
+
+def test_zigzag_prefill_cell_matches_the_reference(runs):
+    """Smoke qwen3's prefill on the (1, 8) mesh, where its 4 heads do not
+    divide ``model=8``: each rank runs every head on its two chunks of the
+    query sequence (FLOPs within FLOPS_REL of the reference's; every rank
+    ran the whole sequence before), and gathers the projected rows, not
+    the attention's output and a partial sum (collective bytes at most
+    SPLIT_COLLECTIVES times the reference's)."""
+    port, ref = runs["port"]["zigzag"], runs["ref"]["zigzag", "prefill_32k"]
+    assert port["status"] == ref["status"] == "ok"
+    assert port["mesh"] == ref["mesh"] == {"data": 1, "model": 8}
+    ratio = port["flops_per_device"] / ref["flops_per_device"]
+    coll = (port["collective_bytes_per_device"]
+            / max(ref["collective_bytes_per_device"], 1.0))
+    print(f"(1, 8) prefill_32k: port/reference FLOPs a device {ratio:.3f}, "
+          f"collective bytes {coll:.3f}")
+    assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+    assert coll <= SPLIT_COLLECTIVES, coll
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_products_match_the_reference(runs, arch):
+    """A train cell's products: the port's matmul FLOPs and its kernel
+    ops' (attention's q.k and p.v, the SSD scan's) within FLOPS_REL of
+    the dots of the reference's compiled program: the MLP's products run
+    per shard (``layers.swiglu``), each rank's own tokens against the
+    gathered weights, as XLA runs them."""
+    port, ref = _pair(runs, arch, "train_4k")
+    products = port["xla_cost_analysis"]["flops"] + port["kernel_flops"]
+    ratio = products / ref["dot_flops"]
+    print(f"{arch} train_4k: port/reference product FLOPs a device "
+          f"{ratio:.3f}")
+    assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+
+
+def _table_shapes(cell, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    cfg = smoke_config(get_config(arch))
+    v, d = cfg.vocab_size, cfg.d_model
+    return {(v, d), (v, d // cell["mesh"]["data"])}
+
+
+@pytest.mark.parametrize("cell", [f"{a}/{s}" for a in ARCHS for s in SHAPES]
+                         + ["split/prefill_32k", "split/decode_32k",
+                            "zigzag/prefill_32k"])
+def test_no_collective_gathers_the_embedding_table(runs, cell):
+    """No collective of the embedding lookup (``transformer._lookup``,
+    the collectives recorded while it runs) outputs the table's (V, D) or
+    (V, D / data) shape: each rank looks tokens up in its own vocab rows,
+    and no rank gathers the table's vocab split.  (The output projection
+    of a model with tied embeddings is a product of its own: under
+    ``dp`` it gathers the table as FSDP gathers a weight.)  Every cell's
+    lookup moves something: tokens or rows."""
+    group, shape = cell.split("/")
+    port = (runs["port"]["split"][shape] if group == "split" else
+            runs["port"]["zigzag"] if group == "zigzag" else
+            runs["port"]["cells"][cell])
+    arch = "qwen3-0.6b" if group in ("split", "zigzag") else group
+    table = _table_shapes(port, arch)
+    assert port["lookup_collectives"], port["collective_detail"]
+    gathered = [s for s in port["lookup_collectives"] if tuple(s) in table]
+    assert not gathered, (gathered, port["lookup_collectives"])
 
 
 @pytest.mark.parametrize("cell", [f"{a}/decode_32k" for a in ARCHS]

@@ -342,6 +342,57 @@ def test_flash_attention_kernel_matches_plain(sm90, case, dtype):
                 rel=8e-3 if dtype == torch.bfloat16 else 1e-4)
 
 
+#: b, h, kv, sq, skv, d, window, q_offset: query chunks of a longer
+#: sequence (the zig-zag prefill's first and last chunk of 256 at 32 x 256
+#: positions; keys cut where a window starts), offsets off the 64-row and
+#: 64-key tiles, every head dim's tiling (D 256: one m-tile a warp), GQA
+#: rep 1-16
+FLASH_OFFSET_CASES = [
+    (1, 16, 8, 256, 256, 128, 0, 0),
+    (1, 16, 8, 256, 8192, 128, 0, 7936),
+    (1, 4, 1, 256, 1279, 256, 1024, 1023),
+    (1, 24, 8, 100, 1037, 64, 0, 937),
+    (2, 8, 8, 77, 300, 64, 100, 223),
+    (1, 32, 2, 130, 200, 128, 0, 70),
+    (1, 32, 32, 65, 130, 80, 0, 65),
+    (1, 4, 4, 33, 50, 16, 0, 17),
+    (1, 4, 2, 40, 43, 32, 9, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES)
+def test_flash_attention_kernel_at_a_query_offset(sm90, case, dtype):
+    """Query row r at position ``q_offset + r``: the causal and window
+    bounds of the tiles, the tile skip and the element masks all move by
+    the offset (on the position, not on GQA's packed row index)."""
+    b, h, kv, sq, skv, d, window, q_offset = case
+    gen = torch.Generator(device=sm90).manual_seed(sum(case))
+    q, k, v = (torch.randn((b, n, s_, d), generator=gen, device=sm90)
+               .to(dtype) for n, s_ in ((h, sq), (kv, skv), (kv, skv)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True, window=window,
+                             q_offset=q_offset)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _close_rows(got, fa.flash_attention_plain(q, k, v, True, window,
+                                              q_offset),
+                rel=8e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_offset_0_is_the_same(sm90):
+    """``q_offset=0`` computes bit for bit what the call without it does."""
+    gen = torch.Generator(device=sm90).manual_seed(9)
+    q = torch.randn((1, 16, 513, 128), generator=gen,
+                    device=sm90).to(torch.bfloat16)
+    k = torch.randn((1, 8, 513, 128), generator=gen,
+                    device=sm90).to(torch.bfloat16)
+    a = fa.flash_attention(q, k, k, causal=True, window=100)
+    b = fa.flash_attention(q, k, k, causal=True, window=100, q_offset=0)
+    assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_reads_model_layout_views(sm90):
     """(B, S, H, D) activations go in as permuted views, no copy."""
@@ -560,6 +611,26 @@ def test_flash_attention_op_gradient_on_the_card(sm90, causal, window):
     got = torch.autograd.grad(out, (q, k, v), cot)
     assert fa.LAUNCHES["flash_attention"] == before + 1
     plain = fa.flash_attention_plain(*views, causal=causal, window=window)
+    want = torch.autograd.grad(plain, (q, k, v), cot)
+    for a, b in zip(got, want):
+        _close_to_scale(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 33])
+def test_flash_attention_op_gradient_at_an_offset(sm90, window):
+    """The op's backward at ``q_offset`` 200 (a chunk of 100 queries
+    against 300 keys) against the plain version's autograd gradient."""
+    g = torch.Generator(device=sm90).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g, device=sm90)
+               .requires_grad_(True)
+               for shape in ((1, 8, 100, 64), (1, 4, 300, 64),
+                             (1, 4, 300, 64)))
+    out = fa.flash_attention(q, k, v, causal=True, window=window,
+                             q_offset=200)
+    cot = torch.randn(out.shape, generator=g, device=sm90)
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    plain = fa.flash_attention_plain(q, k, v, True, window, 200)
     want = torch.autograd.grad(plain, (q, k, v), cot)
     for a, b in zip(got, want):
         _close_to_scale(a, b)

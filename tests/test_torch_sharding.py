@@ -15,7 +15,10 @@ The attention cases hold the model's per-shard paths on the 2x4 and 4x2
 meshes: prefill logits and the loss's ``wq``/``wk``/``wv`` gradients
 with the query heads split over ``model`` (a KV head's gradient summed
 over the ranks that read it), and decode from per-shard softmax partials
-where the cache's sequence is split, at the same tolerances.
+where the cache's sequence is split, at the same tolerances; prefill
+and training with the query sequence split over ``model`` where the
+heads cannot be (6 heads on ``model=4``), the per-shard embedding lookup
+under ``2d``, ``dp`` and ``sp``, and the per-shard SwiGLU.
 """
 
 import json
@@ -162,6 +165,82 @@ def test_head_split_gradients_sum_over_shared_kv_heads(runs):
     assert got["grad_scale"] > 0, got
     for name, gap in got["grad_gap"].items():
         assert gap < PARAM_TOL, (name, got)
+
+
+def _zigzag_chunks(got):
+    return [tuple(c) for c in got["offsets"] if c[0] == 2]
+
+
+@pytest.mark.parametrize("tag", ["causal", "window"])
+def test_zigzag_prefill_matches_single_device(runs, tag):
+    """6 query heads over 2 KV heads on the 2x4 mesh: the heads do not
+    divide ``model=4``, so each ``model`` rank takes two chunks of 2 of
+    the 16 positions (``transformer._zigzag``), one op call a chunk at
+    its ``q_offset`` (rank 0: positions 0-1 and 14-15); with a window of 5
+    on the first layer, the last chunk's keys start at 10.  A prefill and
+    2 ticks (logits, both caches) against plain tensors, at the
+    tolerance above."""
+    got = _case(runs, "zigzag")[tag]
+    assert "error" not in got, got["error"]
+    chunks = _zigzag_chunks(got)
+    assert chunks[:2] == [(2, 2, 0), (2, 6, 4) if tag == "window"
+                          else (2, 16, 14)], got["offsets"]
+    assert (2, 16, 14) in chunks
+    for key in ("logit_gap", "k_gap", "v_gap"):
+        assert got[key] < 1e-4, (key, got)
+
+
+@pytest.mark.parametrize("tag", ["causal", "window"])
+def test_zigzag_gradients_match_single_device(runs, tag):
+    """The loss's gradients of every parameter with the query sequence
+    split as above (q's, k's and v's gradients partial sums over
+    ``model``), and the logits of that forward, against plain tensors at
+    the tolerances above."""
+    got = _case(runs, "zigzag")[tag]
+    grads = got["grads"]
+    assert "error" not in grads, grads["error"]
+    assert {tuple(c) for c in grads["offsets"]} == \
+        {(2, 2, 0), (2, 16, 14)} | ({(2, 6, 4)} if tag == "window" else
+                                    set()), grads["offsets"]
+    assert grads["logit_gap"] < 1e-4, grads
+    assert len(grads["grad_gap"]) == 24 and grads["grad_scale"] > 0
+    for name, gap in grads["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, grads)
+
+
+@pytest.mark.parametrize("profile, plan", [("2d", [[1], [0]]),
+                                           ("dp", [[0], []]),
+                                           ("sp", [[0], []])])
+def test_per_shard_lookup_matches_single_device(runs, profile, plan):
+    """The embedding lookup on each rank's shard of the table under
+    ``2d`` (vocab over 'model', D over 'data': decode-sized tokens keep
+    both split), ``dp`` and ``sp`` (vocab over both mesh dims: the inner
+    one, 'model', is gathered, 'data' keeps its split): the logits and
+    every gradient, the table's among them, against plain tensors, at
+    the tolerances above."""
+    got = _case(runs, "lookup")[profile]
+    assert "error" not in got, got["error"]
+    assert got["plan"] == plan, got["plan"]
+    assert got["logit_gap"] < LOSS_TOL, got
+    assert got["grad_scale"] > 0
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
+
+
+@pytest.mark.parametrize("tag, placements", [
+    ("2d_4x2", ["Shard(0)", "Shard(1)"]), ("2d_2x4", ["Shard(0)", "Shard(1)"]),
+    ("dp_4x2", ["Shard(1)", "Shard(1)"])])
+def test_per_shard_swiglu_matches_single_device(runs, tag, placements):
+    """``layers.swiglu`` per shard: ``2d`` (F over 'model' kept split, D
+    over 'data' gathered, the output a partial sum over 'model') and
+    ``dp`` (the weights gathered whole, the rank's own tokens): its
+    output and the gradients of x and the three weights within 1e-6 of
+    the largest value (fp32 sums over F's slices in another order)."""
+    got = _case(runs, "swiglu")[tag]
+    assert got["placements"] == placements, got
+    assert len(got["gaps"]) == 5
+    for gap in got["gaps"]:
+        assert gap <= 1e-6 * got["scale"], got
 
 
 def test_constrain_outside_and_inside_a_mesh(runs):
