@@ -231,14 +231,14 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     backward differentiates.  Every layer's ``wq``, ``wk``, ``wv``,
     ``q_norm``, ``k_norm`` (``in_proj``'s x, B, C and dt columns,
     ``conv_w``, ``a_log``, ``dt_bias``) with a non-zero gradient.  (b)
-    ``Trainer(cfg, batch=2, seq=4096)``: 10 steps with an async
-    checkpoint every 5, then a run crashed at step 7 by the failure
-    injector and a fresh trainer that restores step 5 and runs to 10;
-    every loss finite, the resumed losses of steps 6-10 bitwise the
+    ``Trainer(cfg, batch=2, seq=4096)``: 4 steps with an async
+    checkpoint every 2, then a run crashed at step 3 by the failure
+    injector and a fresh trainer that restores step 2 and runs to 4;
+    every loss finite, the resumed losses of steps 3-4 bitwise the
     uninterrupted run's, and each run's launches exactly steps x layers
     x 2 (the forward and remat's recompute).  Logged: ms a step (median
     after 2 warm-ups), tokens/s, peak memory, checkpoint bytes and the
-    seconds the loop waited on them, the device-busy share of 5 more
+    seconds the loop waited on them, the device-busy share of 3 more
     steps under ``torch.profiler`` with the forward kernels' device ms,
     and one op call's forward kernel and backward VJP device ms.  (c)
     ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 3
@@ -271,7 +271,14 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     One Qwen3-0.6B prefill of ``SHARDED_PREFILL`` tokens and
     ``SHARDED_TICKS`` decode ticks with the parameters on the mesh and
     the cache placed by ``cache_specs``: every logit bitwise the plain
-    path's, flash launched once a layer.
+    path's, flash launched once a layer.  (d) The sharded programs that
+    differ by torch release, on this machine's: the ``guard`` cases of
+    ``tests/sharding_ranks.py`` (the data- and sequence-parallel steps,
+    the head-split and zig-zag gradients, the dp and sp lookups, the
+    MoE router's gradient under ``2d`` and ``dp``, the tied head and
+    zamba2's Mamba2 layers under ``dp``) on ``GUARD_RANKS`` gloo CPU
+    ranks within ``GUARD_TIMEOUT_S``, held to the test file's
+    tolerances (``sharding_ranks.failures``).
 20. The dry run (``repro_torch.launch.dryrun``) on the production
     meshes, read from the traced per-rank graph: ``DRYRUN_CELLS``, each
     ``python -m repro_torch.launch.dryrun --device cuda`` as a process
@@ -283,7 +290,8 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     decode cell, and gemma3-1b at ``train_4k`` and at ``prefill_32k``,
     whose 4 heads do not divide ``model=16``, so its query sequence
     splits over ``model``), and phase 18 (c)'s step (Qwen3-0.6B, 2 x
-    4096) on a 1-rank fake mesh, all at once within
+    4096) on a 1-rank fake mesh, and zamba2-2.7b at ``train_4k``
+    (its Mamba2 layers per shard), all at once within
     ``DRYRUN_TIMEOUT_S``.  Every
     cell ``ok``; each cell's compute, memory and collective terms,
     bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
@@ -293,7 +301,10 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     per-shard softmax partials and the embedding looked up in each
     rank's shard, neither gathered); the gemma3 cells' FLOPs a device at
     most ``DRYRUN_FLOPS_OVER_REFERENCE`` times the reference's count
-    (``DRYRUN_REFERENCE_FLOPS``); and on the 1-rank cell,
+    (``DRYRUN_REFERENCE_FLOPS``); the gemma3 and zamba2 ``train_4k``
+    cells' collective bytes a device at most
+    ``DRYRUN_COLLECTIVES_OVER_REFERENCE`` times the reference's
+    (``DRYRUN_REFERENCE_COLLECTIVE_BYTES``); and on the 1-rank cell,
     its roofline step below phase 18's measured ms a step, and its
     FLOPs within ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s
     tracker summed over that step.
@@ -3039,8 +3050,8 @@ THROUGH_KERNEL = {"flash_attention": ("wq", "wk", "wv", "q_norm", "k_norm"),
                   "ssd": ("in_proj", "conv_w", "a_log", "dt_bias")}
 #: (b): Trainer(cfg, batch=2, seq=4096), train_4k's sequence length
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 10, 5, 7
-TRAIN_PROFILE_STEPS = 5
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_CRASH = 4, 2, 3
+TRAIN_PROFILE_STEPS = 3
 #: op calls (each with its gradient) profiled for the VJP's device ms
 VJP_CALLS = 3
 #: (c)-(d): the CLI's tracked step and the distributed prediction
@@ -3515,14 +3526,15 @@ def train_lm(torch, cfg, device, kname, kmod, tmp) -> dict:
         f"{a.checkpoint_wait_s:.2f} s on {TRAIN_STEPS // TRAIN_EVERY + 1} "
         f"saves (device-to-host copies and joins)")
 
-    # the device's busy share over 5 more steps, and where it goes
-    def five():
+    # the device's busy share over TRAIN_PROFILE_STEPS more steps, and
+    # where it goes
+    def more():
         for s in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_PROFILE_STEPS):
             a.state, m = a.train_step(
                 a.state, to_device(a.data.batch_at(s), device))
         float(m["loss"])
     t0 = time.perf_counter()
-    wall, rows = profile_rows(torch, five)
+    wall, rows = profile_rows(torch, more)
     busy = sum(ms for ms, _, _ in rows)
     fwd = kernel_rows_ms(rows, kname)
     log(f"  {TRAIN_PROFILE_STEPS} steps under the profiler: wall "
@@ -3551,7 +3563,7 @@ def train_lm(torch, cfg, device, kname, kmod, tmp) -> dict:
     if kmod.LAUNCHES[kname] != TRAIN_CRASH * per_step:
         fail(f"{cfg.name} crashed run: {kmod.LAUNCHES[kname]} launches, not "
              f"{TRAIN_CRASH} steps x {per_step}")
-    b.wait_for_checkpoint()    # the crashed job's step-10 snapshot lands
+    b.wait_for_checkpoint()    # the crashed job's last snapshot lands
     del b
     torch.cuda.empty_cache()
     c = trainer("b")
@@ -3986,6 +3998,73 @@ def train_sharded(torch, device, kernel_mods, trained) -> dict:
     return out
 
 
+#: phase 19 (d): the ``guard`` cases of ``tests/sharding_ranks.py`` on 8
+#: gloo CPU ranks of this machine's torch release, within this limit
+GUARD_RANKS = 8
+GUARD_TIMEOUT_S = 150
+
+
+def sharding_guard() -> None:
+    """Phase 19 (d): the sharded cases whose DTensor programs differ by
+    torch release (the data- and sequence-parallel steps, the head-split
+    and zig-zag gradients, the dp and sp lookups, the MoE router's
+    gradient under ``2d`` and ``dp``, the tied head and zamba2's Mamba2
+    layers under ``dp``) on GUARD_RANKS gloo CPU ranks, one process a
+    rank, as ``tests/test_torch_sharding.py`` runs them: fails on any
+    case's error, any gap over the test file's tolerances, and any
+    collective that gives a rank other ranks' sequences
+    (``sharding_ranks.failures``), or past GUARD_TIMEOUT_S."""
+    import os
+    import signal
+    import tempfile
+    sys.path.insert(0, str(ROOT / "tests"))
+    import sharding_ranks
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "tests" / "sharding_ranks.py"),
+             "guard", str(rank), str(GUARD_RANKS), tmp], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True) for rank in range(GUARD_RANKS)]
+        logs = []
+        try:
+            for proc in procs:
+                left = GUARD_TIMEOUT_S - (time.perf_counter() - t0)
+                logs.append(proc.communicate(timeout=max(left, 1.0))[0])
+        except subprocess.TimeoutExpired:
+            fail(f"the guard cases took over {GUARD_TIMEOUT_S} s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        found = Path(tmp) / "guard.json"
+        if not found.exists():
+            log("\n".join(text[-3000:] for text in logs))
+            fail("the guard cases wrote no results")
+        results = json.loads(found.read_text())
+    missing = [c for c in sharding_ranks.GUARD_CASES if c not in results]
+    bad = sharding_ranks.failures(results)
+    seconds = results.get("seconds", {})
+    log(f"  (d) {len(sharding_ranks.GUARD_CASES)} guard cases on "
+        f"{GUARD_RANKS} gloo ranks in {wall:.1f} s (limit "
+        f"{GUARD_TIMEOUT_S} s): " + ", ".join(
+            f"{c} {seconds.get(c, 0.0):.1f} s" for c in results
+            if c != "seconds"))
+    router = [g for c in (results.get("ep", {}).get("grads", {}),
+                          results.get("ep_dp", {}))
+              for n, g in c.get("grad_gap", {}).items()
+              if n.endswith(".router")]
+    log(f"  torch {sharding_ranks.torch.__version__}: the MoE router's "
+        f"gradient gaps under 2d and dp {router} (below "
+        f"{sharding_ranks.PARAM_TOL:g}); failures: {bad or 'none'}")
+    if missing or bad:
+        fail(f"the guard cases: missing {missing}, failures {bad[:6]}")
+
+
 # ---------------------------------------------------------------------------
 # phase 20: the dry run on the production meshes
 # ---------------------------------------------------------------------------
@@ -3999,7 +4078,8 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("mamba2-130m", "long_500k", False),
                 ("qwen3-0.6b", "decode_32k", True),
                 ("gemma3-1b", "train_4k", False),
-                ("gemma3-1b", "prefill_32k", False))
+                ("gemma3-1b", "prefill_32k", False),
+                ("zamba2-2.7b", "train_4k", False))
 #: the phase's limit: every process is killed past it
 DRYRUN_TIMEOUT_S = 110
 #: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
@@ -4051,12 +4131,28 @@ DRYRUN_REFERENCE_FLOPS = {"gemma3-1b_train_4k_1pod": 8.306724e13 / 2.51,
 #: every ``model`` rank ran every head)
 DRYRUN_FLOPS_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
                                "gemma3-1b_prefill_32k_1pod": 1.5}
+#: the reference's collective bytes a device of the ``dp`` train cells on
+#: 256 devices (``collective_bytes_per_device`` of ``python -m
+#: repro.launch.dryrun --arch ARCH --shape train_4k`` on a CPU host)
+DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
+    "gemma3-1b_train_4k_1pod": 13205952048.0,
+    "zamba2-2.7b_train_4k_1pod": 43750168920.0}
+#: the port's collective bytes a device of those cells over the
+#: reference's, at most: the tied output projection gathered as FSDP
+#: gathers a weight (gemma3 read 3.51x while every rank gathered 16
+#: sequences' logits), and zamba2's Mamba2 layers per shard, their
+#: weights gathered and their gradients reduce-scattered back (34.1x
+#: while DTensor planned them)
+DRYRUN_COLLECTIVES_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
+                                     "zamba2-2.7b_train_4k_1pod": 2.0}
 
 
 def dry_run(trained) -> None:
     """Phase 20: the dry run's cells at once, then the gates of the
     sharded attention (the Qwen3 prefill cell's useful-FLOPs ratio, the
-    decode cells' collective bytes) and the two of the 1-rank cell: its
+    decode cells' collective bytes), the gemma3 cells' FLOPs and the dp
+    train cells' collective bytes against the reference's, and the two
+    of the 1-rank cell: its
     roofline step below phase 18's measured ms a step (a bound above the
     measurement would mean the count is wrong) and its FLOPs within
     DRYRUN_TRACKER_REL of the tracker's for that step."""
@@ -4130,6 +4226,17 @@ def dry_run(trained) -> None:
         if not ratio <= limit:
             fail(f"{tag} reads {ratio:.3f}x the reference's FLOPs a device, "
                  f"above {limit}x: a rank does another rank's work")
+    for tag, limit in DRYRUN_COLLECTIVES_OVER_REFERENCE.items():
+        coll = cells[tag]["collective_bytes_per_device"]
+        ratio = coll / DRYRUN_REFERENCE_COLLECTIVE_BYTES[tag]
+        log(f"  {tag}: {coll:.4e} collective bytes a device "
+            f"({cells[tag]['collective_detail']}), {ratio:.3f}x the "
+            f"reference's {DRYRUN_REFERENCE_COLLECTIVE_BYTES[tag]:.4e} (at "
+            f"most {limit}x)")
+        if not ratio <= limit:
+            fail(f"{tag} reads {ratio:.3f}x the reference's collective "
+                 f"bytes a device, above {limit}x: a rank gathers what "
+                 f"the reference's partitioned program does not")
     for tag in ("qwen3-0.6b_decode_32k_1pod", "qwen3-0.6b_decode_32k_2pod"):
         coll = cells[tag]["collective_bytes_per_device"]
         log(f"  {tag}: {coll:.4e} collective bytes a device "
@@ -4455,6 +4562,7 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in sharded:
             entry["mesh_launches"] = sharded[entry["name"]]["launches"]
+    sharding_guard()
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
 
     # -- 20. the dry run on the production meshes --------------------------

@@ -130,18 +130,25 @@ def _per_group(fn, xg, n_out: int, n_in: int):
     """``fn`` as it runs on ``xg``'s groups: itself off a mesh; on one,
     under ``local_map`` on each rank's own groups, the group dim sharded
     as ``xg`` is (its first ``n_in`` inputs and every output), the rest
-    of the inputs replicated."""
+    of the inputs replicated.  A replicated input's gradient (the
+    router's) is a partial sum over the mesh dims that split the groups,
+    each rank's from its own groups only, and is reduced over them; the
+    grouped inputs' gradients keep the groups' placements."""
     mesh = ctx.current_mesh()
     if mesh is None:
         return fn
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     grouped = tuple(xg.placements)
     whole = tuple(Replicate() for _ in grouped)
+    summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in grouped)
     return lambda *args: local_map(
         fn, out_placements=(grouped,) * n_out,
         in_placements=tuple(grouped if i < n_in else whole
                             for i in range(len(args))),
+        in_grad_placements=tuple(grouped if i < n_in else summed
+                                 for i in range(len(args))),
         device_mesh=xg.device_mesh, redistribute_inputs=True)(*args)
 
 

@@ -151,6 +151,12 @@ def _split_proj(cfg, proj):
     return z, xbc, dt
 
 
+#: the Mamba2 block's parameters, in the order :func:`_mamba_per_shard`
+#: passes them
+BLOCK_PARAMS = ("in_proj", "conv_w", "conv_b", "dt_bias", "a_log", "d_skip",
+                "norm", "out_proj")
+
+
 def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     """Prefill Mamba2 block.  x: (B, L, D) -> (B, L, D).
 
@@ -159,7 +165,62 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     its gradient is ``ssd_chunked``'s at ``cfg.ssm_chunk``, the chunk the
     reference trains with.  B and C of the one group reach it as
     head-broadcast views, and the D-skip is added here, as the
-    reference's ``ssd_chunked`` adds it."""
+    reference's ``ssd_chunked`` adds it.  On a mesh whose every dim
+    splits x's tokens (the ``dp`` and ``sp`` profiles) and has more than
+    one rank, without the decode states, the block runs per shard
+    (:func:`_mamba_per_shard`); elsewhere the scan runs through the op's
+    DTensor sharding rule."""
+    if not return_state and _per_shard_mesh(x):
+        return _mamba_per_shard(params, x, cfg)
+    return _mamba_block(params, x, cfg, return_state)
+
+
+def _per_shard_mesh(x) -> bool:
+    """Whether ``x`` is a DTensor on a mesh of more than one rank whose
+    every mesh dim of more than one rank splits its batch or its
+    sequence."""
+    if not ctx.is_dtensor(x) or x.device_mesh.size() == 1:
+        return False
+    from torch.distributed.tensor import Shard
+    return all(x.device_mesh.size(i) == 1 or p in (Shard(0), Shard(1))
+               for i, p in enumerate(x.placements))
+
+
+def _mamba_per_shard(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """:func:`mamba_block` on each rank's own sequences (``local_map``),
+    every placement and gradient placement given, as FSDP runs a layer:
+    the block's weights are gathered whole (``in_proj`` and ``out_proj``
+    split over the mesh under ``dp``), and their gradients are partial
+    sums over the dims that split the batch, reduced back to the weights'
+    placements (a reduce-scatter, not an all-reduce of the whole
+    gradient).  x keeps its batch split; a dim that splits its sequence
+    (``sp``) gathers it, as the scan runs over the whole sequence, and
+    every rank of that dim runs the same block (the weights' gradients
+    whole over it).  So the scan op runs on the rank's plain sequences:
+    DTensor plans none of the block's products, and no view of the block
+    cuts a split dim (some torch releases refuse to flatten the batch
+    beside a split sequence)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    px = tuple(x.placements)
+    p_x = tuple(Shard(0) if p == Shard(0) else Replicate() for p in px)
+    whole = tuple(Replicate() for _ in px)
+    g_w = tuple(Partial() if p == Shard(0) else Replicate() for p in p_x)
+    weights = [params[k] for k in BLOCK_PARAMS]
+
+    def block(x_, *ws):
+        return _mamba_block(dict(zip(BLOCK_PARAMS, ws)), x_, cfg)
+    out = local_map(block, out_placements=(p_x,),
+                    in_placements=(p_x,) + (whole,) * len(weights),
+                    in_grad_placements=(p_x,) + (g_w,) * len(weights),
+                    device_mesh=mesh, redistribute_inputs=True)(x, *weights)
+    return out.redistribute(mesh, px)
+
+
+def _mamba_block(params, x: torch.Tensor, cfg, return_state=False):
+    """:func:`mamba_block` as it runs on plain tensors, or on DTensors
+    with the products and views left to DTensor."""
     bs, l, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim

@@ -242,9 +242,9 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 # Blocks (prefill form)
 # ---------------------------------------------------------------------------
 def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(B, S, n * hd) -> (B, S, n, hd), whole heads on a mesh."""
-    b, s, _ = t.shape
-    return ctx.whole_heads(t, 2, n).reshape(b, s, n, hd)
+    """(B, S, n * hd) -> (B, S, n, hd), whole heads on a mesh, where the
+    reshape runs on each rank's shard (``ctx.split_last``)."""
+    return ctx.split_last(ctx.whole_heads(t, 2, n), n)
 
 
 def _qkv(blk, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -458,7 +458,6 @@ def _attention_out(blk, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cfg: ModelConfig, window: int) -> torch.Tensor:
     """Causal attention of q (B, S, H, hd) over k, v and its output
     projection ``wo``: (B, S, D)."""
-    b, s = q.shape[:2]
     if not cfg.use_flash:
         o = attn_mod.dense_attention(q, k, v, causal=True, window=window)
     else:
@@ -466,7 +465,7 @@ def _attention_out(blk, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if dim is not None:
             return _zigzag_attend(q, k, v, window, blk["wo"], dim)
         o = _flash_attend(q, k, v, window)
-    return o.reshape(b, s, -1) @ blk["wo"]
+    return ctx.merge_last(o) @ blk["wo"]
 
 
 def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
@@ -520,11 +519,25 @@ def _lookup_plan(emb: torch.Tensor, tokens: torch.Tensor) -> Tuple:
     whole table or its gradient.  Where one tensor dim is split over
     several mesh dims (the ``dp`` profile's vocab over (data, model)),
     only an inner run of them is gathered (one all-gather each; an outer
-    one would gather through the inner ones)."""
+    one would gather through the inner ones).  Where other mesh dims
+    split the same token dim as a dim that keeps D split (``n_o`` ranks
+    of them), DTensor's all-to-all of the D slices back to their tokens
+    first gathers ``n_o`` squared times the dim's rows (the ``dp``
+    profile's batch over (data, model), where a vocab that does not
+    divide the mesh leaves D split: granite's 49155 gathered (4096, 4096,
+    96), 16 times the global batch's rows), so they are priced so: in
+    training the table slice is gathered instead; in decode, the 2-pod
+    mesh's few tokens over (pod, data), the slice stays split."""
     from torch.distributed.tensor import Shard
     mesh = emb.device_mesh
     sizes = [mesh.size(i) for i in range(mesh.ndim)]
     split_t = [isinstance(p, Shard) for p in tokens.placements]
+    # the ranks of the other mesh dims that split a dim's token dim too
+    # (n_o above)
+    place = tokens.placements
+    nested = [math.prod(sizes[j] for j, q in enumerate(place)
+                        if j != i and isinstance(p, Shard) and q == p)
+              for i, p in enumerate(place)]
     vocab = [i for i, p in enumerate(emb.placements) if p == Shard(0)]
     cols = [i for i, p in enumerate(emb.placements) if p == Shard(1)]
     v, d = emb.shape
@@ -541,7 +554,8 @@ def _lookup_plan(emb: torch.Tensor, tokens: torch.Tensor) -> Tuple:
             cost = sum(vf * df * (sizes[i] - 1) / sizes[i]
                        for i in vocab[kv:] + cols[kd:])
             for i in keep_v + keep_d:
-                part = tf * df * (sizes[i] - 1) / sizes[i]
+                part = tf * df * (sizes[i] - 1) / sizes[i] * \
+                    (nested[i] ** 2 if i in keep_d else 1)
                 cost += part if split_t[i] else \
                     part * (2 if i in keep_v else sizes[i])
             if best is None or cost < best[0]:
@@ -557,12 +571,20 @@ def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     _label_logits`` gathers the labels), so the rows are a partial sum
     over the vocab shards; on a dim that keeps D split, the group's
     tokens in the rank's D columns.  The rows are then reduced to the
-    tokens' own placement (the activation's).  The table's gradient stays
-    on the rank's shard: complete over the kept dims, whose ranks saw
-    every token of the group, and a partial sum over the other dims that
-    split the tokens, reduced back to the parameter's placement."""
+    tokens' own placement (the activation's).  Where such a dim splits
+    the tokens, the rank gathers its group's tokens and reduce-scatters
+    the rows itself (inner mesh dims gathered first, outer ones scattered
+    first), so each rank gets back its own rows: where the tokens split
+    over several mesh dims (the ``dp`` profile's batch over (data,
+    model)), DTensor's reduction of a partial sum over an outer dim
+    beside an inner split gathers the global batch's rows first.  The
+    table's gradient stays on the rank's shard: complete over the kept
+    dims, whose ranks saw every token of the group, and a partial sum
+    over the other dims that split the tokens, reduced back to the
+    parameter's placement."""
     if not ctx.is_dtensor(emb):
         return emb[tokens.to(torch.long)]
+    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -570,23 +592,38 @@ def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     mesh = emb.device_mesh
     keep_v, keep_d = _lookup_plan(emb, tokens)
     p_tok = tuple(tokens.placements)
-    p_emb, p_in, p_out, g_emb = [], [], [], []
+    p_emb, p_in, p_out, g_emb, own = [], [], [], [], []
     for i, p in enumerate(p_tok):
         split = isinstance(p, Shard)
         kept = Shard(0) if i in keep_v else Shard(1) if i in keep_d else None
         p_emb.append(kept or Replicate())
-        p_in.append(Replicate() if kept else p)
-        p_out.append(Partial() if i in keep_v else Shard(2) if kept else p)
         g_emb.append(kept or (Partial() if split else Replicate()))
+        if i in keep_v and split:
+            # the body gathers the group's tokens, scatters the rows back
+            own.append((i, p.dim))
+            p_in.append(p)
+            p_out.append(p)
+        elif kept:
+            p_in.append(Replicate())
+            p_out.append(Partial() if i in keep_v else Shard(2))
+        else:
+            p_in.append(p)
+            p_out.append(p)
     local, offset = compute_local_shape_and_global_offset(
         tuple(emb.shape), mesh, tuple(p_emb))
     first, rows = int(offset[0]), int(local[0])
 
     def look(e, t):
+        for i, dim in reversed(own):
+            t = funcol.all_gather_tensor(t, dim, (mesh, i))
         idx = t.to(torch.long) - first
         mine = (idx >= 0) & (idx < rows)
         got = e[idx.clamp(0, rows - 1)]
-        return torch.where(mine[..., None], got, torch.zeros_like(got))
+        got = torch.where(mine[..., None], got, torch.zeros_like(got))
+        for i, dim in own:
+            got = funcol.reduce_scatter_tensor_autograd(
+                got, "sum", dim, (mesh, i))
+        return got
     out = local_map(look, out_placements=(tuple(p_out),),
                     in_placements=(tuple(p_emb), tuple(p_in)),
                     in_grad_placements=(tuple(g_emb), tuple(p_in)),
@@ -607,17 +644,56 @@ def _embed_inputs(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _head(params: LMParams, cfg: ModelConfig) -> torch.Tensor:
-    """The (D, V) output projection.  On a mesh its D is gathered first,
-    as FSDP gathers a weight: left split, DTensor's cheapest plan for the
-    product gathers the activations instead and makes a vocab-wide
-    logits block of many sequences on every rank (19 GB a rank for
-    Qwen3-0.6B's ``train_4k`` on 256 ranks)."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if ctx.is_dtensor(head):
-        from torch.distributed.tensor import Replicate, Shard
-        head = head.redistribute(head.device_mesh, [
-            Replicate() if p == Shard(0) else p for p in head.placements])
-    return head
+    """The (D, V) output projection: ``embed``'s transpose where tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``x @ head``, x (B, S, D) and the (D, V) output projection.  On a
+    mesh the product runs on each rank's shard (``local_map``), every
+    placement given, so that no rank gathers activations or logits of
+    sequences that are not its own.  On each mesh dim:
+
+      * that splits x's tokens (its batch, or its sequence): the head is
+        gathered whole over it, as FSDP gathers a weight, and the rank
+        runs its own tokens; the head's gradient is a partial sum over
+        it, reduced back to the head's placement (a reduce-scatter of the
+        table's split under ``dp``, whose vocab splits over the same
+        dims as the batch);
+      * that leaves x's tokens whole where the head splits its vocab
+        (``model`` under ``2d``): the logits keep the vocab split, and
+        x's gradient is a partial sum over it;
+      * that splits x's D (one decode slot under ``2d``, the norm's
+        D-split scale leaving it so): the head's D splits alike and the
+        logits are a partial sum over it (the rank's D slice of the
+        contraction), as DTensor planned it;
+      * otherwise: the head is gathered there.
+
+    Left to DTensor, the product's
+    plan gathered the activations of the dims that split the vocab and
+    the batch alike (``dp``) and made a vocab-wide logits block of many
+    sequences on every rank."""
+    if not ctx.is_dtensor(x):
+        return x @ head
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    p_x, p_h, g_x, g_h, out = [], [], [], [], []
+    for px, ph in zip(x.placements, head.placements):
+        if isinstance(px, Shard) and px.dim < 2:
+            row = (px, Replicate(), px, Partial(), px)
+        elif px == Shard(2):
+            row = (px, Shard(0), px, Shard(0), Partial())
+        elif ph == Shard(1):
+            row = (Replicate(), ph, Partial(), ph, Shard(2))
+        else:
+            row = (Replicate(),) * 5
+        for lst, q in zip((p_x, p_h, g_x, g_h, out), row):
+            lst.append(q)
+    return local_map(torch.matmul, out_placements=(tuple(out),),
+                     in_placements=(tuple(p_x), tuple(p_h)),
+                     in_grad_placements=(tuple(g_x), tuple(g_h)),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, head)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -695,7 +771,8 @@ def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     for aux in auxs:
         if aux is not None:
             aux_total = aux_total + aux
-    logits = ctx.constrain(x @ _head(params, cfg), "batch", None, "model")
+    logits = ctx.constrain(_logits(x, _head(params, cfg)), "batch", None,
+                           "model")
     return logits, aux_total
 
 
@@ -799,7 +876,7 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
                                                 layer_windows(cfg))):
             x = attend(i, layer, x, int(window))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), state
+    return _logits(x, _head(params, cfg)), state
 
 
 def _cache_shards(cache: torch.Tensor):
@@ -967,4 +1044,4 @@ def decode_step(params: LMParams, cfg: ModelConfig, token: torch.Tensor,
                                         state["k"][i], state["v"][i])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_state["index"] = index + 1
-    return x @ _head(params, cfg), new_state
+    return _logits(x, _head(params, cfg)), new_state

@@ -128,6 +128,54 @@ def whole_heads(x, dim: int, n: int):
     return whole(x, dim)
 
 
+def split_last(x, n: int):
+    """``x`` (..., n * m) as (..., n, m).  On a mesh the reshape runs on
+    each rank's shard (``local_map``) with its placements stated both
+    ways: a split of the last dim becomes a split of the n heads, the
+    other dims keep theirs, and the gradient arrives on the output's
+    placements before it is reshaped back.  DTensor's own view rules
+    differ by torch release: some refuse, or mis-shard, a view of a
+    gradient that another op left split on ``m``.  The caller makes a
+    split of the last dim divide n (:func:`whole_heads`)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    m = x.shape[-1] // n
+    return _reshape_per_shard(
+        x, x.ndim - 1, n, lambda t: t.reshape(*t.shape[:-1], -1, m))
+
+
+def merge_last(x):
+    """``x`` (..., n, m) as (..., n * m), on a mesh per shard as
+    :func:`split_last` (a split of m is gathered first, a split of n
+    becomes a split of the merged dim)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], -1)
+    from torch.distributed.tensor import Replicate, Shard
+    if any(p == Shard(x.ndim - 1) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p == Shard(x.ndim - 1) else p
+            for p in x.placements])
+    return _reshape_per_shard(x, x.ndim - 2, x.shape[-2],
+                              lambda t: t.reshape(*t.shape[:-2], -1))
+
+
+def _reshape_per_shard(x, dim: int, n: int, fn):
+    """``fn`` (a reshape of ``x``'s dims from ``dim`` on, whose first
+    output dim, of ``n``, keeps ``dim``'s index) on each rank's shard,
+    every placement kept (a partial sum stays one: the reshape is
+    linear, and its gradient is whole on each rank); DTensor's own
+    reshape where ``x``'s split of ``dim`` does not divide ``n``."""
+    if not _divides(x, dim, n):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(x.placements)
+    grad = tuple(Replicate() if p.is_partial() else p for p in pl)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+                     in_grad_placements=(grad,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
 def heads_in_grad(x, dim: int, n: int):
     """``x``, whose gradient is put back on ``x``'s own placements where,
     on a mesh, its split of ``dim`` divides no head of the ``n`` that the

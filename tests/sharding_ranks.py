@@ -6,18 +6,24 @@ Each rank joins a gloo group of ``world`` ranks through a ``FileStore``
 in ``<dir>`` (no TCP port, so concurrent runs cannot collide), pins one
 intra-op thread, and runs every case of the set ``<cases>`` (``mesh8``:
 the 4x2 and 2x4 cases on 8 ranks, which also save a sharded checkpoint;
-``mesh4``: the elastic restore of that checkpoint on 4 ranks).  Rank 0
-writes ``{case: result}`` to ``<dir>/<cases>.json``; a case that raises
-on any rank records its traceback there instead.  Every case compares
-against the same computation on plain tensors in the same process (the
-port's single-device step, itself held against the reference's by
-``tests/test_torch_train_step.py``).
+``mesh4``: the elastic restore of that checkpoint on 4 ranks;
+``guard``: the 8-rank cases that differ by torch release, the
+data-parallel training steps and gradients, which ``chip_smoke.py``
+runs on the card's release).  Rank 0 writes ``{case: result}`` to
+``<dir>/<cases>.json``, with each case's seconds under ``seconds``; a
+case that raises on any rank records its traceback there instead, and
+:func:`failures` reads a result file against the tolerances below.
+Every case compares against the same computation on plain tensors in
+the same process (the port's single-device step, itself held against
+the reference's by ``tests/test_torch_train_step.py``).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
 import sys
+import time
 import traceback
 from pathlib import Path
 
@@ -26,9 +32,14 @@ sys.path.insert(0, str(SRC))
 
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.hlo_analysis import collective_class  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, make_smoke_mesh  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.config import smoke_config  # noqa: E402
 from repro_torch.parallel import ctx, sharding  # noqa: E402
@@ -39,6 +50,13 @@ from repro_torch.train.train_step import (init_state,  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 SEED = 0
+#: the reference's tolerances (``tests/test_sharding.py:63-69``): the loss,
+#: and every parameter or gradient; logits and caches of a prefill or a
+#: decode (sums over split dims in another order)
+LOSS_TOL, PARAM_TOL, SERVE_TOL = 1e-4, 2e-4, 1e-4
+#: the batch axes of the ``dp`` profile, as the dry run sets them: the
+#: batch, and the MoE's dispatch groups, over the whole mesh
+DP_AXES = ("pod", "data", "model")
 
 
 def _batch(cfg, b=8, s=16):
@@ -62,23 +80,35 @@ def _shardings(tree, mesh, profile, cfg):
         sharding.param_specs(tree, mesh, profile, cfg=cfg), mesh)
 
 
-def _train_step(cfg, mesh, profile="2d", seq_axes=(), accum=1):
-    """One AdamW step on plain tensors and the same on ``mesh``: (loss
-    gap, the largest parameter gap, the placements the state took)."""
+@contextlib.contextmanager
+def _axes(seq_axes=(), batch_axes=("pod", "data")):
+    """The mesh's sequence and batch axes for the activations, put back
+    after."""
+    ctx.set_seq_axes(seq_axes)
+    ctx.set_batch_axes(batch_axes)
+    try:
+        yield
+    finally:
+        ctx.set_seq_axes(())
+        ctx.set_batch_axes(("pod", "data"))
+
+
+def _train_step(cfg, mesh, profile="2d", seq_axes=(), accum=1,
+                batch_axes=("pod", "data"), around=contextlib.nullcontext):
+    """One AdamW step on plain tensors and the same on ``mesh`` (inside
+    ``around()``): (loss gap, the largest parameter gap, the placements
+    the state took)."""
     opt = adamw(lr=1e-3)
     batch = _batch(cfg)
     s0 = init_state(cfg, SEED, opt, device="cpu")
     step = make_train_step(cfg, opt, accum_steps=accum)
     s1, m1 = step(s0, batch)
-    with ctx.use_mesh(mesh):
-        ctx.set_seq_axes(seq_axes)
-        try:
-            s0s = sharding.distribute(s0, _shardings(s0, mesh, profile, cfg))
-            bs = sharding.distribute(batch, sharding.tree_shardings(
-                sharding.batch_specs(batch, mesh, profile=profile), mesh))
+    with ctx.use_mesh(mesh), _axes(seq_axes, batch_axes):
+        s0s = sharding.distribute(s0, _shardings(s0, mesh, profile, cfg))
+        bs = sharding.distribute(batch, sharding.tree_shardings(
+            sharding.batch_specs(batch, mesh, profile=profile), mesh))
+        with around():
             s1s, m1s = step(s0s, bs)
-        finally:
-            ctx.set_seq_axes(())
     gap = max(float((a.detach() - _full(b).detach()).abs().max())
               for a, b in zip(s1.params.parameters(),
                               s1s.params.parameters()))
@@ -115,13 +145,143 @@ def case_gqa(mesh8, mesh24):
     return out
 
 
-def case_ep(mesh8, mesh24):
-    cfg = dataclasses.replace(smoke_config(get_config(
+def _granite4():
+    """Smoke granite-moe with 4 experts, top-2, at lossless capacity."""
+    return dataclasses.replace(smoke_config(get_config(
         "granite-moe-3b-a800m")), n_experts=4, top_k=2, capacity_factor=4.0)
-    out = _train_step(cfg, mesh24)
+
+
+class _Groups:
+    """Records the dispatch groups of each MoE layer the model runs on a
+    mesh."""
+
+    def __init__(self):
+        self.groups = []
+        self._fn = moe_mod._dispatch_groups
+
+    def __enter__(self):
+        def groups(t):
+            got = self._fn(t)
+            if ctx.current_mesh() is not None:
+                self.groups.append(got)
+            return got
+        moe_mod._dispatch_groups = groups
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_groups = self._fn
+
+
+def case_ep(mesh8, mesh24, train=True):
+    """:func:`_train_step` of :func:`_granite4` on the 2x4 mesh under
+    ``2d`` and the experts' split (not without ``train``), and every
+    parameter's gradient gap with the dispatch groups the layers took."""
+    cfg = _granite4()
+    out = {}
+    if train:
+        out = _train_step(cfg, mesh24)
+        p = tfm.init_params(cfg, SEED, device="cpu")
+        spec = _shardings(p, mesh24, "2d", cfg)["layers.0.w_gate"]
+        out["expert_split"] = [_name(x) for x in spec.placements]
+    with _Groups() as rec:
+        out["grads"] = _grad_gaps(cfg, mesh24)
+    out["grads"]["groups"] = rec.groups
+    return out
+
+
+def case_ep_dp(mesh24):
+    """Every parameter's gradient gap of :func:`_granite4` on the 2x4 mesh
+    under ``dp`` with the batch over the whole mesh (the dry run's
+    axes), where the dispatch groups span both mesh dims."""
+    with _Groups() as rec:
+        out = _grad_gaps(_granite4(), mesh24, "dp", batch_axes=DP_AXES)
+    out["groups"] = rec.groups
+    return out
+
+
+class _Collectives(TorchDispatchMode):
+    """Records the class and output shape of every collective that the
+    ranks' ops issue.  An op on DTensors is handed back (NotImplemented),
+    so that DTensor runs it, and the local ops and collectives it issues
+    come through the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        cls = collective_class(func)
+        if cls:
+            first = out[0] if isinstance(out, (list, tuple)) else out
+            self.seen.append((cls, list(getattr(first, "shape", ()))))
+        return out
+
+
+def _crossing(seen, rank_rows: int, batch: int, vocab: int) -> list:
+    """The collectives of ``seen`` that give a rank a vocab-wide block
+    (logits) of more sequences than its own ``rank_rows``, or the global
+    ``batch``'s activations (3 dims or more, led by the batch)."""
+    return [c for c in seen if len(c[1]) >= 3 and (
+        c[1][0] >= batch or c[1][0] > rank_rows and c[1][-1] == vocab)]
+
+
+def case_tied_dp(mesh8):
+    """Smoke gemma3 (the output projection tied to the embedding table)
+    under ``dp`` on the 4x2 mesh, the batch and the table's vocab both
+    split over the whole mesh: the logits and every gradient, the table's
+    among them, against plain tensors, and the collectives' outputs."""
+    cfg = smoke_config(get_config("gemma3-1b"))
+    rec = _Collectives()
+    out = _grad_gaps(cfg, mesh8, "dp", batch_axes=DP_AXES,
+                     around=lambda: rec)
+    out["crossing"] = _crossing(rec.seen, 1, 8, cfg.vocab_size)
+    out["collectives"] = len(rec.seen)
+    out["tied"] = cfg.tie_embeddings
+    return out
+
+
+class _SsdCalls:
+    """Records each SSD op call the Mamba2 block makes, as (on DTensors,
+    the batch it ran on)."""
+
+    def __init__(self):
+        self.calls = []
+        self._op = ssm_mod.ssd_k.ssd
+
+    def __enter__(self):
+        def op(x, *args, **kwargs):
+            self.calls.append((ctx.is_dtensor(x), x.shape[0]))
+            return self._op(x, *args, **kwargs)
+        ssm_mod.ssd_k.ssd = op
+        return self
+
+    def __exit__(self, *exc):
+        ssm_mod.ssd_k.ssd = self._op
+
+
+def case_zamba2_dp(mesh8):
+    """A training step of smoke zamba2 under ``dp`` on the 4x2 mesh, the
+    batch over the whole mesh (one sequence a rank), against plain
+    tensors: the SSD op's calls on the mesh, and the all-reduces of a
+    whole Mamba2 projection's gradient (its shape)."""
+    cfg = smoke_config(get_config("zamba2-2.7b"))
+    rec = {}
+
+    @contextlib.contextmanager
+    def spies():
+        with _SsdCalls() as calls, _Collectives() as coll:
+            rec["ssd"], rec["coll"] = calls, coll
+            yield
+    out = _train_step(cfg, mesh8, "dp", batch_axes=DP_AXES, around=spies)
     p = tfm.init_params(cfg, SEED, device="cpu")
-    spec = _shardings(p, mesh24, "2d", cfg)["layers.0.w_gate"]
-    out["expert_split"] = [_name(x) for x in spec.placements]
+    whole = [list(p.layers[0][k].shape) for k in ("in_proj", "out_proj")]
+    out["ssd_calls"] = rec["ssd"].calls
+    out["whole_reduced"] = [c for c in rec["coll"].seen
+                            if c[0] == "all-reduce" and c[1] in whole]
+    out["crossing"] = _crossing(rec["coll"].seen, 1, 8, cfg.vocab_size)
     return out
 
 
@@ -253,11 +413,13 @@ def case_grads_heads(mesh24):
             "calls": rec.calls}
 
 
-def _grad_gaps(cfg, mesh, profile="2d", seq_axes=()):
+def _grad_gaps(cfg, mesh, profile="2d", seq_axes=(),
+               batch_axes=("pod", "data"), around=contextlib.nullcontext):
     """Every parameter's gradient of ``cfg``'s loss on 8 x 16 tokens with
     the parameters and the batch on ``mesh`` (``profile``) against plain
-    tensors: the largest gap by name, the largest gradient, the flash
-    op's calls and the logits' gap."""
+    tensors (the mesh's forward and backward inside ``around()``): the
+    largest gap by name, the largest gradient, the flash op's calls and
+    the logits' gap."""
     batch = _batch(cfg)
     params = init_state(cfg, SEED, adamw(), device="cpu").params
 
@@ -268,17 +430,13 @@ def _grad_gaps(cfg, mesh, profile="2d", seq_axes=()):
         return logits, dict(zip(named, torch.autograd.grad(
             loss, list(named.values()))))
     want_logits, want = grads(params, batch)
-    with ctx.use_mesh(mesh):
-        ctx.set_seq_axes(seq_axes)
-        try:
-            ps = sharding.distribute(params, _shardings(params, mesh,
-                                                        profile, cfg))
-            bs = sharding.distribute(batch, sharding.tree_shardings(
-                sharding.batch_specs(batch, mesh, profile=profile), mesh))
-            with _OpCalls() as rec:
-                logits, got = grads(ps, bs)
-        finally:
-            ctx.set_seq_axes(())
+    with ctx.use_mesh(mesh), _axes(seq_axes, batch_axes):
+        ps = sharding.distribute(params, _shardings(params, mesh, profile,
+                                                    cfg))
+        bs = sharding.distribute(batch, sharding.tree_shardings(
+            sharding.batch_specs(batch, mesh, profile=profile), mesh))
+        with _OpCalls() as rec, around():
+            logits, got = grads(ps, bs)
     return {"grad_gap": {n: float((a - _full(got[n])).abs().max())
                          for n, a in want.items()},
             "grad_scale": max(float(a.abs().max()) for a in want.values()),
@@ -298,33 +456,34 @@ def _six_heads(window):
     return cfg
 
 
-def case_zigzag(mesh24):
+def case_zigzag(mesh24, serve=True):
     """Prefill and training where the heads do not divide ``model``: 6
     query heads over 2 KV heads on the 2x4 mesh, 16 positions split into
     8 chunks of 2, two a ``model`` rank (the zig-zag), with and without a
-    window: a 16-token prefill and 2 ticks (logits and both caches) and
-    the loss's gradients, against plain tensors."""
+    window: a 16-token prefill and 2 ticks (logits and both caches; not
+    without ``serve``) and the loss's gradients, against plain tensors."""
     out = {}
     for tag, window in (("causal", 0), ("window", 5)):
         cfg = _six_heads(window)
-        try:
-            with _OpCalls() as rec:
-                got = _serve_gaps(cfg, mesh24, prompt=16, ticks=2,
-                                  max_seq=20)
-            got["offsets"] = rec.offsets
-        except Exception:
-            got = {"error": traceback.format_exc()}
+        got = {}
+        if serve:
+            try:
+                with _OpCalls() as rec:
+                    got = _serve_gaps(cfg, mesh24, prompt=16, ticks=2,
+                                      max_seq=20)
+                got["offsets"] = rec.offsets
+            except Exception:
+                got = {"error": traceback.format_exc()}
         try:
             got["grads"] = _grad_gaps(cfg, mesh24)
         except Exception:
-            # the prefill's results stand where a torch release's DTensor
-            # refuses the backward (torch 2.11: the KV heads' view)
+            # recorded on its own: the prefill's results stand beside it
             got["grads"] = {"error": traceback.format_exc()}
         out[tag] = got
     return out
 
 
-def case_lookup(mesh8):
+def case_lookup(mesh8, profiles=("2d", "dp", "sp")):
     """The per-shard embedding lookup under ``2d`` and ``dp`` (smoke qwen3
     on the 4x2 mesh) and ``sp`` (smoke mamba2, as ``case_sp`` trains it:
     the sequence over 'model'): logits and every gradient, the table's
@@ -334,11 +493,12 @@ def case_lookup(mesh8):
     for profile, seq, arch in (("2d", (), "qwen3-0.6b"),
                                ("dp", (), "qwen3-0.6b"),
                                ("sp", ("model",), "mamba2-130m")):
+        if profile not in profiles:
+            continue
         try:
             out[profile] = _lookup_gaps(arch, mesh8, profile, seq)
         except Exception:
-            # one profile's failure (some torch releases' DTensor refuses
-            # a view under dp) leaves the others' results standing
+            # recorded on its own: the other profiles' results stand
             out[profile] = {"error": traceback.format_exc()}
     return out
 
@@ -501,6 +661,82 @@ def case_elastic(mesh4, out_dir):
             "trainer_meshes": [list(m) for m in trainer_meshes]}
 
 
+#: the cases that ``chip_smoke.py`` runs on the card's torch release (the
+#: ``guard`` set): the steps, gradients and lookups that differ by release
+GUARD_CASES = ("sp", "dp", "gqa", "ep", "ep_dp", "tied_dp", "zamba2_dp",
+               "grads_heads", "zigzag", "lookup")
+
+
+def _cases(cases, out_dir) -> list:
+    """(name, the case's call) of the set ``cases``."""
+    if cases == "mesh4":
+        mesh4 = make_mesh((2, 2), ("data", "model"), device="cpu")
+        return [("elastic", lambda: case_elastic(mesh4, out_dir))]
+    mesh8 = make_smoke_mesh(8, model=2, device="cpu")
+    mesh24 = make_smoke_mesh(8, model=4, device="cpu")
+    run = {"2d": lambda: case_2d(mesh8),
+           "dp": lambda: case_dp(mesh8),
+           "sp": lambda: case_sp(mesh8),
+           "accum": lambda: case_accum(mesh8),
+           "gqa": lambda: case_gqa(mesh8, mesh24),
+           "ep": lambda: case_ep(mesh8, mesh24),
+           "ep_dp": lambda: case_ep_dp(mesh24),
+           "tied_dp": lambda: case_tied_dp(mesh8),
+           "zamba2_dp": lambda: case_zamba2_dp(mesh8),
+           "decode": lambda: case_decode(mesh8),
+           "decode_seq": lambda: case_decode_seq(mesh8, mesh24),
+           "prefill_heads": lambda: case_prefill_heads(mesh8, mesh24),
+           "grads_heads": lambda: case_grads_heads(mesh24),
+           "zigzag": lambda: case_zigzag(mesh24),
+           "lookup": lambda: case_lookup(mesh8),
+           "swiglu": lambda: case_swiglu(mesh8, mesh24),
+           "constrain": lambda: case_constrain(mesh8),
+           "production_mesh": case_production_mesh,
+           "save": lambda: case_save(mesh8, out_dir)}
+    if cases != "guard":
+        return list(run.items())
+    # the parts that differ by release: the gradients, the dp and sp
+    # lookups
+    run.update(ep=lambda: case_ep(mesh8, mesh24, train=False),
+               zigzag=lambda: case_zigzag(mesh24, serve=False),
+               lookup=lambda: case_lookup(mesh8, ("dp", "sp")))
+    return [(name, run[name]) for name in GUARD_CASES]
+
+
+#: a result's gaps by key, and the tolerance each is held to
+_TOLS = {"loss_gap": LOSS_TOL, "param_gap": PARAM_TOL, "grad_gap": PARAM_TOL,
+         "logit_gap": SERVE_TOL, "k_gap": SERVE_TOL, "v_gap": SERVE_TOL}
+
+
+def failures(results, where="") -> list:
+    """Every error in a result file's cases, every gap over its
+    tolerance (:data:`_TOLS`), every ``crossing`` or ``whole_reduced``
+    collective (a rank given other ranks' sequences, a projection's
+    gradient all-reduced whole), and ``ssd_calls`` that are missing or
+    not each on a plain tensor of the rank's one sequence (the Mamba2
+    block not run per shard), as lines of text."""
+    out = []
+    if isinstance(results, dict):
+        for key, val in results.items():
+            at = f"{where}/{key}" if where else str(key)
+            if key == "error":
+                out.append(f"{where}: {str(val).strip().splitlines()[-1]}")
+            elif key in ("crossing", "whole_reduced") and val:
+                out.append(f"{at}: {val}")
+            elif key == "ssd_calls":
+                if not val or any(list(c) != [False, 1] for c in val):
+                    out.append(f"{at}: {val}")
+            elif key in _TOLS and isinstance(val, dict):
+                out += [f"{at}/{n}: {g:.3e} > {_TOLS[key]:g}"
+                        for n, g in val.items() if not g < _TOLS[key]]
+            elif key in _TOLS:
+                if not val < _TOLS[key]:
+                    out.append(f"{at}: {val:.3e} > {_TOLS[key]:g}")
+            else:
+                out += failures(val, at)
+    return out
+
+
 def main(cases, rank, world, out_dir):
     torch.set_num_threads(1)
     store = dist.FileStore(str(Path(out_dir) / f"store_{cases}"), world)
@@ -508,34 +744,14 @@ def main(cases, rank, world, out_dir):
                             world_size=world)
     results = {}
     try:
-        if cases == "mesh8":
-            mesh8 = make_smoke_mesh(8, model=2, device="cpu")
-            mesh24 = make_smoke_mesh(8, model=4, device="cpu")
-            run = [("2d", lambda: case_2d(mesh8)),
-                   ("dp", lambda: case_dp(mesh8)),
-                   ("sp", lambda: case_sp(mesh8)),
-                   ("accum", lambda: case_accum(mesh8)),
-                   ("gqa", lambda: case_gqa(mesh8, mesh24)),
-                   ("ep", lambda: case_ep(mesh8, mesh24)),
-                   ("decode", lambda: case_decode(mesh8)),
-                   ("decode_seq", lambda: case_decode_seq(mesh8, mesh24)),
-                   ("prefill_heads",
-                    lambda: case_prefill_heads(mesh8, mesh24)),
-                   ("grads_heads", lambda: case_grads_heads(mesh24)),
-                   ("zigzag", lambda: case_zigzag(mesh24)),
-                   ("lookup", lambda: case_lookup(mesh8)),
-                   ("swiglu", lambda: case_swiglu(mesh8, mesh24)),
-                   ("constrain", lambda: case_constrain(mesh8)),
-                   ("production_mesh", case_production_mesh),
-                   ("save", lambda: case_save(mesh8, out_dir))]
-        else:
-            mesh4 = make_mesh((2, 2), ("data", "model"), device="cpu")
-            run = [("elastic", lambda: case_elastic(mesh4, out_dir))]
-        for name, fn in run:
+        for name, fn in _cases(cases, out_dir):
+            t0 = time.perf_counter()
             try:
                 results[name] = fn()
             except Exception:
                 results[name] = {"error": traceback.format_exc()}
+            results.setdefault("seconds", {})[name] = \
+                time.perf_counter() - t0
             # every rank reaches the next case together, a failed one too
             dist.barrier()
     finally:

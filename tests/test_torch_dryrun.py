@@ -2,8 +2,9 @@
 reference's (``repro.launch.dryrun``) on smoke configs.
 
 Both packages run qwen3-0.6b, granite-moe-3b-a800m and zamba2-2.7b smoke
-configs in train, prefill and decode on a (4, 2) mesh of 8, and smoke
-qwen3 in prefill and decode on a (2, 4) mesh, where its 4 query heads
+configs in train, prefill and decode on a (4, 2) mesh of 8, smoke gemma3
+and zamba2 in train on a (2, 4) mesh, and smoke
+qwen3 in prefill and decode on that mesh, where its 4 query heads
 split one a ``model`` rank beside 2 KV heads that cannot, and its decode
 cache's sequence is split over ``model``: each package's
 ``make_production_mesh``, ``get_config`` and ``SHAPES`` are
@@ -51,6 +52,15 @@ Held, with each tolerance's reason:
   * on the ``dp`` train cell, all-reduce plus reduce-scatter bytes a rank
     of at least the model's parameter bytes: a data-parallel step must
     reduce every gradient;
+  * smoke gemma3 (its output projection tied to the embedding table) and
+    zamba2 in train on the (2, 4) mesh under ``dp`` (16 sequences, two a
+    rank, the table's vocab over the whole mesh too): no collective
+    outputs a vocab-wide block of more sequences than the rank holds or
+    the global batch's activations, the FLOPs within FLOPS_REL of the
+    reference's, and the collective bytes a device at most
+    :data:`DP_COLLECTIVES` times the reference's (1.48x and 1.19x here:
+    the smoke cells' fixed costs; the production cells read 0.40x and
+    0.45x on the card);
   * ``peak_bytes_per_device`` at least the train state's bytes a rank;
   * on a 1-rank fake mesh, the dry run's FLOPs for a smoke Qwen3 and
     Mamba2 train step (2 x 128) within 10% of what the port's
@@ -106,6 +116,12 @@ SPLIT_COLLECTIVES = 2.0
 #: prefill splits the query sequence over ``model`` (two chunks of 32 of
 #: the 512 positions a rank)
 ZIGZAG_MESH = (1, 8)
+#: the train cells read on the (2, 4) mesh under ``dp`` (16 sequences,
+#: two a rank): smoke gemma3, whose output projection is the embedding
+#: table tied, and smoke zamba2, whose Mamba2 layers run per shard
+DP_ARCHS = ("gemma3-1b", "zamba2-2.7b")
+#: their collective bytes a device over the reference's, at most
+DP_COLLECTIVES = 2.0
 
 _REFERENCE = textwrap.dedent("""
     import dataclasses, json, re, sys
@@ -120,7 +136,8 @@ _REFERENCE = textwrap.dedent("""
     chunk = 1024 if SHAPES[sys.argv[2]].mode == "train" else 64
     dryrun.get_config = lambda a: dataclasses.replace(
         smoke_config(get_config(a)), attn_chunk_q=chunk, attn_chunk_kv=chunk)
-    dryrun.SHAPES = SHAPES if mesh == (4, 2) else SPLIT_SHAPES
+    dryrun.SHAPES = SHAPES if mesh == (4, 2) else \
+        {**SPLIT_SHAPES, "train_4k": SHAPES["train_4k"]}
     texts = []
     analyze = hlo_analysis.analyze
     dryrun.hlo_analysis.analyze = lambda compiled, chips: (
@@ -191,15 +208,22 @@ _PORT = textwrap.dedent("""
 
     def spy(graphs, chips):
         kernel = 0.0
+        shapes = set()
         for g in hlo_analysis._graphs(graphs):
             for node in g.nodes:
-                if node.op == "call_function" and \
-                        getattr(node.target, "namespace", "") == "repro_torch":
+                if node.op != "call_function":
+                    continue
+                if getattr(node.target, "namespace", "") == "repro_torch":
                     kernel += hlo_analysis.node_flops(
                         node.target, hlo_analysis._vals(node.args),
                         hlo_analysis._vals(node.kwargs),
                         node.meta.get("val"))[0]
+                cls = hlo_analysis.collective_class(node.target)
+                if cls:
+                    shapes.add((cls, tuple(getattr(node.meta.get("val"),
+                                                   "shape", ()))))
         seen["kernel_flops"] = kernel
+        seen["collective_shapes"] = sorted(shapes)
         return analyze(graphs, chips)
     tfm._lookup, hlo_analysis._Recorder._record = looking, noting
     hlo_analysis.analyze = spy
@@ -210,6 +234,7 @@ _PORT = textwrap.dedent("""
         cell = run_cell(*args, **kwargs)
         cell["lookup_collectives"] = seen["lookup"]
         cell["kernel_flops"] = seen.get("kernel_flops", 0.0)
+        cell["collective_shapes"] = seen.get("collective_shapes", [])
         return cell
     dryrun.run_cell = run_and_spy
     dryrun.make_production_mesh = lambda multi_pod=False, device=None: \\
@@ -234,6 +259,11 @@ _PORT = textwrap.dedent("""
     mesh[0] = %(zigzag_mesh)r
     out["zigzag"] = dryrun.run_cell("qwen3-0.6b", "prefill_32k",
                                     verbose=False, device="cpu")
+    mesh[0] = %(split_mesh)r
+    dryrun.SHAPES = {"train_4k": SHAPES["train_4k"]}
+    out["dp"] = {arch: dryrun.run_cell(arch, "train_4k", verbose=False,
+                                       device="cpu")
+                 for arch in %(dp_archs)r}
     dist.destroy_process_group()
 
     # one rank: the dry run against the tracker on the same eager step
@@ -271,7 +301,7 @@ _PORT = textwrap.dedent("""
     dist.destroy_process_group()
     print(json.dumps(out))
 """ % {"archs": ARCHS, "split_mesh": SPLIT_MESH,
-       "zigzag_mesh": ZIGZAG_MESH})
+       "zigzag_mesh": ZIGZAG_MESH, "dp_archs": DP_ARCHS})
 
 
 def _start(args, env):
@@ -300,6 +330,8 @@ def runs(tmp_path_factory):
     refs.update({("split", s): _start(["-c", _REFERENCE, "qwen3-0.6b", s,
                                        split], ref_env)
                  for s in SPLIT_CELLS})
+    refs.update({("dp", a): _start(["-c", _REFERENCE, a, "train_4k", split],
+                                   ref_env) for a in DP_ARCHS})
     refs["zigzag", "prefill_32k"] = _start(
         ["-c", _REFERENCE, "qwen3-0.6b", "prefill_32k",
          ",".join(str(n) for n in ZIGZAG_MESH)], ref_env)
@@ -387,6 +419,45 @@ def test_zigzag_prefill_cell_matches_the_reference(runs):
     assert coll <= SPLIT_COLLECTIVES, coll
 
 
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_dp_collectives_stay_on_the_ranks_sequences(runs, arch):
+    """A train cell under ``dp`` on the (2, 4) mesh, where the batch (16
+    sequences, two a rank) and the embedding table's vocab both split
+    over the whole mesh: no collective outputs a vocab-wide block of
+    more sequences than the rank holds (the logits of other ranks'
+    sequences: the tied output projection is gathered as FSDP gathers a
+    weight), and none outputs the global batch's activations (the
+    lookup's rows come back to their ranks by a reduce-scatter of the
+    data group's); the FLOPs within FLOPS_REL of the reference's."""
+    port, ref = runs["port"]["dp"][arch], runs["ref"]["dp", arch]
+    assert port["status"] == ref["status"] == "ok"
+    assert port["mesh"] == ref["mesh"] == {"data": 2, "model": 4}
+    assert port["profile"] == "dp"
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    vocab = smoke_config(get_config(arch)).vocab_size
+    crossing = [(cls, shape) for cls, shape in port["collective_shapes"]
+                if len(shape) >= 3 and (shape[0] >= 16 or
+                                        shape[0] > 2 and shape[-1] == vocab)]
+    assert port["collective_shapes"] and crossing == [], crossing
+    ratio = port["flops_per_device"] / ref["flops_per_device"]
+    print(f"{arch} dp train_4k: port/reference FLOPs a device {ratio:.3f}")
+    assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+
+
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_dp_train_collectives_near_the_reference(runs, arch):
+    """The same cells' collective bytes a device at most DP_COLLECTIVES
+    times the reference's (zamba2's Mamba2 layers per shard, their
+    weights gathered and their gradients reduce-scattered back: the
+    production cell read 34.1x while DTensor planned them)."""
+    port, ref = runs["port"]["dp"][arch], runs["ref"]["dp", arch]
+    coll = (port["collective_bytes_per_device"]
+            / ref["collective_bytes_per_device"])
+    print(f"{arch} dp train_4k: port/reference collective bytes {coll:.3f}")
+    assert 0 < coll <= DP_COLLECTIVES, coll
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_products_match_the_reference(runs, arch):
     """A train cell's products: the port's matmul FLOPs and its kernel
@@ -430,6 +501,41 @@ def test_no_collective_gathers_the_embedding_table(runs, cell):
     assert port["lookup_collectives"], port["collective_detail"]
     gathered = [s for s in port["lookup_collectives"] if tuple(s) in table]
     assert not gathered, (gathered, port["lookup_collectives"])
+
+
+#: production lookups whose tokens split over two mesh dims: (mesh
+#: sizes, table (V, D) and its placements, tokens' shape and placements,
+#: the plan).  granite's ``dp`` train cell keeps no split (keeping D's
+#: would gather 16 times the global batch's rows); the 2-pod Qwen3 decode
+#: cell keeps both, its few tokens' rows cheaper than the table's slice.
+NESTED_LOOKUPS = {
+    "granite_dp_train": ((16, 16), (49155, 1536), ("S1", "S1"),
+                         (256, 4096), ("S0", "S0"), ([], [])),
+    "qwen3_2pod_decode": ((2, 16, 16), (151936, 1024), ("R", "S1", "S0"),
+                          (128, 1), ("S0", "S0", "R"), ([2], [1]))}
+
+
+@pytest.mark.parametrize("case", sorted(NESTED_LOOKUPS))
+def test_lookup_plan_prices_a_nested_token_split(case):
+    """``transformer._lookup_plan`` on the production cells' placements
+    (as the dry run logs them) where another mesh dim splits the tokens
+    beside one that keeps the table's D split: the plan by bytes, not a
+    rule that never keeps such a split (that gathered the 2-pod decode
+    cell's table slice, 1.2x its collective bytes)."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import transformer as tfm
+    sizes, v_d, p_emb, t_shape, p_tok, plan = NESTED_LOOKUPS[case]
+    place = {"R": Replicate(), "S0": Shard(0), "S1": Shard(1)}
+    mesh = SimpleNamespace(ndim=len(sizes), size=lambda i: sizes[i])
+    emb = SimpleNamespace(device_mesh=mesh, shape=v_d,
+                          placements=tuple(place[p] for p in p_emb))
+    n = t_shape[0] * t_shape[1]
+    tokens = SimpleNamespace(placements=tuple(place[p] for p in p_tok),
+                             numel=lambda: n)
+    assert tfm._lookup_plan(emb, tokens) == plan
 
 
 @pytest.mark.parametrize("cell", [f"{a}/decode_32k" for a in ARCHS]

@@ -18,7 +18,13 @@ over the ranks that read it), and decode from per-shard softmax partials
 where the cache's sequence is split, at the same tolerances; prefill
 and training with the query sequence split over ``model`` where the
 heads cannot be (6 heads on ``model=4``), the per-shard embedding lookup
-under ``2d``, ``dp`` and ``sp``, and the per-shard SwiGLU.
+under ``2d``, ``dp`` and ``sp``, and the per-shard SwiGLU.  Under ``dp``
+with the batch over the whole mesh, as the dry run places it: the MoE
+router's gradient (its dispatch groups over both mesh dims), the output
+projection tied to the embedding table, and zamba2's Mamba2 layers run
+per shard, with the collectives the ranks issue read from a dispatch
+mode.  ``chip_smoke.py`` runs the ``guard`` set of these cases on the
+card's torch release and holds it to :func:`sharding_ranks.failures`.
 """
 
 import json
@@ -30,8 +36,10 @@ from pathlib import Path
 
 import pytest
 
+import sharding_ranks
+from sharding_ranks import LOSS_TOL, PARAM_TOL
+
 HERE = Path(__file__).resolve().parent
-LOSS_TOL, PARAM_TOL = 1e-4, 2e-4
 #: a spawn's own limit: the 8-rank cases take about a minute here
 SPAWN_TIMEOUT_S = 600
 
@@ -104,6 +112,67 @@ def test_moe_expert_parallel_matches(runs):
     got = _case(runs, "ep")
     assert got["expert_split"][1] == "Shard(0)", got
     assert got["loss_gap"] < LOSS_TOL, got
+
+
+@pytest.mark.parametrize("profile, groups", [("2d", 2), ("dp", 8)])
+def test_moe_router_gradient_matches(runs, profile, groups):
+    """The same granite on the 2x4 mesh: every parameter's gradient, the
+    router's among them, at the parameter tolerance.  Each rank routes
+    its own dispatch groups (2 under ``2d``, one a ``data`` rank; 8
+    under ``dp``, one a rank of both mesh dims), so the router's
+    gradient is a sum over the ranks that split the groups."""
+    got = (_case(runs, "ep")["grads"] if profile == "2d"
+           else _case(runs, "ep_dp"))
+    assert got["groups"] and set(got["groups"]) == {groups}, got["groups"]
+    routers = [n for n in got["grad_gap"] if n.endswith(".router")]
+    assert len(routers) == 2, got["grad_gap"]
+    assert got["grad_scale"] > 0
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
+    assert got["logit_gap"] < LOSS_TOL, got
+
+
+def test_tied_head_under_dp_matches_single_device(runs):
+    """Smoke gemma3, whose output projection is the embedding table's
+    transpose, under ``dp`` on the 4x2 mesh (the batch, 8 sequences, and
+    the table's vocab both split over the whole mesh): the logits and
+    every gradient, the table's among them, against plain tensors; and
+    no collective gives a rank a logits block of more sequences than its
+    own one, or the global batch's activations (the head is gathered as
+    FSDP gathers a weight, its gradient reduce-scattered back)."""
+    got = _case(runs, "tied_dp")
+    assert got["tied"] and got["collectives"] > 0, got
+    assert got["crossing"] == [], got["crossing"]
+    assert got["logit_gap"] < LOSS_TOL, got
+    assert "embed" in got["grad_gap"] and got["grad_scale"] > 0
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
+
+
+def test_zamba2_dp_train_step_matches_single_device(runs):
+    """A training step of smoke zamba2 under ``dp`` on the 4x2 mesh, one
+    sequence a rank: the loss and every updated parameter against plain
+    tensors; each Mamba2 layer's scan ran on the rank's plain sequence
+    (``ssm.mamba_block`` per shard), no projection's gradient was
+    all-reduced whole (each is reduce-scattered back to its split), and
+    no collective gave a rank other ranks' sequences."""
+    got = _case(runs, "zamba2_dp")
+    assert got["ssd_calls"], got
+    assert all(c == [False, 1] for c in got["ssd_calls"]), got["ssd_calls"]
+    assert got["whole_reduced"] == [], got["whole_reduced"]
+    assert got["crossing"] == [], got["crossing"]
+    assert got["loss_gap"] < LOSS_TOL, got
+    assert got["param_gap"] < PARAM_TOL, got
+
+
+def test_the_card_guard_cases_pass_its_gate(runs):
+    """The ``guard`` set that ``chip_smoke.py`` runs on the card's torch
+    release: every one of its cases ran here, and the card's gate
+    (``sharding_ranks.failures``: errors, gaps over the tolerances above,
+    collectives that cross ranks' sequences) finds nothing in them."""
+    guard = {name: runs.get(name) for name in sharding_ranks.GUARD_CASES}
+    assert all(v is not None for v in guard.values()), guard.keys()
+    assert sharding_ranks.failures(guard) == []
 
 
 def test_prefill_and_decode_on_the_mesh(runs):
