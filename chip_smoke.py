@@ -276,9 +276,11 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     ``tests/sharding_ranks.py`` (the data- and sequence-parallel steps,
     the head-split and zig-zag gradients, the dp and sp lookups, the
     MoE router's gradient under ``2d`` and ``dp``, the tied head and
-    zamba2's Mamba2 layers under ``dp``) on ``GUARD_RANKS`` gloo CPU
-    ranks within ``GUARD_TIMEOUT_S``, held to the test file's
-    tolerances (``sharding_ranks.failures``).
+    zamba2's Mamba2 layers under ``dp``, and decode with its products
+    per shard, Mamba2's and internvl2's at widths that do not divide
+    ``model``) on ``GUARD_RANKS`` gloo CPU ranks within
+    ``GUARD_TIMEOUT_S``, held to the test file's tolerances
+    (``sharding_ranks.failures``).
 20. The dry run (``repro_torch.launch.dryrun``) on the production
     meshes, read from the traced per-rank graph: ``DRYRUN_CELLS``, each
     ``python -m repro_torch.launch.dryrun --device cuda`` as a process
@@ -291,8 +293,11 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     whose 4 heads do not divide ``model=16``, so its query sequence
     splits over ``model``), and phase 18 (c)'s step (Qwen3-0.6B, 2 x
     4096) on a 1-rank fake mesh, and zamba2-2.7b at ``train_4k``
-    (its Mamba2 layers per shard), all at once within
-    ``DRYRUN_TIMEOUT_S``.  Every
+    (its Mamba2 layers per shard), and Mamba2-130M and internvl2-2b at
+    ``decode_32k`` (their products planned per shard by
+    ``parallel.ctx.product``: heads of 50280 and 92553 rows and
+    Mamba2's 3352-wide ``in_proj`` split unevenly over ``model=16``),
+    all at once within ``DRYRUN_TIMEOUT_S``.  Every
     cell ``ok``; each cell's compute, memory and collective terms,
     bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
     prefill cell's useful-FLOPs ratio at least ``DRYRUN_PREFILL_USEFUL``
@@ -301,7 +306,8 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     per-shard softmax partials and the embedding looked up in each
     rank's shard, neither gathered); the gemma3 cells' FLOPs a device at
     most ``DRYRUN_FLOPS_OVER_REFERENCE`` times the reference's count
-    (``DRYRUN_REFERENCE_FLOPS``); the gemma3 and zamba2 ``train_4k``
+    (``DRYRUN_REFERENCE_FLOPS``), and so the Mamba2 and internvl2
+    decode cells'; those two and the gemma3 and zamba2 ``train_4k``
     cells' collective bytes a device at most
     ``DRYRUN_COLLECTIVES_OVER_REFERENCE`` times the reference's
     (``DRYRUN_REFERENCE_COLLECTIVE_BYTES``); and on the 1-rank cell,
@@ -4009,11 +4015,13 @@ def sharding_guard() -> None:
     torch release (the data- and sequence-parallel steps, the head-split
     and zig-zag gradients, the dp and sp lookups, the MoE router's
     gradient under ``2d`` and ``dp``, the tied head and zamba2's Mamba2
-    layers under ``dp``) on GUARD_RANKS gloo CPU ranks, one process a
-    rank, as ``tests/test_torch_sharding.py`` runs them: fails on any
-    case's error, any gap over the test file's tolerances, and any
-    collective that gives a rank other ranks' sequences
-    (``sharding_ranks.failures``), or past GUARD_TIMEOUT_S."""
+    layers under ``dp``, decode's per-shard products) on GUARD_RANKS
+    gloo CPU ranks, one process a rank, as
+    ``tests/test_torch_sharding.py`` runs them: fails on any case's
+    error, any gap over the test file's tolerances, any collective that
+    gives a rank other ranks' sequences and any product repeated on a
+    mesh dim's ranks (``sharding_ranks.failures``), or past
+    GUARD_TIMEOUT_S."""
     import os
     import signal
     import tempfile
@@ -4079,7 +4087,9 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("qwen3-0.6b", "decode_32k", True),
                 ("gemma3-1b", "train_4k", False),
                 ("gemma3-1b", "prefill_32k", False),
-                ("zamba2-2.7b", "train_4k", False))
+                ("zamba2-2.7b", "train_4k", False),
+                ("mamba2-130m", "decode_32k", False),
+                ("internvl2-2b", "decode_32k", False))
 #: the phase's limit: every process is killed past it
 DRYRUN_TIMEOUT_S = 110
 #: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
@@ -4123,20 +4133,41 @@ DRYRUN_DECODE_COLLECTIVE_BYTES = 0.25e9
 #: --device cuda``: 8.306724e13 for ``train_4k``, 2.930838e13 for
 #: ``prefill_32k``) over its ratio to the reference's there (2.51x, 2.23x)
 DRYRUN_REFERENCE_FLOPS = {"gemma3-1b_train_4k_1pod": 8.306724e13 / 2.51,
-                          "gemma3-1b_prefill_32k_1pod": 2.930838e13 / 2.23}
+                          "gemma3-1b_prefill_32k_1pod": 2.930838e13 / 2.23,
+                          # its HLO count on a CPU host itself (``--arch
+                          # mamba2-130m --shape decode_32k``, ``--arch
+                          # internvl2-2b ...``)
+                          "mamba2-130m_decode_32k_1pod": 2.0843e8,
+                          "internvl2-2b_decode_32k_1pod": 2.7997e10}
 #: the port's FLOPs a device of those cells over the reference's, at most:
 #: training runs the SwiGLU on each rank's own tokens (2.51x while DTensor
 #: planned its backward on 16 gathered sequences), and a prefill whose 4
 #: heads do not divide ``model=16`` splits its query sequence (2.23x while
 #: every ``model`` rank ran every head)
 DRYRUN_FLOPS_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
-                               "gemma3-1b_prefill_32k_1pod": 1.5}
-#: the reference's collective bytes a device of the ``dp`` train cells on
-#: 256 devices (``collective_bytes_per_device`` of ``python -m
-#: repro.launch.dryrun --arch ARCH --shape train_4k`` on a CPU host)
+                               "gemma3-1b_prefill_32k_1pod": 1.5,
+                               # decode's products per shard: Mamba2's
+                               # in_proj (3352 columns) and tied head
+                               # (50280) cut unevenly over model=16 (8.13x
+                               # while every model rank ran them whole);
+                               # 1.5, not 1.0: the reference counts its
+                               # scan's cache moves as work, the port its
+                               # products (0.88x on a CPU host)
+                               "mamba2-130m_decode_32k_1pod": 1.5,
+                               # internvl2's untied head (92553 rows) cut
+                               # over model=16: 0.234x (6.5630e9); 0.34x
+                               # (9.4053e9) while every model rank ran
+                               # (8, 2048) x (2048, 92553) whole
+                               "internvl2-2b_decode_32k_1pod": 0.3}
+#: the reference's collective bytes a device of the ``dp`` train cells and
+#: the Mamba2 and internvl2 decode cells on 256 devices
+#: (``collective_bytes_per_device`` of ``python -m repro.launch.dryrun
+#: --arch ARCH --shape SHAPE`` on a CPU host)
 DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
     "gemma3-1b_train_4k_1pod": 13205952048.0,
-    "zamba2-2.7b_train_4k_1pod": 43750168920.0}
+    "zamba2-2.7b_train_4k_1pod": 43750168920.0,
+    "mamba2-130m_decode_32k_1pod": 3.4355e7,
+    "internvl2-2b_decode_32k_1pod": 3.2791e8}
 #: the port's collective bytes a device of those cells over the
 #: reference's, at most: the tied output projection gathered as FSDP
 #: gathers a weight (gemma3 read 3.51x while every rank gathered 16
@@ -4144,14 +4175,22 @@ DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
 #: weights gathered and their gradients reduce-scattered back (34.1x
 #: while DTensor planned them)
 DRYRUN_COLLECTIVES_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
-                                     "zamba2-2.7b_train_4k_1pod": 2.0}
+                                     "zamba2-2.7b_train_4k_1pod": 2.0,
+                                     # decode moves its few tokens to the
+                                     # weights' splits: the heads are
+                                     # neither gathered whole (77 MB and
+                                     # 379 MB a step before: 2.67x, 1.77x)
+                                     # nor run whole on a model rank
+                                     "mamba2-130m_decode_32k_1pod": 1.0,
+                                     "internvl2-2b_decode_32k_1pod": 1.0}
 
 
 def dry_run(trained) -> None:
     """Phase 20: the dry run's cells at once, then the gates of the
     sharded attention (the Qwen3 prefill cell's useful-FLOPs ratio, the
-    decode cells' collective bytes), the gemma3 cells' FLOPs and the dp
-    train cells' collective bytes against the reference's, and the two
+    decode cells' collective bytes), the gemma3 and the Mamba2 and
+    internvl2 decode cells' FLOPs and the dp train and those decode
+    cells' collective bytes against the reference's, and the two
     of the 1-rank cell: its
     roofline step below phase 18's measured ms a step (a bound above the
     measurement would mean the count is wrong) and its FLOPs within

@@ -1,13 +1,17 @@
 """Tabulate dry-run cells (``python -m repro_torch.launch.dryrun``).
 
-    python experiments/dryrun_table.py GRID [--before OLD_GRID]
+    python experiments/dryrun_table.py GRID [--before OLD_GRID] \
+        [--reference REF_GRID]
 
 GRID holds the cell files the dry run writes (``<arch>_<shape>_1pod.json``).
 One line a cell: compute / memory / collective ms, the bound (C, M, X),
 the useful-FLOPs ratio and the peak GiB a device.  With ``--before``,
 each cell also gets its FLOPs and collective bytes a device over those
 of the same cell in OLD_GRID (an earlier run), so a change's effect on
-each count reads as a factor.  Skipped cells print as skipped.
+each count reads as a factor.  With ``--reference``, over those of the
+reference's cell of the same name in REF_GRID (``python -m
+repro.launch.dryrun --arch ARCH --shape SHAPE --out REF_GRID`` on a CPU
+host, one cell a run).  Skipped cells print as skipped.
 """
 
 from __future__ import annotations
@@ -24,7 +28,14 @@ def _cells(grid: Path) -> dict:
             for p in sorted(grid.glob("*.json"))}
 
 
-def line(cell: dict, before: dict = None) -> str:
+def _over(cell: dict, other: dict) -> tuple:
+    """(FLOPs, collective bytes) a device of ``cell`` over ``other``'s."""
+    return (cell["flops_per_device"] / other["flops_per_device"],
+            cell["collective_bytes_per_device"]
+            / max(other["collective_bytes_per_device"], 1.0))
+
+
+def line(cell: dict, before: dict = None, reference: dict = None) -> str:
     if cell.get("status") != "ok":
         return cell.get("status", "missing")
     out = (f"{cell['compute_s'] * 1e3:.2f} / {cell['memory_s'] * 1e3:.2f} / "
@@ -32,10 +43,11 @@ def line(cell: dict, before: dict = None) -> str:
            f"{cell['useful_flops_ratio']:.2f}, "
            f"{cell['peak_bytes_per_device'] / 2**30:.2f} GiB")
     if before is not None and before.get("status") == "ok":
-        flops = cell["flops_per_device"] / before["flops_per_device"]
-        coll = (cell["collective_bytes_per_device"]
-                / max(before["collective_bytes_per_device"], 1.0))
+        flops, coll = _over(cell, before)
         out += f"; FLOPs x{flops:.4f}, collective bytes x{coll:.4f}"
+    if reference is not None and reference.get("status") == "ok":
+        flops, coll = _over(cell, reference)
+        out += f"; {flops:.3g}x, {coll:.3g}x the reference's"
     return out
 
 
@@ -43,11 +55,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("grid")
     ap.add_argument("--before", default=None)
+    ap.add_argument("--reference", default=None)
     args = ap.parse_args(argv)
     cells = _cells(Path(args.grid))
     old = _cells(Path(args.before)) if args.before else {}
+    ref = _cells(Path(args.reference)) if args.reference else {}
     for tag, cell in cells.items():
-        print(f"{tag}: {line(cell, old.get(tag) if args.before else None)}")
+        print(f"{tag}: {line(cell, old.get(tag), ref.get(tag))}")
 
 
 if __name__ == "__main__":

@@ -57,80 +57,57 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     (:func:`ffn_per_shard`)."""
     if not ctx.is_dtensor(x):
         return _swiglu_plain(x, w_gate, w_up, w_down)
-    return ffn_per_shard(_swiglu_plain, x, w_gate, w_up, w_down)
+    return ffn_per_shard(x, w_gate, w_up, w_down)
 
 
-def ffn_per_shard(fn, x: torch.Tensor, w_gate: torch.Tensor,
-                  w_up: torch.Tensor, w_down: torch.Tensor,
-                  experts: bool = False) -> torch.Tensor:
-    """``fn(x, w_gate, w_up, w_down)``, a SwiGLU FFN (x (..., D), w_gate
-    and w_up (D, F), w_down (F, D); with ``experts``, x (E, T, D) and
-    every weight led by the same E), run per shard on a mesh with every
-    placement given (``local_map``), as Megatron-style tensor parallelism
-    with FSDP runs it, so that no product, forward or backward, is left
-    to DTensor's plan (which on a CUDA mesh ran the SwiGLU backward's
-    weight products on every rank over the gathered sequences of 16
-    ranks).  On each mesh dim:
+def ffn_per_shard(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor, experts: bool = False
+                  ) -> torch.Tensor:
+    """A SwiGLU FFN, ``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` (x (...,
+    D), w_gate and w_up (D, F), w_down (F, D); with ``experts``, x (E, T,
+    D), every weight led by the same E, and batched products over E), on
+    a mesh: each of its products per shard (``ctx.product``), planned by
+    the bytes a rank receives (``ctx.product_plan``), with every
+    placement and gradient placement stated, so that no product, forward
+    or backward, is left to DTensor's plan (which on a CUDA mesh ran the
+    SwiGLU backward's weight products on every rank over the gathered
+    sequences of 16 ranks).  The gate and up products share one plan and
+    one move of x, and keep F split where the plan splits it (the
+    elementwise gate runs on the split); the down product is planned on
+    the result, and its output is put back on x's placements.  On each
+    mesh dim, as the plan prices it:
 
       * that splits the experts (``experts``, x split on E: expert
         parallelism): the weights split on E alike, each rank runs its
-        experts; their gradients are whole over it;
-      * that splits x's tokens (its batch, or its sequence): the weights
-        are gathered whole over it (FSDP's gather) and the rank runs its
-        own tokens; the weights' gradients are partial sums over it,
-        reduced back to their placement (a reduce-scatter);
-      * that leaves x whole, where ``w_gate`` and ``w_up`` split F over it
-        and ``w_down`` splits F alike (tensor parallelism over
-        ``model``): F stays split, the rank runs its F slice of every
-        token, and the output, like x's gradient, is a partial sum over
-        it, reduced to x's placement (an all-reduce; x is held as
-        ``_shard_act`` holds the residual stream); the weights' gradients
-        are whole over it;
-      * otherwise (x whole, F not split alike): the weights are gathered
-        and the work is the same on every rank of the dim.
+        experts;
+      * that splits x's tokens (its batch, or its sequence): either the
+        weights are gathered there (FSDP's gather: a training microbatch
+        or a 32k prefill, whose tokens outweigh the weights), or, where
+        the group's tokens are few (decode), the weights keep their
+        split and the tokens move: to the gate and up projections' D
+        split by an all-to-all, their partial sums reduce-scattered back
+        to the tokens' ranks, and, for ``w_down``'s split of D, the
+        group's rows of the gated product gathered and the output's D
+        slices sent back by an all-to-all;
+      * that leaves x's tokens whole: F split over it (Megatron-style
+        tensor parallelism over ``model``: ``w_gate`` and ``w_up`` keep
+        their F split, or a whole weight is cut with ``torch.chunk``'s
+        sizes where F does not divide, and ``w_down``'s F is cut alike),
+        the output a partial sum reduced to x's placement, so no rank of
+        the dim runs the FFN the others run.
 
-    A dim that splits D of ``w_gate`` or ``w_up``, or of ``w_down``'s
-    output, gathers it, and so does a dim that splits x's D (under
-    ``2d`` the norm's D-split scale leaves x so; the output is then
-    reduced to that split, a reduce-scatter).  F or D that does not
-    divide its axis is never split by the sharding rules, so it is
-    gathered like any other whole dim.  Where x is a partial sum, ``fn``
-    runs on the DTensors as before."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    mesh = x.device_mesh
-    px = tuple(x.placements)
-    if any(p.is_partial() for p in px) or \
-            sum(p == Shard(x.ndim - 1) for p in px) > 1:
-        return fn(x, w_gate, w_up, w_down)
+    A dim that splits x's D (under ``2d`` the norm's D-split scale leaves
+    x so) gathers it into the gate and up products, and the output is
+    reduced to that split (a reduce-scatter).  Where x is a partial sum,
+    it is reduced first."""
+    from torch.distributed.tensor import Shard
     lead = 1 if experts else 0
-    # D split (the norm's D-split scale leaves it so under ``2d``):
-    # gathered, as Megatron gathers a sequence-parallel input
-    p_x = tuple(Replicate() if p == Shard(x.ndim - 1) else p for p in px)
-    col, row, g_col, g_row, out = [], [], [], [], []
-    for i, p in enumerate(p_x):
-        if experts and p == Shard(0):
-            c = r = gc = gr = o = Shard(0)
-        elif isinstance(p, Shard):
-            c = r = Replicate()
-            gc = gr = Partial()
-            o = p
-        elif (w_gate.placements[i] == w_up.placements[i] == Shard(lead + 1)
-              and w_down.placements[i] == Shard(lead)):
-            c, r, o = Shard(lead + 1), Shard(lead), Partial()
-            gc, gr = c, r
-        else:
-            c = r = gc = gr = o = Replicate()
-        for lst, q in ((col, c), (row, r), (g_col, gc), (g_row, gr),
-                       (out, o)):
-            lst.append(q)
-    col, row, g_col, g_row, out = map(tuple, (col, row, g_col, g_row, out))
-    y = local_map(fn, out_placements=(out,),
-                  in_placements=(p_x, col, col, row),
-                  in_grad_placements=(out, g_col, g_col, g_row),
-                  device_mesh=mesh, redistribute_inputs=True)(
-        x, w_gate, w_up, w_down)
-    return y.redistribute(mesh, px)
+    px = tuple(x.placements)
+    gate, up = ctx.product(x, (w_gate, w_up), lead, out="N")
+    h = F.silu(gate) * up
+    out = tuple("N" if p == Shard(x.ndim - 1) else "R" for p in px)
+    y = ctx.product(h, w_down, lead, out=out)
+    return y.redistribute(x.device_mesh, px)
 
 
 def init_dense(shape: Sequence[int], dtype: torch.dtype,

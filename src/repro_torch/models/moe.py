@@ -24,8 +24,9 @@ each rank's own groups (``local_map``, the group dim sharded as
 ``constrain(xg, "batch", None, None)`` leaves it): routing and capacity
 are per group, so no token leaves its batch shard until the experts'
 all-to-all in front of the expert FFN, which runs per shard too
-(``layers.ffn_per_shard``: each rank's experts on its tokens, the weights'
-D gathered, their gradients reduced back).
+(``layers.ffn_per_shard``: each rank's experts; the weights' D gathered
+for a training step's many tokens, their gradients reduced back, or, for
+decode's few, kept split and the tokens moved to it).
 """
 
 from __future__ import annotations
@@ -189,7 +190,7 @@ def moe_layer(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     h = ctx.constrain(buf.transpose(0, 1), "model", "batch", None, None)
     h = h.reshape(n_experts, g * cap, d)
     ffn = [h, params["w_gate"], params["w_up"], params["w_down"]]
-    out = (ffn_per_shard(_expert_ffn, *ffn, experts=True)
+    out = (ffn_per_shard(*ffn, experts=True)
            if ctx.is_dtensor(h) else _expert_ffn(*ffn))
     out = ctx.constrain(out.reshape(n_experts, g, cap, d), "model", "batch",
                         None, None).transpose(0, 1)       # (g, E, C, D)

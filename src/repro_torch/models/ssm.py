@@ -285,14 +285,30 @@ def _read_state(ch: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def mamba_decode_step(params, x: torch.Tensor, state: Dict,
                       cfg) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode.  x: (B, 1, D)."""
+    """One-token decode.  x: (B, 1, D).
+
+    On a mesh ``in_proj`` and ``out_proj`` run per shard
+    (``ctx.product``, planned by the bytes a rank receives): the few
+    tokens move to the weights' D split over ``data``, and ``model``
+    splits ``in_proj``'s columns (3352 at Mamba2-130M, cut unevenly over
+    16 ranks) or ``out_proj``'s d_inner, so no ``model`` rank runs a
+    product another runs.  The state update and its read stay on the
+    state's own split (``cache_specs`` splits N over ``model`` where the
+    24 heads cannot be).  What stays repeated on each ``model`` rank is
+    elementwise work on the rank's tokens: dt's softplus and decay, the
+    skip term, the gate and the norm, about 10 FLOPs an element of
+    (tokens, d_inner), 1.2e5 a layer for the 8 tokens of a production
+    decode rank against its 2.6e6 of ``in_proj`` products."""
     bs = x.shape[0]
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
-    proj = x @ params["in_proj"]
+    proj = ctx.product(x, params["in_proj"])
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    state["conv"])
+    # the conv ran on the channels' split (``conv_w``'s); gathered once,
+    # not once for each of x, B and C cut from it
+    xbc = ctx.whole(xbc, 2)
     xs = xbc[..., :di].reshape(bs, h, p)
     bmat = xbc[..., di:di + g * n].reshape(bs, g, n)
     cmat = xbc[..., di + g * n:].reshape(bs, g, n)
@@ -311,4 +327,4 @@ def mamba_decode_step(params, x: torch.Tensor, state: Dict,
     # flatten heads beside a split head dim
     y = ctx.whole(y, 2).reshape(bs, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"], {"conv": conv_state, "ssm": s}
+    return ctx.product(y, params["out_proj"]), {"conv": conv_state, "ssm": s}

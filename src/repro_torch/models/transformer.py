@@ -47,6 +47,7 @@ mode there is nothing to save, and the bodies run as they are.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -247,12 +248,26 @@ def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return ctx.split_last(ctx.whole_heads(t, 2, n), n)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor, out: str = "R"
+             ) -> torch.Tensor:
+    """``x @ w`` for x (B, S, D): on a mesh where x holds one token a
+    sequence (decode, ``long_500k``), per shard, planned by the bytes a
+    rank receives (``ctx.product``; the few tokens move, not the
+    weights), the output ``out`` (``"N"``: left split over w's N where the
+    plan splits it) on the mesh dims that do not split the tokens.  In
+    training and prefill DTensor plans the product (the heads' split
+    over ``model`` follows from ``wq``'s)."""
+    if not ctx.is_dtensor(x) or x.shape[1] != 1:
+        return x @ w
+    return ctx.product(x, w, out=out)
+
+
 def _qkv(blk, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     hn = rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = _split_heads(hn @ blk["wq"], h, hd)
-    k = _split_heads(hn @ blk["wk"], kv, hd)
-    v = _split_heads(hn @ blk["wv"], kv, hd)
+    q = _split_heads(_project(hn, blk["wq"], "N"), h, hd)
+    k = _split_heads(_project(hn, blk["wk"], "N"), kv, hd)
+    v = _split_heads(_project(hn, blk["wv"], "N"), kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, blk["q_norm"], cfg.norm_eps)
         k = rms_norm(k, blk["k_norm"], cfg.norm_eps)
@@ -499,7 +514,13 @@ def _embed(params: LMParams, cfg: ModelConfig,
 def _lookup_plan(emb: torch.Tensor, tokens: torch.Tensor) -> Tuple:
     """Which of the mesh dims that split the (V, D) table ``emb`` keep it
     split in :func:`_lookup` (the others gather it), by the bytes a rank
-    receives: (the kept vocab dims, the kept D dims).
+    receives: (the kept vocab dims, the kept D dims).  The lookup is the
+    product of the tokens' one-hot rows with the table, priced by
+    ``ctx.product_cost`` as every per-shard product is, with the tokens'
+    ids free to move (``x_width`` 0); its plans are its own (a split of
+    the table kept or gathered, at least one vocab split kept), chosen
+    by bytes alone, since the work a rank repeats is a gather of rows,
+    and a tie goes to the plan that keeps fewer splits.
 
     A dim that gathers the table receives ``(n - 1) / n`` of the gathered
     slice, ``V_f x D_f`` (the rows and columns that the kept dims leave a
@@ -530,37 +551,38 @@ def _lookup_plan(emb: torch.Tensor, tokens: torch.Tensor) -> Tuple:
     mesh's few tokens over (pod, data), the slice stays split."""
     from torch.distributed.tensor import Shard
     mesh = emb.device_mesh
-    sizes = [mesh.size(i) for i in range(mesh.ndim)]
-    split_t = [isinstance(p, Shard) for p in tokens.placements]
-    # the ranks of the other mesh dims that split a dim's token dim too
-    # (n_o above)
     place = tokens.placements
-    nested = [math.prod(sizes[j] for j, q in enumerate(place)
-                        if j != i and isinstance(p, Shard) and q == p)
-              for i, p in enumerate(place)]
-    vocab = [i for i, p in enumerate(emb.placements) if p == Shard(0)]
-    cols = [i for i, p in enumerate(emb.placements) if p == Shard(1)]
-    v, d = emb.shape
-    tok = tokens.numel() / math.prod(n for n, t in zip(sizes, split_t)
-                                     if t)
+    plan = _plan_lookup(
+        tuple(mesh.size(i) for i in range(mesh.ndim)),
+        tuple("T" if isinstance(p, Shard) else "R" for p in place),
+        tuple({Shard(0): "K", Shard(1): "N"}.get(p, "R")
+              for p in emb.placements),
+        tuple(p.dim if isinstance(p, Shard) else None for p in place),
+        tokens.numel(), emb.shape[0], emb.shape[1])
+    return ([i for i, c in enumerate(plan) if c == ctx.KEEP_K],
+            [i for i, c in enumerate(plan) if c == ctx.KEEP_N])
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_lookup(sizes, xk, wk, xd, t: int, v: int, d: int):
+    """:func:`_lookup_plan`'s choice on each mesh dim (``ctx``'s kinds:
+    x the tokens, w the (V, D) table)."""
+    vocab = [i for i, kind in enumerate(wk) if kind == "K"]
     best = None
-    for kv in range(1 if vocab else 0, len(vocab) + 1):
-        for kd in range(len(cols) + 1):
-            keep_v, keep_d = vocab[:kv], cols[:kd]
-            vf = v / math.prod(sizes[i] for i in keep_v)
-            df = d / math.prod(sizes[i] for i in keep_d)
-            tf = tok * math.prod(sizes[i] for i in keep_v + keep_d
-                                 if split_t[i])
-            cost = sum(vf * df * (sizes[i] - 1) / sizes[i]
-                       for i in vocab[kv:] + cols[kd:])
-            for i in keep_v + keep_d:
-                part = tf * df * (sizes[i] - 1) / sizes[i] * \
-                    (nested[i] ** 2 if i in keep_d else 1)
-                cost += part if split_t[i] else \
-                    part * (2 if i in keep_v else sizes[i])
-            if best is None or cost < best[0]:
-                best = (cost, keep_v, keep_d)
-    return best[1], best[2]
+    for plan in itertools.product((ctx.GATHER, ctx.KEEP_K, ctx.KEEP_N),
+                                  repeat=len(sizes)):
+        if vocab and plan[vocab[0]] != ctx.KEEP_K or any(
+                c != ctx.GATHER and kind == "R"
+                for c, kind in zip(plan, wk)):
+            continue
+        priced = ctx.product_cost(plan, sizes, xk, wk, xd, t, v, d,
+                                  x_width=0.0)
+        if priced is None:
+            continue
+        key = (priced[0], plan.count(ctx.KEEP_K), plan.count(ctx.KEEP_N))
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1]
 
 
 def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -650,50 +672,33 @@ def _head(params: LMParams, cfg: ModelConfig) -> torch.Tensor:
 
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """``x @ head``, x (B, S, D) and the (D, V) output projection.  On a
-    mesh the product runs on each rank's shard (``local_map``), every
-    placement given, so that no rank gathers activations or logits of
-    sequences that are not its own.  On each mesh dim:
+    mesh the product runs per shard (``ctx.product``), planned by the
+    bytes a rank receives, every placement given, so that no rank
+    gathers activations or logits of sequences that are not its own, and
+    the logits are left as the product leaves them (split over the
+    vocab, or a partial sum over a split of D).  On each mesh dim:
 
-      * that splits x's tokens (its batch, or its sequence): the head is
-        gathered whole over it, as FSDP gathers a weight, and the rank
-        runs its own tokens; the head's gradient is a partial sum over
-        it, reduced back to the head's placement (a reduce-scatter of the
-        table's split under ``dp``, whose vocab splits over the same
-        dims as the batch);
-      * that leaves x's tokens whole where the head splits its vocab
-        (``model`` under ``2d``): the logits keep the vocab split, and
-        x's gradient is a partial sum over it;
-      * that splits x's D (one decode slot under ``2d``, the norm's
-        D-split scale leaving it so): the head's D splits alike and the
-        logits are a partial sum over it (the rank's D slice of the
-        contraction), as DTensor planned it;
-      * otherwise: the head is gathered there.
+      * that splits x's tokens (its batch, or its sequence): where the
+        tokens are many (training, whose logits feed the loss), the head
+        is gathered over it, as FSDP gathers a weight, and its gradient
+        reduced back to its placement (a reduce-scatter of the table's
+        split under ``dp``, whose vocab splits over the same dims as the
+        batch); where they are few (decode, a prefill's last position),
+        the head keeps its split of D and the tokens move to it: an
+        all-to-all of the group's few rows, and a reduce-scatter of the
+        rank's vocab slice of their logits back to the tokens' ranks;
+      * that leaves x's tokens whole: the head's vocab split is kept, or,
+        where the vocab does not divide the dim (50280, 92553 on
+        ``model=16``) and the head is whole there, cut with
+        ``torch.chunk``'s sizes, and the logits stay split over the
+        vocab (no rank of the dim runs the whole head, and none gathers
+        it); where x's D is split (one decode slot under ``2d``), the
+        head's D splits alike and the logits are a partial sum over it.
 
-    Left to DTensor, the product's
-    plan gathered the activations of the dims that split the vocab and
-    the batch alike (``dp``) and made a vocab-wide logits block of many
-    sequences on every rank."""
-    if not ctx.is_dtensor(x):
-        return x @ head
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    p_x, p_h, g_x, g_h, out = [], [], [], [], []
-    for px, ph in zip(x.placements, head.placements):
-        if isinstance(px, Shard) and px.dim < 2:
-            row = (px, Replicate(), px, Partial(), px)
-        elif px == Shard(2):
-            row = (px, Shard(0), px, Shard(0), Partial())
-        elif ph == Shard(1):
-            row = (Replicate(), ph, Partial(), ph, Shard(2))
-        else:
-            row = (Replicate(),) * 5
-        for lst, q in zip((p_x, p_h, g_x, g_h, out), row):
-            lst.append(q)
-    return local_map(torch.matmul, out_placements=(tuple(out),),
-                     in_placements=(tuple(p_x), tuple(p_h)),
-                     in_grad_placements=(tuple(g_x), tuple(g_h)),
-                     device_mesh=x.device_mesh,
-                     redistribute_inputs=True)(x, head)
+    Left to DTensor, the product's plan gathered the activations of the
+    dims that split the vocab and the batch alike (``dp``) and made a
+    vocab-wide logits block of many sequences on every rank."""
+    return ctx.product(x, head, out="P")
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -999,7 +1004,7 @@ def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
     _write_slots(k_cache, at, k[:, 0])
     _write_slots(v_cache, at, v[:, 0])
     o = _decode_attend(q, k_cache, v_cache, index, window)
-    x = _shard_decode(x + o.reshape(b, 1, -1) @ blk["wo"])
+    x = _shard_decode(x + _project(o.reshape(b, 1, -1), blk["wo"]))
     m, _ = _mlp(blk, x, cfg)
     return _shard_decode(x + m)
 

@@ -27,6 +27,9 @@ DTensor may treat them as replicated.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
+import math
 import sys
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -199,6 +202,300 @@ class _HeadsInGrad(torch.autograd.Function):
         if not _divides(grad, ctx.dim, ctx.n):
             grad = grad.redistribute(ctx.mesh, ctx.placements)
         return grad, None, None
+
+
+# ---------------------------------------------------------------------------
+# Per-shard products: one plan, priced by the bytes a rank receives
+# ---------------------------------------------------------------------------
+#: a product's choices on one mesh dim (:func:`plan_product`)
+GATHER, KEEP_K, KEEP_N, BATCH = "gather", "keep_k", "keep_n", "batch"
+
+
+def _kind(p, lead: int, last: int, w: bool = False) -> str:
+    """A placement of a product's operand as the planner reads it: ``E``
+    (a split of the lead, expert, dims both operands share), ``K`` (the
+    contraction), ``N`` (w's output dim), ``T`` (one of x's token dims)
+    or ``R`` (whole; a partial sum of x is reduced before planning)."""
+    from torch.distributed.tensor import Shard
+    if not isinstance(p, Shard):
+        return "R"
+    if p.dim < lead:
+        return "E"
+    if w:
+        return "K" if p.dim == lead else "N"
+    return "K" if p.dim == last else "T"
+
+
+def product_cost(plan, sizes, xk, wk, xd, t: float, k: float, n: float,
+                 e: float = 1.0, x_width: float = 1.0, out=None):
+    """(elements a rank receives, the factor by which the product is
+    repeated) of ``x @ w`` run per shard by ``plan`` (one choice a mesh
+    dim), or None where the operands do not allow the plan.
+
+    ``sizes`` are the mesh dims' ranks; ``xk`` and ``wk`` each operand's
+    kind on each (:func:`_kind`); ``xd`` the tensor dim x splits there
+    (two mesh dims that split the same token dim are nested); ``t``, ``k``, ``n`` and ``e`` the
+    global tokens, contraction, output width and lead (expert) count;
+    ``x_width`` the elements of x a token holds for each of w's K rows (0
+    for a lookup's token ids, ``transformer._lookup_plan``); ``out`` the
+    kind the output must end in on each dim that does not split x's
+    tokens (``R`` whole, ``N`` split over N, ``P`` as the product leaves
+    it: a partial sum or a split of N; default ``R``).  On a mesh dim of
+    ``s`` ranks, with ``f = (s - 1) / s`` and the rank's slice of each
+    operand after the plan's kept splits:
+
+      * ``gather``: w's split there is gathered, ``f`` of the rank's
+        slice (FSDP); x keeps its token split, or its D split is
+        gathered, and where x's tokens are whole there every rank of the
+        dim runs the same product (the repeat factor);
+      * ``keep_k``: w keeps its K split (a whole w is cut locally); x's
+        tokens move to the K split (an all-to-all, ``f`` of the rank's
+        new x; a whole x is cut locally), and the output, a partial sum,
+        is reduce-scattered back to the tokens' ranks, or all-reduced
+        (twice ``f``) where x's tokens are whole;
+      * ``keep_n``: w keeps its N split (a whole w is cut with
+        ``torch.chunk``'s sizes, unevenly where N does not divide); x's
+        group's tokens are gathered (``f`` of them), the output columns
+        go back to the tokens' ranks by an all-to-all, or, where x's
+        tokens are whole, are gathered (``s - 1`` times the rank's
+        columns) unless ``out`` keeps them split;
+      * ``batch``: x and w split their lead dims alike (expert
+        parallelism).
+
+    The moves are priced in the order :func:`product` makes them: x's D
+    split gathered on the rank's own tokens before its tokens move; the
+    output's partial sums reduced to the tokens' ranks first (so a later
+    move carries the rank's own tokens), then the other reductions (into
+    ``out``'s split of N only where no other dim splits N, else whole),
+    then the all-to-alls, then the gathers.  An all-to-all on a dim whose token
+    dim other mesh dims (``n_o`` ranks) split too costs ``n_o`` squared
+    times as much: DTensor moves the other dims' rows with it
+    (``transformer._lookup_plan``'s finding).  A dim of one rank that
+    gathers moves nothing and costs nothing.  Not a plan (None): a
+    choice its operands do not allow, or w's kept splits of one tensor
+    dim not an outer run of its mesh dims (an inner one kept would be
+    gathered through)."""
+    m = len(sizes)
+    out = out or ("R",) * m
+    live = [s > 1 or c != GATHER for s, c in zip(sizes, plan)]
+    for i, c in enumerate(plan):
+        if live[i] and (xk[i] == "E") != (c == BATCH):
+            return None
+        if c == KEEP_K and wk[i] not in ("K", "R") or \
+                c == KEEP_N and wk[i] not in ("N", "R"):
+            return None
+    for kind, choice in (("K", KEEP_K), ("N", KEEP_N)):
+        kept = [plan[i] == choice for i in range(m)
+                if live[i] and wk[i] == kind]
+        if kept != sorted(kept, reverse=True):
+            return None
+
+    def ranks(pred):
+        return math.prod(sizes[i] for i in range(m) if pred(i))
+
+    def nested(i):
+        return ranks(lambda j: j != i and xk[j] == "T" and xd[j] == xd[i])
+    e_loc = e / ranks(lambda i: plan[i] == BATCH)
+    t_own = t / ranks(lambda i: xk[i] == "T")
+    t_loc = t_own * ranks(lambda i: xk[i] == "T" and
+                          plan[i] in (KEEP_K, KEEP_N))
+    k_loc = k / ranks(lambda i: plan[i] == KEEP_K)
+    n_loc = n / ranks(lambda i: plan[i] == KEEP_N)
+    cost, repeat = 0.0, 1
+    for i, c in enumerate(plan):
+        s = sizes[i]
+        f = (s - 1) / s
+        if c in (GATHER, BATCH) and wk[i] in ("K", "N"):
+            cost += f * e_loc * k_loc * n_loc
+        if c == GATHER and xk[i] != "T":
+            repeat *= s
+        if c == KEEP_K and xk[i] == "T":
+            cost += f * e_loc * t_loc * k_loc * x_width * nested(i) ** 2
+        elif c == KEEP_N and xk[i] == "T":
+            cost += f * e_loc * t_loc * k_loc * x_width
+        elif c != KEEP_K and xk[i] == "K":
+            # gathered first, on the rank's own tokens
+            cost += f * e_loc * t_own * x_width * k / ranks(
+                lambda j: j != i and xk[j] == "K" and plan[j] == KEEP_K)
+    t_cur, n_cur = t_loc, n_loc
+    for i in reversed(range(m)):
+        if plan[i] == KEEP_K and xk[i] == "T":
+            cost += (sizes[i] - 1) / sizes[i] * e_loc * t_cur * n_cur
+            t_cur /= sizes[i]
+    split_n = KEEP_N in plan
+    for i in range(m):
+        if plan[i] == KEEP_K and xk[i] != "T" and out[i] != "P":
+            s = sizes[i]
+            scatter = out[i] == "N" and not split_n
+            cost += (s - 1) / s * e_loc * t_cur * n_cur * (1 if scatter
+                                                            else 2)
+            if scatter:
+                n_cur /= s
+    for i in reversed(range(m)):
+        if plan[i] == KEEP_N and xk[i] == "T":
+            s = sizes[i]
+            cost += (s - 1) / s * e_loc * t_cur * n_cur * nested(i) ** 2
+            t_cur, n_cur = t_cur / s, n_cur * s
+    for i in range(m):
+        if plan[i] == KEEP_N and xk[i] != "T" and out[i] == "R":
+            cost += (sizes[i] - 1) * e_loc * t_cur * n_cur
+            n_cur *= sizes[i]
+    return cost, repeat
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_product(sizes, xk, wk, xd, t: float, k: float, n: float,
+                 e: float = 1.0, out=None) -> Tuple[str, ...]:
+    """The plan of :func:`product_cost` (the same arguments, as tuples)
+    that :func:`product` runs and that moves the fewest bytes, among
+    those that repeat the product on no mesh dim where such a plan
+    exists: a dim whose ranks hold the same tokens splits the product's
+    K or N over them rather than run it on each.  :func:`product` runs
+    only ``gather`` on a dim of one rank, no token split kept on a mesh
+    dim with an inner dim splitting the same token dim, and no K split
+    kept beside tokens moved to another.  Ties go to the first plan in
+    ``itertools.product`` order (gather before keep).  A plan depends
+    only on its arguments, so it is worked out once for each."""
+    m = len(sizes)
+    best = None
+    for plan in itertools.product((GATHER, KEEP_K, KEEP_N, BATCH),
+                                  repeat=m):
+        kept = [i for i, c in enumerate(plan) if c in (KEEP_K, KEEP_N)]
+        if any(sizes[i] == 1 and c != GATHER
+               for i, c in enumerate(plan)) or any(
+                xk[i] == "T" and xk[j] == "T" and xd[j] == xd[i]
+                and sizes[j] > 1 for i in kept for j in range(i + 1, m)):
+            continue
+        keep_k = [i for i in kept if plan[i] == KEEP_K]
+        if len(keep_k) > 1 and any(xk[i] == "T" for i in keep_k):
+            continue
+        priced = product_cost(plan, sizes, xk, wk, xd, t, k, n, e,
+                              out=out)
+        if priced is None:
+            continue
+        key = priced[::-1]
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"no per-shard plan for x {xk} and w {wk} on "
+                         f"mesh dims {sizes}")
+    return best[1]
+
+
+def product_plan(x, w, lead: int = 0, out="R") -> Tuple[str, ...]:
+    """:func:`plan_product` for DTensors x (..., K) and w (K, N) on one
+    mesh (with ``lead`` shared leading dims, x (E, T, K) and w (E, K,
+    N)), ``out`` as there (one kind for every dim where it is a
+    string); a partial sum of x counts as whole (it is reduced first)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    if isinstance(out, str):
+        out = (out,) * mesh.ndim
+    return plan_product(
+        tuple(mesh.size(i) for i in range(mesh.ndim)),
+        tuple(_kind(p, lead, last) for p in x.placements),
+        tuple(_kind(p, lead, 0, w=True) for p in w.placements),
+        tuple(p.dim if isinstance(p, Shard) else None
+              for p in x.placements),
+        math.prod(x.shape[lead:-1]), x.shape[-1], w.shape[-1],
+        math.prod(x.shape[:lead]), out=tuple(out))
+
+
+def product(x, w, lead: int = 0, out="R"):
+    """``x @ w`` (a batched product over ``lead`` shared leading dims)
+    on a mesh, each rank's shard run by the plan :func:`product_plan`
+    prices, with every placement and gradient placement stated, so that
+    DTensor plans neither the product nor its backward.  ``w`` may be a tuple of
+    weights placed alike (an FFN's gate and up projections): x is then
+    moved once and a tuple comes back.  ``out`` gives, on each mesh dim
+    that does not split x's tokens, the kind the output ends in (``R``
+    whole, ``N`` split over w's N, ``P`` as the product leaves it; one
+    kind for every dim where it is a string); on a dim that splits them
+    the output is split as x is.  On each mesh dim:
+
+      * ``gather``: w gathered there, x's own tokens (its D split, if
+        any, gathered); the gradient of w a partial sum over the tokens'
+        ranks, reduced back to w's placement;
+      * ``keep_k``: x and w both split K (x's tokens moved there by an
+        all-to-all, a whole x or w cut by DTensor's local split); the
+        output a partial sum; the gradients split as the operands are;
+      * ``keep_n``: w split N (a whole w cut with ``torch.chunk``'s
+        sizes: an uneven split where N does not divide), x whole there
+        (its group's tokens gathered); the output split over N, x's
+        gradient a partial sum;
+      * ``batch``: x and w split their lead dims alike.
+
+    The output then moves dim by dim, in the order the plan was priced:
+    partial sums reduce-scattered back to the tokens' ranks, the other
+    partial sums reduced to ``out``, the N splits of moved tokens sent
+    back by an all-to-all, and the other N splits gathered where ``out``
+    wants them whole.  A dim of one rank is a ``gather`` (nothing moves).
+    Off a mesh, ``x @ w``."""
+    many = isinstance(w, (tuple, list))
+    ws = tuple(w) if many else (w,)
+    if not is_dtensor(x):
+        ys = tuple(torch.matmul(x, w_) for w_ in ws)
+        return ys if many else ys[0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    if isinstance(out, str):
+        out = (out,) * mesh.ndim
+    plan = product_plan(x, ws[0], lead, out)
+    last = x.ndim - 1
+    kinds = [_kind(p, lead, last) for p in x.placements]
+    p_x, p_w, g_x, g_w, p_y = [], [], [], [], []
+    for i, c in enumerate(plan):
+        p = x.placements[i]
+        if c == BATCH:
+            row = (p, p, p, p, p)
+        elif c == KEEP_K:
+            row = (Shard(last), Shard(lead), Shard(last), Shard(lead),
+                   Partial())
+        elif c == KEEP_N:
+            row = (Replicate(), Shard(lead + 1), Partial(), Shard(lead + 1),
+                   Shard(last))
+        else:
+            keep = p if kinds[i] == "T" else Replicate()
+            row = (keep, Replicate(), keep,
+                   Partial() if kinds[i] == "T" else Replicate(), keep)
+        for lst, q in zip((p_x, p_w, g_x, g_w, p_y), row):
+            lst.append(q)
+    # x's D split gathered first, on the rank's own tokens
+    first = [Replicate() if kinds[i] == "K" and p_x[i] == Replicate()
+             else p for i, p in enumerate(x.placements)]
+    x_l = x.redistribute(mesh, first).redistribute(mesh, p_x).to_local(
+        grad_placements=g_x)
+    m = mesh.ndim
+    keep_k = [i for i in range(m) if plan[i] == KEEP_K]
+    keep_n = [i for i in range(m) if plan[i] == KEEP_N]
+    # the output's moves, in order: (mesh dim, the placement it takes)
+    moves = [(i, x.placements[i]) for i in reversed(keep_k)
+             if kinds[i] == "T"]
+    # a partial sum reduce-scattered into a split of N only where no
+    # other dim splits N (DTensor would gather that split first)
+    moves += [(i, Shard(last) if out[i] == "N" and not keep_n
+               else Replicate())
+              for i in keep_k if kinds[i] != "T" and out[i] != "P"]
+    moves += [(i, x.placements[i]) for i in reversed(keep_n)
+              if kinds[i] == "T"]
+    moves += [(i, Replicate()) for i in keep_n
+              if kinds[i] != "T" and out[i] == "R"]
+    ys = []
+    for w_ in ws:
+        w_l = w_.redistribute(mesh, p_w).to_local(grad_placements=g_w)
+        shape = tuple(x.shape[:-1]) + (w_.shape[-1],)
+        y = DTensor.from_local(torch.matmul(x_l, w_l), mesh, p_y,
+                               run_check=False, shape=shape,
+                               stride=contiguous_stride(shape))
+        for i, to in moves:
+            y = y.redistribute(mesh, [to if j == i else q
+                                      for j, q in enumerate(y.placements)])
+        ys.append(y)
+    return tuple(ys) if many else ys[0]
 
 
 def register_kernel_rules() -> None:

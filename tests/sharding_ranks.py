@@ -285,6 +285,37 @@ def case_zamba2_dp(mesh8):
     return out
 
 
+class _Plans:
+    """Records each per-shard product's plan (``ctx.product_plan``):
+    (w's output width, the plan, whether it repeats the product on a
+    mesh dim of more than one rank whose x holds the same tokens, and
+    whether it cuts a whole w's N unevenly there)."""
+
+    def __init__(self):
+        self.plans = []
+        self._plan = ctx.product_plan
+
+    def __enter__(self):
+        def plan(x, w, lead=0, out="R"):
+            got = self._plan(x, w, lead, out)
+            mesh, last = x.device_mesh, x.ndim - 1
+            kinds = [ctx._kind(p, lead, last) for p in x.placements]
+            live = [mesh.size(i) > 1 for i in range(mesh.ndim)]
+            repeats = any(live[i] and c == ctx.GATHER and kinds[i] != "T"
+                          for i, c in enumerate(got))
+            uneven = any(live[i] and c == ctx.KEEP_N and
+                         w.shape[-1] % mesh.size(i) != 0
+                         for i, c in enumerate(got))
+            self.plans.append((int(w.shape[-1]), list(got), repeats,
+                               uneven))
+            return got
+        ctx.product_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        ctx.product_plan = self._plan
+
+
 def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16,
                 index=None):
     """A prefill of ``prompt`` tokens and ``ticks`` decode ticks of ``b``
@@ -317,13 +348,22 @@ def _serve_gaps(cfg, mesh, b=4, prompt=12, ticks=3, max_seq=16,
                 specs = sharding.batch_specs({"t": t}, mesh)
                 return sharding.distribute(
                     {"t": t}, sharding.tree_shardings(specs, mesh))["t"]
-            got, st = serve(ps, place)
-    return {
-        "logit_gap": max(float((a - _full(b_)).abs().max())
-                         for a, b_ in zip(want, got)),
-        "k_gap": float((st0["k"] - _full(st["k"])).abs().max()),
-        "v_gap": float((st0["v"] - _full(st["v"])).abs().max()),
-        "k_placements": [_name(x) for x in st["k"].placements]}
+            with _Plans() as spy:
+                got, st = serve(ps, place)
+    out = {"logit_gap": max(float((a - _full(b_)).abs().max())
+                            for a, b_ in zip(want, got))}
+    if "k" in st0:
+        out.update(
+            k_gap=float((st0["k"] - _full(st["k"])).abs().max()),
+            v_gap=float((st0["v"] - _full(st["v"])).abs().max()),
+            k_placements=[_name(x) for x in st["k"].placements])
+    if "ssm_layers" in st0:
+        out["state_gap"] = max(
+            float((t - _full(st["ssm_layers"][key])).abs().max())
+            for key, t in st0["ssm_layers"].items())
+    out["repeated"] = sorted({n for n, _, rep, _ in spy.plans if rep})
+    out["uneven"] = sorted({n for n, _, _, cut in spy.plans if cut})
+    return out
 
 
 def _like(t, ref):
@@ -565,11 +605,28 @@ def case_swiglu(mesh8, mesh24):
     return out
 
 
-def case_decode(mesh8):
-    """A prefill and 3 decode ticks of qwen3 and zamba2 (the hybrid's
-    per-layer Mamba2 states) on the mesh against plain tensors."""
-    return {arch: _serve_gaps(smoke_config(get_config(arch)), mesh8)
-            for arch in ("qwen3-0.6b", "zamba2-2.7b")}
+#: the decode cases' widths that do not divide ``model=4``: a vocabulary
+#: of 250 (63 columns a rank, 61 on the last), smoke Mamba2 at d_model 48
+#: (6 SSD heads, ``in_proj`` 230 wide) and smoke internvl2 with an FFN of
+#: 126 (so ``ctx.product`` cuts the head, ``in_proj`` and the FFN's F
+#: with ``torch.chunk``'s uneven sizes)
+UNEVEN = {"mamba2-130m": {"vocab_size": 250, "d_model": 48},
+          "internvl2-2b": {"vocab_size": 250, "d_ff": 126}}
+
+
+def case_decode(mesh8, mesh24):
+    """A prefill and 3 decode ticks on the mesh against plain tensors:
+    qwen3 and zamba2 (the hybrid's per-layer Mamba2 states) on the 4x2
+    mesh, and on the 2x4 mesh smoke Mamba2 and internvl2 at the widths
+    of :data:`UNEVEN`, whose head, ``in_proj`` and FFN are split over
+    ``model`` unevenly in decode (each rank runs its own columns; none
+    runs the whole product)."""
+    out = {arch: _serve_gaps(smoke_config(get_config(arch)), mesh8)
+           for arch in ("qwen3-0.6b", "zamba2-2.7b")}
+    for arch, widths in UNEVEN.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        out[f"{arch}/uneven"] = _serve_gaps(cfg, mesh24)
+    return out
 
 
 def case_decode_seq(mesh8, mesh24):
@@ -662,9 +719,10 @@ def case_elastic(mesh4, out_dir):
 
 
 #: the cases that ``chip_smoke.py`` runs on the card's torch release (the
-#: ``guard`` set): the steps, gradients and lookups that differ by release
+#: ``guard`` set): the steps, gradients and lookups that differ by
+#: release, and decode's per-shard products (uneven splits included)
 GUARD_CASES = ("sp", "dp", "gqa", "ep", "ep_dp", "tied_dp", "zamba2_dp",
-               "grads_heads", "zigzag", "lookup")
+               "grads_heads", "zigzag", "lookup", "decode")
 
 
 def _cases(cases, out_dir) -> list:
@@ -683,7 +741,7 @@ def _cases(cases, out_dir) -> list:
            "ep_dp": lambda: case_ep_dp(mesh24),
            "tied_dp": lambda: case_tied_dp(mesh8),
            "zamba2_dp": lambda: case_zamba2_dp(mesh8),
-           "decode": lambda: case_decode(mesh8),
+           "decode": lambda: case_decode(mesh8, mesh24),
            "decode_seq": lambda: case_decode_seq(mesh8, mesh24),
            "prefill_heads": lambda: case_prefill_heads(mesh8, mesh24),
            "grads_heads": lambda: case_grads_heads(mesh24),
@@ -705,23 +763,25 @@ def _cases(cases, out_dir) -> list:
 
 #: a result's gaps by key, and the tolerance each is held to
 _TOLS = {"loss_gap": LOSS_TOL, "param_gap": PARAM_TOL, "grad_gap": PARAM_TOL,
-         "logit_gap": SERVE_TOL, "k_gap": SERVE_TOL, "v_gap": SERVE_TOL}
+         "logit_gap": SERVE_TOL, "k_gap": SERVE_TOL, "v_gap": SERVE_TOL,
+         "state_gap": SERVE_TOL}
 
 
 def failures(results, where="") -> list:
     """Every error in a result file's cases, every gap over its
     tolerance (:data:`_TOLS`), every ``crossing`` or ``whole_reduced``
     collective (a rank given other ranks' sequences, a projection's
-    gradient all-reduced whole), and ``ssd_calls`` that are missing or
-    not each on a plain tensor of the rank's one sequence (the Mamba2
-    block not run per shard), as lines of text."""
+    gradient all-reduced whole), every ``repeated`` product (one that
+    ran whole on every rank of a mesh dim), and ``ssd_calls`` that are
+    missing or not each on a plain tensor of the rank's one sequence (the
+    Mamba2 block not run per shard), as lines of text."""
     out = []
     if isinstance(results, dict):
         for key, val in results.items():
             at = f"{where}/{key}" if where else str(key)
             if key == "error":
                 out.append(f"{where}: {str(val).strip().splitlines()[-1]}")
-            elif key in ("crossing", "whole_reduced") and val:
+            elif key in ("crossing", "whole_reduced", "repeated") and val:
                 out.append(f"{at}: {val}")
             elif key == "ssd_calls":
                 if not val or any(list(c) != [False, 1] for c in val):

@@ -2,7 +2,8 @@
 reference's (``repro.launch.dryrun``) on smoke configs.
 
 Both packages run qwen3-0.6b, granite-moe-3b-a800m and zamba2-2.7b smoke
-configs in train, prefill and decode on a (4, 2) mesh of 8, smoke gemma3
+configs in train, prefill and decode (and smoke Mamba2 in decode) on a
+(4, 2) mesh of 8, smoke gemma3
 and zamba2 in train on a (2, 4) mesh, and smoke
 qwen3 in prefill and decode on that mesh, where its 4 query heads
 split one a ``model`` rank beside 2 KV heads that cannot, and its decode
@@ -61,6 +62,12 @@ Held, with each tolerance's reason:
     :data:`DP_COLLECTIVES` times the reference's (1.48x and 1.19x here:
     the smoke cells' fixed costs; the production cells read 0.40x and
     0.45x on the card);
+  * smoke Mamba2's decode collective bytes a device at most
+    :data:`DECODE_EXTRA_COLLECTIVES` times the reference's;
+  * the product planner (``parallel.ctx.plan_product``) on production
+    placements: decode's few tokens move to the weights' splits, a
+    training microbatch or a prefill gathers the weight, and a width
+    that does not divide ``model`` is split unevenly, not repeated;
   * ``peak_bytes_per_device`` at least the train state's bytes a rank;
   * on a 1-rank fake mesh, the dry run's FLOPs for a smoke Qwen3 and
     Mamba2 train step (2 x 128) within 10% of what the port's
@@ -87,6 +94,15 @@ from repro_torch.core import devices
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen3-0.6b", "granite-moe-3b-a800m", "zamba2-2.7b")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+#: decode cells run beside the others on the (4, 2) mesh: smoke Mamba2,
+#: whose ``in_proj`` ran whole on both ``model`` ranks, and whose output
+#: projection was gathered whole, before its decode products were
+#: planned per shard
+DECODE_EXTRA = ("mamba2-130m",)
+#: their collective bytes a device over the reference's, at most: a CPU
+#: group has no all-to-all, so each of the tokens' all-to-alls reads as
+#: an all-gather of ``data=4`` times its bytes here
+DECODE_EXTRA_COLLECTIVES = 2.0
 FLOPS_REL = 0.10
 FLOPS_BAND = (0.5, 2.0)
 #: cells whose programs differ in their work (the module docstring
@@ -247,6 +263,9 @@ _PORT = textwrap.dedent("""
         for s in SHAPES:
             out["cells"][arch + "/" + s] = dryrun.run_cell(
                 arch, s, verbose=False, device="cpu")
+    for arch in %(decode_extra)r:
+        out["cells"][arch + "/decode_32k"] = dryrun.run_cell(
+            arch, "decode_32k", verbose=False, device="cpu")
     dryrun.SHAPES["long_500k"] = ShapeConfig("long_500k", 1024, 1,
                                              "decode")
     out["skipped"] = dryrun.run_cell("qwen3-0.6b", "long_500k",
@@ -300,7 +319,8 @@ _PORT = textwrap.dedent("""
         out["refused"] = str(e)
     dist.destroy_process_group()
     print(json.dumps(out))
-""" % {"archs": ARCHS, "split_mesh": SPLIT_MESH,
+""" % {"archs": ARCHS, "decode_extra": DECODE_EXTRA,
+       "split_mesh": SPLIT_MESH,
        "zigzag_mesh": ZIGZAG_MESH, "dp_archs": DP_ARCHS})
 
 
@@ -326,6 +346,9 @@ def runs(tmp_path_factory):
     ref_env = dict(env, JAX_PLATFORMS="cpu")
     refs = {(a, s): _start(["-c", _REFERENCE, a, s, "4,2"], ref_env)
             for a in ARCHS for s in SHAPES}
+    refs.update({(a, "decode_32k"): _start(
+        ["-c", _REFERENCE, a, "decode_32k", "4,2"], ref_env)
+        for a in DECODE_EXTRA})
     split = ",".join(str(n) for n in SPLIT_MESH)
     refs.update({("split", s): _start(["-c", _REFERENCE, "qwen3-0.6b", s,
                                        split], ref_env)
@@ -482,6 +505,7 @@ def _table_shapes(cell, arch):
 
 
 @pytest.mark.parametrize("cell", [f"{a}/{s}" for a in ARCHS for s in SHAPES]
+                         + [f"{a}/decode_32k" for a in DECODE_EXTRA]
                          + ["split/prefill_32k", "split/decode_32k",
                             "zigzag/prefill_32k"])
 def test_no_collective_gathers_the_embedding_table(runs, cell):
@@ -538,7 +562,61 @@ def test_lookup_plan_prices_a_nested_token_split(case):
     assert tfm._lookup_plan(emb, tokens) == plan
 
 
-@pytest.mark.parametrize("cell", [f"{a}/decode_32k" for a in ARCHS]
+#: production products on the (16, 16) mesh: (x's kinds on (data,
+#: model), w's kinds, x's tokens, K, N, the plan).  ``T`` splits x's
+#: tokens, ``K`` the contraction, ``N`` w's output, ``R`` is whole
+#: (``ctx._kind``).
+PRODUCTS = {
+    # decode, 8 tokens a rank: internvl2's FFN gate keeps its D split
+    # over data (the tokens move: an all-to-all and a reduce-scatter of
+    # (128, 512) partials) and its F split over model
+    "decode_moves_the_tokens": (("T", "R"), ("K", "N"), 128, 2048, 8192,
+                                ("keep_k", "keep_n")),
+    # a 4096-token microbatch a rank: the same weight gathered over data
+    # (FSDP), F kept split over model (Megatron)
+    "microbatch_gathers_w": (("T", "R"), ("K", "N"), 16 * 4096, 2048, 8192,
+                             ("gather", "keep_n")),
+    # Mamba2's in_proj in decode: x's D split over model by the norm's
+    # scale, 3352 columns that do not divide model=16 (the weight whole
+    # there): the tokens move over data, and model splits N unevenly
+    # rather than run the whole product on each of its 16 ranks
+    "uneven_in_proj": (("T", "K"), ("K", "R"), 128, 768, 3352,
+                       ("keep_k", "keep_n")),
+    # the same weight in a 32-sequence prefill's rows, 65536 a rank: D
+    # gathered over data, N still split over model
+    "prefill_in_proj": (("T", "K"), ("K", "R"), 32 * 32768, 768, 3352,
+                        ("gather", "keep_n")),
+    # one slot (long_500k): x whole on both dims, no rank repeats the
+    # product: K stays split over data (an all-reduce of the partial
+    # sums) and N over model
+    "one_slot": (("R", "R"), ("K", "N"), 1, 2560, 10448,
+                 ("keep_k", "keep_n"))}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCTS))
+def test_product_plan_moves_the_few_tokens_not_the_weights(case):
+    """``ctx.plan_product`` on production products (placements as the
+    dry run logs them): decode's few tokens move to the weights' splits,
+    a training microbatch or a prefill gathers the weight (FSDP), and a
+    width that does not divide ``model`` is split unevenly there, so no
+    plan runs the product on every rank of a dim whose ranks hold the
+    same tokens."""
+    from repro_torch.parallel import ctx
+    xk, wk, t, k, n, plan = PRODUCTS[case]
+    xd = tuple(0 if kind == "T" else None for kind in xk)
+    got = ctx.plan_product((16, 16), xk, wk, xd, t, k, n)
+    assert got == plan
+    assert ctx.product_cost(got, (16, 16), xk, wk, xd, t, k, n)[1] == 1
+    if case == "uneven_in_proj":
+        # the kept N split is a cut of the whole weight (210 columns a
+        # rank, 202 on the last); gathering it there instead would run
+        # the product on each of model's 16 ranks
+        assert ctx.product_cost(("keep_k", "gather"), (16, 16), xk, wk, xd,
+                                t, k, n)[1] == 16
+
+
+@pytest.mark.parametrize("cell", [f"{a}/decode_32k"
+                                  for a in ARCHS + DECODE_EXTRA]
                          + ["split/decode_32k"])
 def test_decode_products_match_the_reference(runs, cell):
     """Decode's products: the FLOPs of the port's matmuls
@@ -555,6 +633,20 @@ def test_decode_products_match_the_reference(runs, cell):
     ratio = port["xla_cost_analysis"]["flops"] / ref["dot_flops"]
     print(f"{cell}: port/reference product FLOPs a device {ratio:.3f}")
     assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
+
+
+@pytest.mark.parametrize("arch", DECODE_EXTRA)
+def test_decode_extra_collectives_near_the_reference(runs, arch):
+    """Smoke Mamba2's decode on the (4, 2) mesh: collective bytes a device
+    at most DECODE_EXTRA_COLLECTIVES times the reference's (the output
+    projection's D split kept, the few tokens moved to it; the head was
+    gathered whole on every rank before)."""
+    port, ref = _pair(runs, arch, "decode_32k")
+    assert port["status"] == ref["status"] == "ok"
+    coll = (port["collective_bytes_per_device"]
+            / ref["collective_bytes_per_device"])
+    print(f"{arch} decode_32k: port/reference collective bytes {coll:.3f}")
+    assert 0 < coll <= DECODE_EXTRA_COLLECTIVES, coll
 
 
 def test_data_parallel_step_reduces_every_gradient(runs):

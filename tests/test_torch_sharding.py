@@ -15,8 +15,10 @@ The attention cases hold the model's per-shard paths on the 2x4 and 4x2
 meshes: prefill logits and the loss's ``wq``/``wk``/``wv`` gradients
 with the query heads split over ``model`` (a KV head's gradient summed
 over the ranks that read it), and decode from per-shard softmax partials
-where the cache's sequence is split, at the same tolerances; prefill
-and training with the query sequence split over ``model`` where the
+where the cache's sequence is split, at the same tolerances (and with
+every product planned per shard, smoke Mamba2 and internvl2 at widths
+that do not divide ``model``, none repeated on a mesh dim's ranks);
+prefill and training with the query sequence split over ``model`` where the
 heads cannot be (6 heads on ``model=4``), the per-shard embedding lookup
 under ``2d``, ``dp`` and ``sp``, and the per-shard SwiGLU.  Under ``dp``
 with the batch over the whole mesh, as the dry run places it: the MoE
@@ -178,12 +180,27 @@ def test_the_card_guard_cases_pass_its_gate(runs):
 def test_prefill_and_decode_on_the_mesh(runs):
     """A prefill and 3 decode ticks with the cache placed by
     ``cache_specs``: qwen3 (KV caches) and zamba2 (per-layer Mamba2
-    states beside the shared block's caches), fp32, against plain
-    tensors (sums over split dims in another order)."""
+    states beside the shared block's caches) on the 4x2 mesh, and smoke
+    Mamba2 and internvl2 on the 2x4 mesh with a vocabulary, a Mamba2
+    ``in_proj`` and an FFN that do not divide ``model=4``
+    (``sharding_ranks.UNEVEN``: their decode products split unevenly),
+    fp32, against plain tensors (sums over split dims in another order):
+    logits, KV caches and Mamba2 states."""
     got = _case(runs, "decode")
+    assert set(got) == {"qwen3-0.6b", "zamba2-2.7b", "mamba2-130m/uneven",
+                        "internvl2-2b/uneven"}, sorted(got)
     for arch, r in got.items():
         assert r["logit_gap"] < 1e-4, (arch, r)
-        assert r["k_gap"] < 1e-4, (arch, r)
+        gaps = [k for k in ("k_gap", "v_gap", "state_gap") if k in r]
+        assert gaps, (arch, r)
+        for k in gaps:
+            assert r[k] < 1e-4, (arch, k, r)
+        assert r["repeated"] == [], (arch, r)
+    # the uneven widths really were cut unevenly: the vocabulary, and
+    # Mamba2's in_proj (2 x 96 + 2 x 16 + 6) or internvl2's FFN
+    assert got["mamba2-130m/uneven"]["uneven"] == [230, 250], got
+    assert 250 in got["internvl2-2b/uneven"]["uneven"], got
+    assert 126 in got["internvl2-2b/uneven"]["uneven"], got
 
 
 @pytest.mark.parametrize("split, placements", [
