@@ -276,9 +276,12 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     ``tests/sharding_ranks.py`` (the data- and sequence-parallel steps,
     the head-split and zig-zag gradients, the dp and sp lookups, the
     MoE router's gradient under ``2d`` and ``dp``, the tied head and
-    zamba2's Mamba2 layers under ``dp``, and decode with its products
+    zamba2's Mamba2 layers under ``dp``, decode with its products
     per shard, Mamba2's and internvl2's at widths that do not divide
-    ``model``) on ``GUARD_RANKS`` gloo CPU ranks within
+    ``model``, the Mamba2 block on each ``model`` rank's heads under
+    ``2d`` in prefill, decode and training, and the ``dp`` step's
+    attention gradients with KV heads that do not divide ``model``) on
+    ``GUARD_RANKS`` gloo CPU ranks within
     ``GUARD_TIMEOUT_S``, held to the test file's tolerances
     (``sharding_ranks.failures``).
 20. The dry run (``repro_torch.launch.dryrun``) on the production
@@ -297,7 +300,9 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     ``decode_32k`` (their products planned per shard by
     ``parallel.ctx.product``: heads of 50280 and 92553 rows and
     Mamba2's 3352-wide ``in_proj`` split unevenly over ``model=16``),
-    all at once within ``DRYRUN_TIMEOUT_S``.  Every
+    and Mamba2-130M and zamba2-2.7b at ``prefill_32k`` (their Mamba2
+    blocks on each ``model`` rank's range of the heads,
+    ``ssm._mamba_heads``), all at once within ``DRYRUN_TIMEOUT_S``.  Every
     cell ``ok``; each cell's compute, memory and collective terms,
     bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
     prefill cell's useful-FLOPs ratio at least ``DRYRUN_PREFILL_USEFUL``
@@ -307,8 +312,9 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     rank's shard, neither gathered); the gemma3 cells' FLOPs a device at
     most ``DRYRUN_FLOPS_OVER_REFERENCE`` times the reference's count
     (``DRYRUN_REFERENCE_FLOPS``), and so the Mamba2 and internvl2
-    decode cells'; those two and the gemma3 and zamba2 ``train_4k``
-    cells' collective bytes a device at most
+    decode cells' and the Mamba2 prefill cell's; those two decode
+    cells', the gemma3 and zamba2 ``train_4k`` cells' and the zamba2
+    prefill cell's collective bytes a device at most
     ``DRYRUN_COLLECTIVES_OVER_REFERENCE`` times the reference's
     (``DRYRUN_REFERENCE_COLLECTIVE_BYTES``); and on the 1-rank cell,
     its roofline step below phase 18's measured ms a step, and its
@@ -4015,7 +4021,9 @@ def sharding_guard() -> None:
     torch release (the data- and sequence-parallel steps, the head-split
     and zig-zag gradients, the dp and sp lookups, the MoE router's
     gradient under ``2d`` and ``dp``, the tied head and zamba2's Mamba2
-    layers under ``dp``, decode's per-shard products) on GUARD_RANKS
+    layers under ``dp``, decode's per-shard products, the Mamba2 block
+    on each ``model`` rank's heads under ``2d``, the ``dp`` attention
+    gradients with KV heads that do not divide ``model``) on GUARD_RANKS
     gloo CPU ranks, one process a rank, as
     ``tests/test_torch_sharding.py`` runs them: fails on any case's
     error, any gap over the test file's tolerances, any collective that
@@ -4089,7 +4097,9 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("gemma3-1b", "prefill_32k", False),
                 ("zamba2-2.7b", "train_4k", False),
                 ("mamba2-130m", "decode_32k", False),
-                ("internvl2-2b", "decode_32k", False))
+                ("internvl2-2b", "decode_32k", False),
+                ("mamba2-130m", "prefill_32k", False),
+                ("zamba2-2.7b", "prefill_32k", False))
 #: the phase's limit: every process is killed past it
 DRYRUN_TIMEOUT_S = 110
 #: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
@@ -4138,7 +4148,8 @@ DRYRUN_REFERENCE_FLOPS = {"gemma3-1b_train_4k_1pod": 8.306724e13 / 2.51,
                           # mamba2-130m --shape decode_32k``, ``--arch
                           # internvl2-2b ...``)
                           "mamba2-130m_decode_32k_1pod": 2.0843e8,
-                          "internvl2-2b_decode_32k_1pod": 2.7997e10}
+                          "internvl2-2b_decode_32k_1pod": 2.7997e10,
+                          "mamba2-130m_prefill_32k_1pod": 1177762120220.0}
 #: the port's FLOPs a device of those cells over the reference's, at most:
 #: training runs the SwiGLU on each rank's own tokens (2.51x while DTensor
 #: planned its backward on 16 gathered sequences), and a prefill whose 4
@@ -4158,16 +4169,25 @@ DRYRUN_FLOPS_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
                                # over model=16: 0.234x (6.5630e9); 0.34x
                                # (9.4053e9) while every model rank ran
                                # (8, 2048) x (2048, 92553) whole
-                               "internvl2-2b_decode_32k_1pod": 0.3}
-#: the reference's collective bytes a device of the ``dp`` train cells and
-#: the Mamba2 and internvl2 decode cells on 256 devices
+                               "internvl2-2b_decode_32k_1pod": 0.3,
+                               # the Mamba2 block on each model rank's
+                               # heads (24 on model=16: 2 a rank on ranks
+                               # 0-11), B and C's columns as partial sums
+                               # over model: 2.13x while the SSD op's
+                               # DTensor rule ran all 24 heads on every
+                               # model rank of a CUDA mesh
+                               "mamba2-130m_prefill_32k_1pod": 1.0}
+#: the reference's collective bytes a device of the ``dp`` train cells,
+#: the Mamba2 and internvl2 decode cells and zamba2's prefill on 256
+#: devices
 #: (``collective_bytes_per_device`` of ``python -m repro.launch.dryrun
 #: --arch ARCH --shape SHAPE`` on a CPU host)
 DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
     "gemma3-1b_train_4k_1pod": 13205952048.0,
     "zamba2-2.7b_train_4k_1pod": 43750168920.0,
     "mamba2-130m_decode_32k_1pod": 3.4355e7,
-    "internvl2-2b_decode_32k_1pod": 3.2791e8}
+    "internvl2-2b_decode_32k_1pod": 3.2791e8,
+    "zamba2-2.7b_prefill_32k_1pod": 166005999624.0}
 #: the port's collective bytes a device of those cells over the
 #: reference's, at most: the tied output projection gathered as FSDP
 #: gathers a weight (gemma3 read 3.51x while every rank gathered 16
@@ -4182,7 +4202,14 @@ DRYRUN_COLLECTIVES_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
                                      # 379 MB a step before: 2.67x, 1.77x)
                                      # nor run whole on a model rank
                                      "mamba2-130m_decode_32k_1pod": 1.0,
-                                     "internvl2-2b_decode_32k_1pod": 1.0}
+                                     "internvl2-2b_decode_32k_1pod": 1.0,
+                                     # zamba2's Mamba2 layers on each model
+                                     # rank's heads, in_proj's columns
+                                     # taken by one all-to-all: 1.92x
+                                     # while in_proj's output was gathered
+                                     # for each of z, xBC and dt (and, on
+                                     # a CUDA mesh, over the whole batch)
+                                     "zamba2-2.7b_prefill_32k_1pod": 1.1}
 
 
 def dry_run(trained) -> None:

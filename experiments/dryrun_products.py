@@ -8,9 +8,12 @@ process group of 256 or 512 ranks, rank 0's step recorded) and prints
 the FLOPs a device of its products (the ops ``flop_registry`` counts,
 and the kernel ops as ``core.costmodel`` counts them), grouped by op and
 operand shapes, largest first, beside the cell's totals; then its
-collectives' output bytes a device, grouped by op and output shape.  With ``--out``
-it also writes the cell file into GRID as the dry run does.  Use it to
-find the products that read above the reference's dots in a cell.
+collectives' output bytes a device, grouped by op and output shape; then
+the storage live at the rank's peak (``hlo_analysis.live_at_peak``),
+grouped by the op that made it and its shape, largest first (the step's
+state reads as ``placeholder``).  With ``--out`` it also writes the cell
+file into GRID as the dry run does.  Use it to find the products that
+read above the reference's dots in a cell, and what holds its peak.
 """
 
 from __future__ import annotations
@@ -62,6 +65,17 @@ def collectives(graphs) -> dict:
     return out
 
 
+def peak(graphs) -> tuple:
+    """(the peak bytes, {(op, shape): [storages, bytes]} live at it)."""
+    top, live = hlo_analysis.live_at_peak(graphs)
+    out: dict = collections.defaultdict(lambda: [0, 0.0])
+    for nbytes, op, shape in live:
+        row = out[(op, shape)]
+        row[0] += 1
+        row[1] += nbytes
+    return top, out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("arch")
@@ -94,6 +108,12 @@ def main(argv=None) -> None:
     for (op, shape), (calls, nbytes) in rows[:args.top]:
         print(f"  {nbytes:.4e} ({nbytes / max(total, 1.0):.1%}) {calls} x "
               f"{op} -> {shape}")
+    top, live = peak(graphs[0])
+    rows = sorted(live.items(), key=lambda kv: -kv[1][1])
+    print(f"  peak: {top / 2**30:.2f} GiB a device live at once")
+    for (op, shape), (count, nbytes) in rows[:args.top]:
+        print(f"  {nbytes / 2**30:.3f} GiB ({nbytes / max(top, 1.0):.1%}) "
+              f"{count} x {op} -> {shape}")
     if args.out:
         tag = f"{args.arch}_{args.shape}_{'2pod' if args.multi_pod else '1pod'}"
         Path(args.out).mkdir(parents=True, exist_ok=True)

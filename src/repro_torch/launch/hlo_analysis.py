@@ -336,14 +336,16 @@ def _storage(t: torch.Tensor) -> Tuple[int, float]:
     return st._cdata, float(st.nbytes())
 
 
-def peak_bytes(graphs) -> float:
-    """The high-water mark of live storage over the graphs run in order:
-    a storage is live from the node that first holds it through the last
-    node that reads it (so a node's inputs and output are live together);
-    placeholders and outputs live throughout."""
+def _live_ranges(graphs):
+    """Each storage of the graphs run in order as (first node, last node,
+    bytes, the node that first holds it), by storage key, and the node
+    count: a storage is live from the node that first holds it through
+    the last node that reads it (so a node's inputs and output are live
+    together); placeholders and outputs live throughout."""
     first: Dict[int, int] = {}
     last: Dict[int, int] = {}
     size: Dict[int, float] = {}
+    made: Dict[int, torch.fx.Node] = {}
     nodes: List[torch.fx.Node] = [n for g in _graphs(graphs)
                                   for n in g.nodes]
     end = len(nodes)
@@ -357,20 +359,51 @@ def peak_bytes(graphs) -> float:
             if key not in first:
                 first[key] = 0 if node.op == "placeholder" else pos
                 size[key] = n
+                made[key] = node
                 last[key] = end if node.op == "placeholder" else pos
         for t in _tensors(_vals(node.args)) + _tensors(_vals(node.kwargs)):
             key = _storage(t)[0]
             if key in last:
                 last[key] = max(last[key], pos)
+    return {k: (first[k], last[k], size[k], made[k]) for k in first}, end
+
+
+def _peak(ranges, end: int) -> Tuple[float, int]:
+    """(the high-water mark of live storage, the first node at it)."""
     delta = [0.0] * (end + 2)
-    for key, start in first.items():
-        delta[start] += size[key]
-        delta[last[key] + 1] -= size[key]
+    for start, stop, n, _ in ranges.values():
+        delta[start] += n
+        delta[stop + 1] -= n
     live = peak = 0.0
-    for d in delta:
+    at = 0
+    for pos, d in enumerate(delta):
         live += d
-        peak = max(peak, live)
-    return peak
+        if live > peak:
+            peak, at = live, pos
+    return peak, at
+
+
+def peak_bytes(graphs) -> float:
+    """The high-water mark of live storage over the graphs run in order
+    (:func:`_live_ranges`)."""
+    return _peak(*_live_ranges(graphs))[0]
+
+
+def live_at_peak(graphs) -> Tuple[float, List[Tuple[float, str, tuple]]]:
+    """(the peak of :func:`peak_bytes`, the storages live at it as (bytes,
+    the op that made it, its shape), largest first): what holds the
+    peak.  The step's inputs (the state) read as ``placeholder``."""
+    ranges, end = _live_ranges(graphs)
+    peak, at = _peak(ranges, end)
+    live = []
+    for start, stop, n, node in ranges.values():
+        if start <= at <= stop:
+            val = _tensors(node.meta.get("val"))
+            shape = tuple(val[0].shape) if val else ()
+            op = "placeholder" if node.op == "placeholder" else \
+                str(node.target)
+            live.append((n, op, shape))
+    return peak, sorted(live, key=lambda r: -r[0])
 
 
 @dataclasses.dataclass

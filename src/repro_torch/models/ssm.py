@@ -165,14 +165,294 @@ def mamba_block(params, x: torch.Tensor, cfg, return_state=False):
     its gradient is ``ssd_chunked``'s at ``cfg.ssm_chunk``, the chunk the
     reference trains with.  B and C of the one group reach it as
     head-broadcast views, and the D-skip is added here, as the
-    reference's ``ssd_chunked`` adds it.  On a mesh whose every dim
-    splits x's tokens (the ``dp`` and ``sp`` profiles) and has more than
-    one rank, without the decode states, the block runs per shard
-    (:func:`_mamba_per_shard`); elsewhere the scan runs through the op's
-    DTensor sharding rule."""
-    if not return_state and _per_shard_mesh(x):
+    reference's ``ssd_chunked`` adds it.  On a mesh of more than one
+    rank the block runs per shard: where every mesh dim of more than one
+    rank splits x's tokens (the ``dp`` and ``sp`` profiles), without the
+    decode states, on each rank's own sequences
+    (:func:`_mamba_per_shard`); where ``model`` does not split them (the
+    ``2d`` serving mesh, the decode states too), on each ``model`` rank's
+    range of the heads (:func:`_mamba_heads`).  Elsewhere (a one-rank
+    mesh) the scan runs through the op's DTensor sharding rule."""
+    if _per_shard_mesh(x) and not return_state:
         return _mamba_per_shard(params, x, cfg)
+    dim = _heads_dim(x)
+    if dim is not None:
+        return _mamba_heads(params, x, cfg, dim, return_state)
     return _mamba_block(params, x, cfg, return_state)
+
+
+def _heads_dim(x):
+    """The mesh dim ``model`` where the Mamba2 block may cut its heads over
+    it (:func:`_mamba_heads`): x is a DTensor on a mesh of more than one
+    rank, ``model`` has more than one rank and splits neither x's batch
+    nor its sequence.  None elsewhere."""
+    if not ctx.is_dtensor(x) or x.device_mesh.size() == 1:
+        return None
+    from torch.distributed.tensor import Shard
+    names = ctx.axis_names(x.device_mesh)
+    if "model" not in names:
+        return None
+    dim = names.index("model")
+    if x.device_mesh.size(dim) == 1 or x.placements[dim] in (Shard(0),
+                                                             Shard(1)):
+        return None
+    return dim
+
+
+def chunk_ranges(n: int, ways: int) -> list:
+    """The ``[start, end)`` of each of ``ways`` pieces of ``n`` as
+    ``torch.chunk`` (and DTensor's ``Shard``) cuts it: ``ceil(n / ways)``
+    each, the last ones shorter or empty (24 heads on 16 ranks: 2 each on
+    ranks 0-11, none on 12-15)."""
+    c = -(-n // ways)
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(ways)]
+
+
+#: the dim of each Mamba2 parameter that a ``model`` rank cuts by heads
+#: (:func:`_needs`)
+_HEAD_AXIS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "dt_bias": 0,
+              "a_log": 0, "d_skip": 0, "norm": 0, "out_proj": 0}
+
+
+def _needs(cfg, heads) -> Dict[str, list]:
+    """The ``[start, end)`` ranges of each Mamba2 parameter (by name,
+    along :data:`_HEAD_AXIS`) that the heads ``[h0, h1)`` need: their z,
+    x and dt columns of ``in_proj`` and the one group's B and C columns
+    (every rank's), the same channels of the conv, their scalars, rows
+    of the norm's scale and of ``out_proj``.  Empty ranges are left
+    out."""
+    h0, h1 = heads
+    p, di = cfg.ssm_head_dim, cfg.d_inner
+    gn2 = 2 * cfg.ssm_groups * cfg.ssm_state
+    hx = (h0 * p, h1 * p)
+
+    def ranges(*rs):
+        return [r for r in rs if r[1] > r[0]]
+    conv = ranges(hx, (di, di + gn2))
+    return {"in_proj": ranges(hx, (di + hx[0], di + hx[1]),
+                              (2 * di, 2 * di + gn2),
+                              (2 * di + gn2 + h0, 2 * di + gn2 + h1)),
+            "conv_w": conv, "conv_b": conv, "dt_bias": ranges((h0, h1)),
+            "a_log": ranges((h0, h1)), "d_skip": ranges((h0, h1)),
+            "norm": ranges(hx), "out_proj": ranges(hx)}
+
+
+def take_ranges(t: torch.Tensor, axis: int, size: int, split: bool,
+                needs: list, rank: int, group) -> torch.Tensor:
+    """The ``[start, end)`` ranges ``needs[rank]`` of dim ``axis`` of a
+    tensor of ``size`` there, concatenated in order, inside a per-shard
+    body on the ranks of ``group`` (one mesh dim), each rank's own
+    ranges in ``needs``.  Where ``t`` is the whole tensor (not
+    ``split``), cut locally (``narrow``); where it is this rank's
+    ``Shard(axis)`` over the group (``torch.chunk``'s sizes), each rank
+    sends each other rank the part of its shard that rank needs, one
+    all-to-all of only the ranges (and nothing moves where every rank's
+    ranges lie in its own shard).  Autograd carries the gradient back the
+    same way, so a split ``t``'s gradient is whole over the group."""
+    mine = needs[rank]
+    if not split:
+        lo = 0
+    else:
+        own = chunk_ranges(size, len(needs))
+        local = all(own[r][0] <= a and b <= own[r][1]
+                    for r, rs in enumerate(needs) for a, b in rs)
+        lo = own[rank][0]
+        if not local:
+            import torch.distributed._functional_collectives as funcol
+            hi = own[rank][1]
+            tt = t.movedim(axis, 0)
+            sends, sizes_in = [], []
+            for rs in needs:
+                cut = [(max(a, lo), min(b, hi)) for a, b in rs
+                       if max(a, lo) < min(b, hi)]
+                sends += [tt.narrow(0, a - lo, b - a) for a, b in cut]
+                sizes_in.append(sum(b - a for a, b in cut))
+            sizes_out = [sum(max(0, min(b, o1) - max(a, o0)) for a, b in mine)
+                         for o0, o1 in own]
+            got = funcol.all_to_all_single_autograd(
+                torch.cat(sends, 0) if sends else tt.narrow(0, 0, 0),
+                sizes_out, sizes_in, group)
+            return funcol.wait_tensor(got).movedim(0, axis)
+    if not mine:
+        return t.narrow(axis, 0, 0)
+    return torch.cat([t.narrow(axis, a - lo, b - a) for a, b in mine], axis)
+
+
+class _SumOver(torch.autograd.Function):
+    """An all-reduce (sum) over one mesh dim, with its gradient (the sum
+    of every rank's gradient, as each rank's output feeds that rank's own
+    work): some torch releases give the functional all-reduce none."""
+
+    @staticmethod
+    def forward(fctx, t, group):
+        import torch.distributed._functional_collectives as funcol
+        fctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(fctx, grad):
+        import torch.distributed._functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(
+            grad.contiguous(), "sum", fctx.group)), None
+
+
+def _mamba_heads(params, x: torch.Tensor, cfg, dim: int,
+                 return_state=False):
+    """:func:`mamba_block` on each rank's shard (``local_map``), the heads
+    cut over mesh dim ``dim`` (``model``) with ``torch.chunk``'s sizes (24
+    heads on 16 ranks: 2 a rank on ranks 0-11, none on 12-15), every
+    placement and gradient placement stated.
+
+    Each ``model`` rank takes x's own sequences (a dim that splits the
+    batch keeps it; x's D split over ``model``, the norm's, is gathered
+    in the body, its gradient reduce-scattered back) and only its own
+    parameters' ranges (:func:`_needs`): its heads' z, x and dt columns
+    of ``in_proj`` and the group's B and C columns, the same conv
+    channels (the conv is depthwise), its heads' scalars and rows of the
+    norm's scale and of ``out_proj``.  B and C, which every rank needs,
+    are each rank's partial sums over its range of D, summed over
+    ``model`` (a (B, L, 2 N) all-reduce), not computed whole on every
+    rank: at Mamba2-130M that would repeat 256 of a rank's 514 columns
+    16 times (1.45x the reference's FLOPs on a CPU trace, 0.96x so).
+    They are cut inside the body (:func:`take_ranges`): a parameter whole
+    over ``model`` locally, one split over ``model`` (zamba2's
+    ``in_proj``, 653 of its 10448 columns a rank) by one all-to-all of
+    just the ranges each rank needs, so no rank gathers ``in_proj``
+    whole and none gathers its output.  The weights' splits over the
+    other dims are gathered whole (FSDP's gather of a layer), their
+    gradients partial sums over the dims that split the batch, reduced
+    back to the weights' placements.  The scan runs on the rank's plain
+    heads; a rank with none launches no kernel (a grid of no CTAs is not
+    a launch) and its scan's outputs are empty.  The gated RMS norm over
+    d_inner sums its squares over ``model`` (a (B, L, 1) fp32 partial a
+    rank), so it is the whole row's norm.  ``out_proj`` on the rank's
+    rows leaves a partial sum over ``model``, reduced to the residual
+    stream's placement (whole over ``model``), and x's gradient is a
+    partial sum over ``model`` too.
+
+    The decode states leave as partial sums over ``model`` (each rank's
+    heads' conv channels and SSM states, zeros elsewhere; the B and C
+    channels on ``model`` rank 0 only), which ``transformer.prefill``
+    reduce-scatters into the cache's placement (``sharding.
+    cache_specs``: the conv's channels, and the SSM state's N or heads,
+    over ``model``).  That costs a layer each rank's (B, H, N, P) fp32
+    and (B, K - 1, conv channels) buffers: about 1.5 MB a device for
+    Mamba2-130M's 2 sequences a data rank (24 x 128 x 64 x 4 bytes a
+    sequence), a reduce-scatter that receives a sixteenth of it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    ways, rank = mesh.size(dim), mesh.get_local_rank(dim)
+    heads = chunk_ranges(cfg.ssm_heads, ways)
+    needs = [_needs(cfg, hr) for hr in heads]
+    rows = [i != dim and p == Shard(0) for i, p in enumerate(x.placements)]
+    # x's D split over model (the norm's scale) stays: the body gathers it
+    x_split = x.placements[dim] == Shard(2)
+    p_res = tuple(Shard(0) if r else Replicate() for r in rows)
+    p_x = tuple(Shard(2) if i == dim and x_split else p
+                for i, p in enumerate(p_res))
+    g_x = tuple(Partial() if i == dim and not x_split else p
+                for i, p in enumerate(p_x))
+    p_part = tuple(Partial() if i == dim else p for i, p in enumerate(p_res))
+    weights = [params[k] for k in BLOCK_PARAMS]
+    p_w, g_w, split = [], [], []
+    for name, w in zip(BLOCK_PARAMS, weights):
+        axis = _HEAD_AXIS[name]
+        kept = w.placements[dim] == Shard(axis)
+        split.append(kept)
+        p_w.append(tuple((Shard(axis) if kept else Replicate()) if i == dim
+                         else Replicate() for i in range(mesh.ndim)))
+        g_w.append(tuple((Shard(axis) if kept else Partial()) if i == dim
+                         else Partial() if rows[i] else Replicate()
+                         for i in range(mesh.ndim)))
+    group = (mesh, dim)
+    h0, h1 = heads[rank]
+    hl, p = h1 - h0, cfg.ssm_head_dim
+    di, h, gn = cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups * cfg.ssm_state
+    d0, d1 = chunk_ranges(x.shape[-1], ways)[rank]
+
+    def block(x_, *ws):
+        import torch.distributed._functional_collectives as funcol
+        w = {name: take_ranges(t, _HEAD_AXIS[name],
+                               params[name].shape[_HEAD_AXIS[name]], kept,
+                               [n[name] for n in needs], rank, group)
+             for name, t, kept in zip(BLOCK_PARAMS, ws, split)}
+        if x_split:
+            xk, x_ = x_, funcol.wait_tensor(funcol.all_gather_tensor_autograd(
+                x_, 2, group))
+        else:
+            xk = x_.narrow(-1, d0, d1 - d0)
+        bs, l, _ = x_.shape
+        w_in = w["in_proj"]
+        zx, w_bc = w_in.narrow(1, 0, 2 * hl * p), w_in.narrow(1, 2 * hl * p,
+                                                                2 * gn)
+        proj = x_ @ torch.cat([zx, w_in.narrow(1, 2 * hl * p + 2 * gn, hl)],
+                              1)
+        # B and C, which every rank needs: each rank's partial sum over its
+        # range of D, summed over model (not run whole on every rank)
+        bc = _SumOver.apply(xk @ w_bc.narrow(0, d0, d1 - d0), group)
+        z = proj.narrow(-1, 0, hl * p)
+        xbc, conv_state = _causal_conv(
+            torch.cat([proj.narrow(-1, hl * p, hl * p), bc], -1),
+            w["conv_w"], w["conv_b"])
+        dt_raw = proj.narrow(-1, 2 * hl * p, hl)
+        xs = xbc.narrow(-1, 0, hl * p).reshape(bs, l, hl, p)
+        bmat = xbc.narrow(-1, hl * p, gn).reshape(bs, l, 1, gn)
+        cmat = xbc.narrow(-1, hl * p + gn, gn).reshape(bs, l, 1, gn)
+        bmat, cmat = bmat.expand(bs, l, hl, gn), cmat.expand(bs, l, hl, gn)
+        dt = F.softplus(dt_raw.to(torch.float32) + w["dt_bias"])
+        a = -torch.exp(w["a_log"])
+        args = (xs.transpose(1, 2), dt.transpose(1, 2), a,
+                bmat.transpose(1, 2), cmat.transpose(1, 2))
+        if hl:
+            y, s_final = ssd_k.ssd(*args,
+                                   chunk=min(cfg.ssm_chunk, ssd_k.MAX_CHUNK),
+                                   vjp_chunk=cfg.ssm_chunk)
+        else:
+            y, s_final = _no_heads(*args)
+        y = y.transpose(1, 2) + w["d_skip"][None, None, :, None] \
+            * xs.to(torch.float32)
+        g = (y.reshape(bs, l, hl * p).to(x_.dtype) * F.silu(z)).to(
+            torch.float32)
+        var = _SumOver.apply(torch.sum(torch.square(g), -1, keepdim=True),
+                             group) / di
+        g = ((g * torch.rsqrt(var + cfg.norm_eps))
+             * w["norm"].to(torch.float32)).to(x_.dtype)
+        out = g @ w["out_proj"]
+        if not return_state:
+            return out
+        zeros = conv_state.new_zeros
+        conv = torch.cat([zeros((bs, conv_state.shape[1], h0 * p)),
+                          conv_state.narrow(-1, 0, hl * p),
+                          zeros((bs, conv_state.shape[1], di - h1 * p)),
+                          conv_state.narrow(-1, hl * p, 2 * gn) if rank == 0
+                          else zeros((bs, conv_state.shape[1], 2 * gn))], -1)
+        zs = s_final.new_zeros
+        ssm = torch.cat([zs((bs, h0) + s_final.shape[2:]), s_final,
+                         zs((bs, h - h1) + s_final.shape[2:])], 1)
+        return out, conv, ssm
+    outs = local_map(block, out_placements=(p_part,) * (3 if return_state
+                                                       else 1),
+                     in_placements=(p_x,) + tuple(p_w),
+                     in_grad_placements=(g_x,) + tuple(g_w),
+                     device_mesh=mesh, redistribute_inputs=True)(x, *weights)
+    out = (outs[0] if return_state else outs).redistribute(mesh, p_res)
+    if return_state:
+        return out, {"conv": outs[1], "ssm": outs[2]}
+    return out
+
+
+def _no_heads(x, dt, a, b, c):
+    """The scan's (y, final state) for a rank with no heads: empty, and
+    made from every input, so that autograd gives each one its (empty)
+    gradient and the rank's backward runs the collectives every other
+    rank runs."""
+    y = x.to(torch.float32) * (dt * a[:, None])[..., None] \
+        + torch.einsum("bhln,bhln->bhl", b.to(torch.float32),
+                       c.to(torch.float32))[..., None]
+    s = torch.einsum("bhln,bhlp->bhnp", b.to(torch.float32),
+                     x.to(torch.float32))
+    return y, s
 
 
 def _per_shard_mesh(x) -> bool:
@@ -283,6 +563,84 @@ def _read_state(ch: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
                      redistribute_inputs=True)(ch, s)
 
 
+def _split_columns(proj: torch.Tensor, pieces) -> list:
+    """``proj`` (B, 1, W), a DTensor whose W is split over ``model``
+    (``torch.chunk``'s sizes, as ``ctx.product`` leaves an N it splits),
+    cut into the column ranges ``pieces``, each ``(start, end, split)``:
+    each piece comes back split over ``model`` the same way (``split``)
+    or whole on every rank.  One all-to-all over ``model`` of just the
+    columns each rank's pieces need (:func:`take_ranges`): a DTensor
+    slice of the split dim would gather all W columns first (zamba2's
+    10448 a layer).  Off such a mesh, the plain slices."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dim = _model_split(proj, 2)
+    if dim is None:
+        return [proj[..., a:b] for a, b, _ in pieces]
+    mesh = proj.device_mesh
+    ways, rank = mesh.size(dim), mesh.get_local_rank(dim)
+
+    def ranges(r):
+        out = []
+        for a, b, split in pieces:
+            lo, hi = chunk_ranges(b - a, ways)[r] if split else (0, b - a)
+            if hi > lo:
+                out.append((a + lo, a + hi))
+        return out
+    got = take_ranges(proj.to_local(), 2, proj.shape[2], True,
+                      [ranges(r) for r in range(ways)], rank, (mesh, dim))
+    out, at = [], 0
+    for a, b, split in pieces:
+        lo, hi = chunk_ranges(b - a, ways)[rank] if split else (0, b - a)
+        shape = tuple(proj.shape[:2]) + (b - a,)
+        pl = [(Shard(2) if split else Replicate()) if i == dim else p
+              for i, p in enumerate(proj.placements)]
+        out.append(DTensor.from_local(
+            got.narrow(2, at, hi - lo), mesh, pl, run_check=False,
+            shape=torch.Size(shape), stride=ctx.contiguous_stride(shape)))
+        at += hi - lo
+    return out
+
+
+def _model_split(t: torch.Tensor, axis: int):
+    """The mesh dim ``model`` where the DTensor ``t`` (B, 1, W) has its
+    dim ``axis`` split over ``model`` alone, and its tokens not
+    (:func:`_heads_dim`); else None (a plain tensor, or W split over
+    another mesh dim too: the 2-pod mesh's nested split of a one-slot
+    ``in_proj`` output over ``pod`` and ``model``)."""
+    from torch.distributed.tensor import Shard
+    dim = _heads_dim(t)
+    if dim is None or any((p == Shard(axis)) != (i == dim)
+                          for i, p in enumerate(t.placements)):
+        return None
+    return dim
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """``rms_norm(y * silu(z), scale)`` over d_inner.  Where z's d_inner is
+    split over ``model`` as the scale's is (:func:`_split_columns`), each
+    rank gates and scales its own columns and the row's sum of squares is
+    summed over ``model`` (a (B, 1, 1) fp32 partial a rank), so z is not
+    gathered."""
+    from torch.distributed.tensor import Shard
+    dim = _model_split(z, 2)
+    if dim is None or scale.placements[dim] != Shard(0):
+        return rms_norm(y * F.silu(z), scale, eps)
+    from torch.distributed.tensor.experimental import local_map
+    mesh, n = z.device_mesh, z.shape[-1]
+    p_z = tuple(z.placements)
+
+    def norm(y_, z_, w_):
+        g = (y_ * F.silu(z_)).to(torch.float32)
+        var = _SumOver.apply(torch.sum(torch.square(g), -1, keepdim=True),
+                             (mesh, dim)) / n
+        return ((g * torch.rsqrt(var + eps)) * w_.to(torch.float32)).to(
+            y_.dtype)
+    return local_map(norm, out_placements=(p_z,),
+                     in_placements=(p_z, p_z, tuple(scale.placements)),
+                     device_mesh=mesh, redistribute_inputs=True)(y, z, scale)
+
+
 def mamba_decode_step(params, x: torch.Tensor, state: Dict,
                       cfg) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, D).
@@ -292,26 +650,47 @@ def mamba_decode_step(params, x: torch.Tensor, state: Dict,
     tokens move to the weights' D split over ``data``, and ``model``
     splits ``in_proj``'s columns (3352 at Mamba2-130M, cut unevenly over
     16 ranks) or ``out_proj``'s d_inner, so no ``model`` rank runs a
-    product another runs.  The state update and its read stay on the
-    state's own split (``cache_specs`` splits N over ``model`` where the
-    24 heads cannot be).  What stays repeated on each ``model`` rank is
-    elementwise work on the rank's tokens: dt's softplus and decay, the
-    skip term, the gate and the norm, about 10 FLOPs an element of
-    (tokens, d_inner), 1.2e5 a layer for the 8 tokens of a production
-    decode rank against its 2.6e6 of ``in_proj`` products."""
+    product another runs.  ``in_proj``'s output stays split over
+    ``model``: z, x/B/C and dt are taken from it by one all-to-all of
+    the tokens' columns (:func:`_split_columns`; zamba2's 10448 a layer
+    were gathered whole before), z onto the norm's split of d_inner,
+    where the gate and the norm run (:func:`_gated_norm`), x/B/C onto
+    the conv's.  The state update and its read stay on the state's own
+    split: where ``cache_specs`` splits its heads over ``model``
+    (zamba2's 80 on 16), the conv's x channels go to the rank's heads
+    and B and C whole, one more all-to-all; where it splits N (24 heads
+    cannot be), the conv's output is gathered once.  What stays repeated
+    on each ``model`` rank is elementwise work on the rank's tokens:
+    dt's softplus and decay and the skip term, a few FLOPs an element of
+    (tokens, heads) or (tokens, d_inner)."""
     bs = x.shape[0]
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
-    proj = ctx.product(x, params["in_proj"])
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    # in_proj's columns left split over model (no rank gathers them
+    # whole): z on the norm's split, x/B/C on the conv's, dt whole
+    proj = ctx.product(x, params["in_proj"], out="N")
+    z, xbc, dt_raw = _split_columns(proj, (
+        (0, di, _split_over_model(params["norm"], 0)),
+        (di, 2 * di + 2 * g * n, _split_over_model(params["conv_w"], 1)),
+        (2 * di + 2 * g * n, proj.shape[-1], False)))
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    state["conv"])
-    # the conv ran on the channels' split (``conv_w``'s); gathered once,
-    # not once for each of x, B and C cut from it
-    xbc = ctx.whole(xbc, 2)
-    xs = xbc[..., :di].reshape(bs, h, p)
-    bmat = xbc[..., di:di + g * n].reshape(bs, g, n)
-    cmat = xbc[..., di + g * n:].reshape(bs, g, n)
+    # the conv ran on the channels' split (``conv_w``'s).  Where the SSM
+    # state's heads split over model, x's channels go to that split
+    # (whole heads a rank) and B and C whole, one move; else all of it
+    # gathered once, not once for each of x, B and C cut from it
+    heads = _split_over_model(state["ssm"], 1)
+    if heads:
+        xs, bmat, cmat = _split_columns(xbc, ((0, di, True),
+                                              (di, di + g * n, False),
+                                              (di + g * n, di + 2 * g * n,
+                                               False)))
+        xs = ctx.split_last(xs, h)[:, 0]
+    else:
+        xbc = ctx.whole(xbc, 2)
+        xs = xbc[..., :di].reshape(bs, h, p)
+        bmat, cmat = xbc[..., di:di + g * n], xbc[..., di + g * n:]
+    bmat, cmat = bmat.reshape(bs, g, n), cmat.reshape(bs, g, n)
     rep = h // g
     bh = torch.repeat_interleave(bmat, rep, dim=1).to(torch.float32)
     ch = torch.repeat_interleave(cmat, rep, dim=1).to(torch.float32)
@@ -323,8 +702,22 @@ def mamba_decode_step(params, x: torch.Tensor, state: Dict,
         * xs.to(torch.float32)[..., None, :]
     y = _read_state(ch, s)
     y = y + params["d_skip"][None, :, None] * xs.to(torch.float32)
-    # P whole before the flatten: some torch releases' DTensor cannot
-    # flatten heads beside a split head dim
-    y = ctx.whole(y, 2).reshape(bs, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    if heads:
+        # the heads' split becomes d_inner's, the norm's and z's
+        y = ctx.merge_last(y)[:, None].to(x.dtype)
+    else:
+        # P whole before the flatten: some torch releases' DTensor cannot
+        # flatten heads beside a split head dim
+        y = ctx.whole(y, 2).reshape(bs, 1, di).to(x.dtype)
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
     return ctx.product(y, params["out_proj"]), {"conv": conv_state, "ssm": s}
+
+
+def _split_over_model(w: torch.Tensor, axis: int) -> bool:
+    """Whether the DTensor ``w`` is split over ``model`` along ``axis``."""
+    if not ctx.is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    names = ctx.axis_names(w.device_mesh)
+    return "model" in names and \
+        w.placements[names.index("model")] == Shard(axis)

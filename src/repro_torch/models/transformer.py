@@ -244,33 +244,32 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 # ---------------------------------------------------------------------------
 def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     """(B, S, n * hd) -> (B, S, n, hd), whole heads on a mesh, where the
-    reshape runs on each rank's shard (``ctx.split_last``)."""
-    return ctx.split_last(ctx.whole_heads(t, 2, n), n)
+    reshape runs on each rank's shard (``ctx.gather_heads``: a split of
+    the columns that does not divide the heads is gathered, and its
+    gradient reduce-scattered back)."""
+    return ctx.gather_heads(t, n)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor, out: str = "R"
-             ) -> torch.Tensor:
-    """``x @ w`` for x (B, S, D): on a mesh where x holds one token a
-    sequence (decode, ``long_500k``), per shard, planned by the bytes a
-    rank receives (``ctx.product``; the few tokens move, not the
-    weights), the output ``out`` (``"N"``: left split over w's N where the
-    plan splits it) on the mesh dims that do not split the tokens.  In
-    training and prefill DTensor plans the product (the heads' split
-    over ``model`` follows from ``wq``'s)."""
-    if not ctx.is_dtensor(x) or x.shape[1] != 1:
-        return x @ w
-    return ctx.product(x, w, out=out)
-
-
-def _qkv(blk, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _qkv(blk, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         out: str = "N"):
+    """q, k and v (B, S, heads, hd) of the residual stream x, each
+    projection per shard (``ctx.product``, one move of x where the three
+    plans agree), its output ``out`` on the mesh dims that leave the
+    tokens whole: ``"N"`` split over the heads where the plan splits
+    them, ``"R"`` whole (the zig-zag prefill's, whose heads cannot
+    split)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     hn = rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = _split_heads(_project(hn, blk["wq"], "N"), h, hd)
-    k = _split_heads(_project(hn, blk["wk"], "N"), kv, hd)
-    v = _split_heads(_project(hn, blk["wv"], "N"), kv, hd)
+    q, k, v = ctx.product(hn, (blk["wq"], blk["wk"], blk["wv"]), out=out)
+    q = _split_heads(q, h, hd)
+    k = _split_heads(k, kv, hd)
+    v = _split_heads(v, kv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, blk["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, blk["k_norm"], cfg.norm_eps)
+        # the (hd,) scales whole: split over model (the rules' split of
+        # their stacked (L, hd)), they would cut q's and k's head dim,
+        # which the rotary embedding then gathers back
+        q = rms_norm(q, ctx.whole(blk["q_norm"], 0), cfg.norm_eps)
+        k = rms_norm(k, ctx.whole(blk["k_norm"], 0), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -296,14 +295,21 @@ def _head_split(q: torch.Tensor, kv: int) -> Optional[int]:
     fails (4 heads on ``model=16``; ``Hl`` 3 beside ``rep`` 2)."""
     if not ctx.is_dtensor(q):
         return None
+    return _head_split_of(q, q.shape[2], kv)
+
+
+def _head_split_of(x: torch.Tensor, h: int, kv: int) -> Optional[int]:
+    """:func:`_head_split` for the ``h`` query heads of a DTensor ``x``
+    whose batch is its dim 0 (the residual stream, before the
+    projections)."""
     from torch.distributed.tensor import Shard
-    mesh = q.device_mesh
+    mesh = x.device_mesh
     names = ctx.axis_names(mesh)
     if "model" not in names:
         return None
     dim = names.index("model")
-    ways, h = mesh.size(dim), q.shape[2]
-    if ways == 1 or q.placements[dim] == Shard(0) or h % ways or h % kv:
+    ways = mesh.size(dim)
+    if ways == 1 or x.placements[dim] == Shard(0) or h % ways or h % kv:
         return None
     hl, rep = h // ways, h // kv
     return dim if rep % hl == 0 or hl % rep == 0 else None
@@ -418,8 +424,11 @@ def _zigzag_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     every rank runs every head on 1 / ``model`` of the sequence, and the
     traced rank counts a rank's share of the causal work.
 
-    The output: each rank projects its chunks with ``wo`` gathered whole
-    (FSDP's gather of a weight) and the projected rows are gathered over
+    The output: each rank's chunks go through ``wo`` per shard
+    (``ctx.product``: their rows split over ``model`` and the dims that
+    split the batch, so ``wo`` is gathered whole, FSDP's gather of a
+    weight, and its gradient, a partial sum over those dims, is
+    reduce-scattered back), and the projected rows are gathered over
     ``model`` and put back in sequence order, whole over ``model`` as
     :func:`_shard_act` holds the residual stream.  That moves ``wo``
     (``H hd x D``, a few MB) and one (B, S, D) gather of the rank's rows.
@@ -430,8 +439,7 @@ def _zigzag_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The backward is the op's VJP on the chunks: q's gradient is nonzero
     only on the rank's chunks and k's and v's cover the keys its chunks
-    read, so all three are partial sums over ``model``; ``wo``'s is a
-    partial sum over ``model`` and the dims that split the batch."""
+    read, so all three are partial sums over ``model``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
@@ -441,15 +449,12 @@ def _zigzag_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for i, p in enumerate(q.placements)]
     p_in = tuple(Shard(0) if r else Replicate() for r in rows)
     g_in = tuple(Partial() if i == dim else p for i, p in enumerate(p_in))
-    whole = tuple(Replicate() for _ in rows)
-    g_wo = tuple(Partial() if i == dim or r else Replicate()
-                 for i, r in enumerate(rows))
     # the rank's chunks side by side: read as a split of the sequence in
     # rank order, which the gather below keeps and _unzigzag undoes
     p_out = tuple(Shard(1) if i == dim else p for i, p in enumerate(p_in))
     chunks = _zigzag(s, ways, mesh.get_local_rank(dim), window)
 
-    def attend(q_, k_, v_, wo_):
+    def attend(q_, k_, v_):
         # narrow, not slices: see _flash_attend
         outs = []
         for q0, q1, k0 in chunks:
@@ -457,13 +462,13 @@ def _zigzag_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_.narrow(1, q0, q1 - q0), k_.narrow(1, k0, q1 - k0),
                 v_.narrow(1, k0, q1 - k0), causal=True, window=window,
                 q_offset=q0 - k0)
-            outs.append(o.reshape(o.shape[0], q1 - q0, -1) @ wo_)
+            outs.append(o.reshape(o.shape[0], q1 - q0, -1))
         return torch.cat(outs, 1)
-    y = local_map(attend, out_placements=(p_out,),
-                  in_placements=(p_in, p_in, p_in, whole),
-                  in_grad_placements=(g_in, g_in, g_in, g_wo),
-                  device_mesh=mesh, redistribute_inputs=True)(q, k, v, wo)
-    y = y.redistribute(mesh, p_in)
+    o = local_map(attend, out_placements=(p_out,),
+                  in_placements=(p_in, p_in, p_in),
+                  in_grad_placements=(g_in, g_in, g_in),
+                  device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    y = ctx.product(o, wo).redistribute(mesh, p_in)
     return local_map(functools.partial(_unzigzag, ways=ways),
                      out_placements=(p_in,), in_placements=(p_in,),
                      device_mesh=mesh)(y)
@@ -480,13 +485,19 @@ def _attention_out(blk, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if dim is not None:
             return _zigzag_attend(q, k, v, window, blk["wo"], dim)
         o = _flash_attend(q, k, v, window)
-    return ctx.merge_last(o) @ blk["wo"]
+    # per shard, as q, k and v (``ctx.product``): DTensor plans neither
+    # the product nor its backward
+    return ctx.product(ctx.merge_last(o), blk["wo"])
 
 
 def _attn_mlp_block(blk, x: torch.Tensor, cfg: ModelConfig, window: int,
                     positions: torch.Tensor):
     """(x after the block, its aux loss or None, (k, v))."""
-    q, k, v = _qkv(blk, x, cfg, positions)
+    # where q's heads cannot split over model, attention takes q, k and v
+    # whole over it (the zig-zag chunks): so the projections leave them so
+    whole = cfg.use_flash and ctx.is_dtensor(x) and \
+        _head_split_of(x, cfg.n_heads, cfg.n_kv_heads) is None
+    q, k, v = _qkv(blk, x, cfg, positions, "R" if whole else "N")
     x = _shard_act(x + _attention_out(blk, q, k, v, cfg, window))
     m, aux = _mlp(blk, x, cfg)
     return _shard_act(x + m), aux, (k, v)
@@ -859,7 +870,7 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     def mamba(i, layer, x):
         x, st = _mamba_layer(layer, x, cfg, return_state=True)
         for key, val in st.items():
-            state["ssm_layers"][key][i] = val
+            _write_layer(state["ssm_layers"][key], i, val)
         return x
 
     def attend(i, blk, x, window):
@@ -882,6 +893,21 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
             x = attend(i, layer, x, int(window))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return _logits(x, _head(params, cfg)), state
+
+
+def _write_layer(stack: torch.Tensor, i: int, val: torch.Tensor) -> None:
+    """``stack[i] = val`` in place, a decode state's layer: on a mesh
+    ``val`` (a partial sum over ``model``, as ``ssm._mamba_heads`` leaves
+    the Mamba2 states) reduced to the placement of the stack's layer
+    first (a reduce-scatter into the cache's split), which DTensor's
+    in-place copy would otherwise choose."""
+    if ctx.is_dtensor(val) and ctx.is_dtensor(stack):
+        from torch.distributed.tensor import Shard
+        pl = stack.placements
+        if not any(p == Shard(0) for p in pl):
+            val = val.redistribute(stack.device_mesh, [
+                Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl])
+    stack[i] = val
 
 
 def _cache_shards(cache: torch.Tensor):
@@ -1004,7 +1030,7 @@ def _decode_attention_block(blk, x: torch.Tensor, cfg: ModelConfig,
     _write_slots(k_cache, at, k[:, 0])
     _write_slots(v_cache, at, v[:, 0])
     o = _decode_attend(q, k_cache, v_cache, index, window)
-    x = _shard_decode(x + _project(o.reshape(b, 1, -1), blk["wo"]))
+    x = _shard_decode(x + ctx.product(o.reshape(b, 1, -1), blk["wo"]))
     m, _ = _mlp(blk, x, cfg)
     return _shard_decode(x + m)
 

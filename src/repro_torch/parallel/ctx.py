@@ -131,6 +131,35 @@ def whole_heads(x, dim: int, n: int):
     return whole(x, dim)
 
 
+def gather_heads(x, n: int):
+    """``x`` (..., n * m), its last dim split over the mesh where the split
+    does not divide the n heads (8 KV heads' columns over ``model=16``),
+    gathered and cut into (..., n, m) on every rank, whole heads (as
+    :func:`whole_heads` then :func:`split_last`).  The gradient, a
+    partial sum over the ranks that read a head (the head-split
+    attention's k and v), goes straight back to x's split: one
+    reduce-scatter, where an all-reduce of the whole heads and then a
+    local cut of the rank's columns would move them twice.  Off a mesh,
+    or where the split divides n, :func:`split_last` of
+    :func:`whole_heads`."""
+    if not is_dtensor(x) or _divides(x, x.ndim - 1, n):
+        return split_last(whole_heads(x, x.ndim - 1, n), n)
+    return _GatherHeads.apply(x, n)
+
+
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, n):
+        fctx.placements, fctx.mesh = tuple(x.placements), x.device_mesh
+        return split_last(whole(x, x.ndim - 1), n)
+
+    @staticmethod
+    def backward(fctx, grad):
+        flat = _reshape_per_shard(grad, grad.ndim - 2, grad.shape[-2],
+                                  lambda t: t.reshape(*t.shape[:-2], -1))
+        return flat.redistribute(fctx.mesh, fctx.placements), None
+
+
 def split_last(x, n: int):
     """``x`` (..., n * m) as (..., n, m).  On a mesh the reshape runs on
     each rank's shard (``local_map``) with its placements stated both
@@ -382,24 +411,66 @@ def plan_product(sizes, xk, wk, xd, t: float, k: float, n: float,
     return best[1]
 
 
+def _plan_args(x, w, lead: int) -> tuple:
+    """:func:`plan_product`'s and :func:`product_cost`'s arguments from
+    ``sizes`` to ``e`` for DTensors x and w (w may be anything with
+    ``placements`` and ``shape``)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    return (tuple(mesh.size(i) for i in range(mesh.ndim)),
+            tuple(_kind(p, lead, last) for p in x.placements),
+            tuple(_kind(p, lead, 0, w=True) for p in w.placements),
+            tuple(p.dim if isinstance(p, Shard) else None
+                  for p in x.placements),
+            math.prod(x.shape[lead:-1]), x.shape[-1], w.shape[-1],
+            math.prod(x.shape[:lead]))
+
+
 def product_plan(x, w, lead: int = 0, out="R") -> Tuple[str, ...]:
     """:func:`plan_product` for DTensors x (..., K) and w (K, N) on one
     mesh (with ``lead`` shared leading dims, x (E, T, K) and w (E, K,
     N)), ``out`` as there (one kind for every dim where it is a
     string); a partial sum of x counts as whole (it is reduced first)."""
-    from torch.distributed.tensor import Shard
-    mesh = x.device_mesh
-    last = x.ndim - 1
     if isinstance(out, str):
-        out = (out,) * mesh.ndim
-    return plan_product(
-        tuple(mesh.size(i) for i in range(mesh.ndim)),
-        tuple(_kind(p, lead, last) for p in x.placements),
-        tuple(_kind(p, lead, 0, w=True) for p in w.placements),
-        tuple(p.dim if isinstance(p, Shard) else None
-              for p in x.placements),
-        math.prod(x.shape[lead:-1]), x.shape[-1], w.shape[-1],
-        math.prod(x.shape[:lead]), out=tuple(out))
+        out = (out,) * x.device_mesh.ndim
+    return plan_product(*_plan_args(x, w, lead), out=tuple(out))
+
+
+def _regather(x, w, lead: int, out):
+    """``w``, or ``w`` with its N split gathered on the mesh dims where x's
+    tokens are whole and ``out`` wants the output whole (``R``), where
+    that prices lower (:func:`product_cost`, with the gather of the
+    weight's slice, ``s - 1`` times it, added): a weight whose N split
+    the output would gather back anyway may be gathered itself and cut
+    over K, so the product leaves partial sums over x's own K split (a
+    zig-zag prefill's q, k and v, whole over ``model``).  Decode's few
+    tokens never pay for a weight's gather; a dim that splits the tokens
+    keeps w as it is."""
+    from types import SimpleNamespace
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    dims = [i for i, p in enumerate(w.placements)
+            if p == Shard(lead + 1) and mesh.size(i) > 1 and out[i] == "R"
+            and _kind(x.placements[i], lead, x.ndim - 1) != "T"]
+    if not dims:
+        return w
+
+    def priced(w_):
+        args = _plan_args(x, w_, lead)
+        cost, repeat = product_cost(plan_product(*args, out=out), *args,
+                                    out=out)
+        return repeat, cost
+    whole = tuple(Replicate() if i in dims else p
+                  for i, p in enumerate(w.placements))
+    slice_ = math.prod(w.shape) / math.prod(
+        mesh.size(i) for i, p in enumerate(w.placements)
+        if isinstance(p, Shard))
+    repeat, cost = priced(SimpleNamespace(placements=whole, shape=w.shape))
+    gather = sum(mesh.size(i) - 1 for i in dims) * slice_
+    if (repeat, cost + gather) < priced(w):
+        return w.redistribute(mesh, whole)
+    return w
 
 
 def product(x, w, lead: int = 0, out="R"):
@@ -407,8 +478,10 @@ def product(x, w, lead: int = 0, out="R"):
     on a mesh, each rank's shard run by the plan :func:`product_plan`
     prices, with every placement and gradient placement stated, so that
     DTensor plans neither the product nor its backward.  ``w`` may be a tuple of
-    weights placed alike (an FFN's gate and up projections): x is then
-    moved once and a tuple comes back.  ``out`` gives, on each mesh dim
+    weights placed alike (an FFN's gate and up projections, attention's
+    q, k and v): where every weight's plan is the same, x is moved once
+    for them all (else each is a product of its own), and a tuple comes
+    back.  ``out`` gives, on each mesh dim
     that does not split x's tokens, the kind the output ends in (``R``
     whole, ``N`` split over w's N, ``P`` as the product leaves it; one
     kind for every dim where it is a string); on a dim that splits them
@@ -442,9 +515,11 @@ def product(x, w, lead: int = 0, out="R"):
     if any(p.is_partial() for p in x.placements):
         x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
                                   for p in x.placements])
-    if isinstance(out, str):
-        out = (out,) * mesh.ndim
+    out = (out,) * mesh.ndim if isinstance(out, str) else tuple(out)
+    ws = tuple(_regather(x, w_, lead, out) for w_ in ws)
     plan = product_plan(x, ws[0], lead, out)
+    if any(product_plan(x, w_, lead, out) != plan for w_ in ws[1:]):
+        return tuple(product(x, w_, lead, out) for w_ in ws)
     last = x.ndim - 1
     kinds = [_kind(p, lead, last) for p in x.placements]
     p_x, p_w, g_x, g_w, p_y = [], [], [], [], []

@@ -285,6 +285,32 @@ def case_zamba2_dp(mesh8):
     return out
 
 
+def _weight_shapes(cfg, names) -> list:
+    """The shapes of the parameters ``names`` of a layer of ``cfg``'s
+    model (its first layer's, or the shared block's)."""
+    p = tfm.init_params(cfg, SEED, device="cpu")
+    blk = p.layers[0] if names[0] in p.layers[0] else p.shared
+    return [list(blk[k].shape) for k in names]
+
+
+def case_dp_kv(mesh24):
+    """A ``dp`` training step's gradients of smoke qwen3 whose 2 KV heads
+    do not divide ``model=4`` (4 query heads), on the 2x4 mesh with the
+    batch over the whole mesh (the dry run's axes), against plain
+    tensors, and the all-reduces of a whole attention projection's
+    gradient (its shape): each is gathered per shard for the microbatch
+    (``ctx.product``) and its gradient reduce-scattered back."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    rec = _Collectives()
+    out = _grad_gaps(cfg, mesh24, "dp", batch_axes=DP_AXES,
+                     around=lambda: rec)
+    whole = _weight_shapes(cfg, ("wq", "wk", "wv", "wo"))
+    out["whole_reduced"] = [c for c in rec.seen
+                            if c[0] == "all-reduce" and c[1] in whole]
+    out["kv_heads"] = cfg.n_kv_heads
+    return out
+
+
 class _Plans:
     """Records each per-shard product's plan (``ctx.product_plan``):
     (w's output width, the plan, whether it repeats the product on a
@@ -629,6 +655,57 @@ def case_decode(mesh8, mesh24):
     return out
 
 
+class _ScanHeads:
+    """Records the heads of each SSD op call on a mesh, as (on DTensors,
+    heads)."""
+
+    def __init__(self):
+        self.calls = []
+        self._op = ssm_mod.ssd_k.ssd
+
+    def __enter__(self):
+        def op(x, *args, **kwargs):
+            if ctx.current_mesh() is not None:
+                self.calls.append((ctx.is_dtensor(x), x.shape[1]))
+            return self._op(x, *args, **kwargs)
+        ssm_mod.ssd_k.ssd = op
+        return self
+
+    def __exit__(self, *exc):
+        ssm_mod.ssd_k.ssd = self._op
+
+
+#: the ``2d`` Mamba2 cases' models: smoke Mamba2 at d_model 48 (6 heads,
+#: which do not divide ``model=4``: 2 a rank on ranks 0-2, none on rank 3;
+#: ``in_proj`` 230 wide, whole over ``model``), and smoke zamba2 (8
+#: heads, 2 a rank; ``in_proj`` 296 wide, split over ``model``, so each
+#: rank's columns come from the others' shards)
+MAMBA_2D = {"mamba2-130m/uneven": ("mamba2-130m", {"d_model": 48,
+                                                   "vocab_size": 250}),
+            "zamba2-2.7b": ("zamba2-2.7b", {})}
+
+
+def case_mamba_2d(mesh24, serve=True):
+    """The Mamba2 block on each ``model`` rank's range of the heads
+    (``ssm._mamba_heads``) on the 2x4 mesh under ``2d``: a prefill and 3
+    decode ticks (logits and the decode states; not without ``serve``)
+    and every parameter's gradient of the loss, against plain tensors,
+    and the heads of each SSD op call on the traced rank (rank 0)."""
+    out = {}
+    for tag, (arch, widths) in MAMBA_2D.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        got = {}
+        if serve:
+            with _ScanHeads() as rec:
+                got = _serve_gaps(cfg, mesh24)
+            got["scan_heads"] = rec.calls
+        with _ScanHeads() as rec:
+            got["grads"] = _grad_gaps(cfg, mesh24)
+        got["grads"]["scan_heads"] = rec.calls
+        out[tag] = got
+    return out
+
+
 def case_decode_seq(mesh8, mesh24):
     """Decode with the KV cache's sequence split over the mesh, read from
     per-shard softmax partials: smoke qwen3's 2 KV heads on ``model=4``
@@ -720,9 +797,13 @@ def case_elastic(mesh4, out_dir):
 
 #: the cases that ``chip_smoke.py`` runs on the card's torch release (the
 #: ``guard`` set): the steps, gradients and lookups that differ by
-#: release, and decode's per-shard products (uneven splits included)
+#: release, decode's per-shard products (uneven splits included), the
+#: Mamba2 block on each ``model`` rank's heads under ``2d``, and the
+#: attention projections' gradients under ``dp`` with KV heads that do
+#: not divide ``model``
 GUARD_CASES = ("sp", "dp", "gqa", "ep", "ep_dp", "tied_dp", "zamba2_dp",
-               "grads_heads", "zigzag", "lookup", "decode")
+               "grads_heads", "zigzag", "lookup", "decode", "mamba_2d",
+               "dp_kv")
 
 
 def _cases(cases, out_dir) -> list:
@@ -742,6 +823,8 @@ def _cases(cases, out_dir) -> list:
            "tied_dp": lambda: case_tied_dp(mesh8),
            "zamba2_dp": lambda: case_zamba2_dp(mesh8),
            "decode": lambda: case_decode(mesh8, mesh24),
+           "mamba_2d": lambda: case_mamba_2d(mesh24),
+           "dp_kv": lambda: case_dp_kv(mesh24),
            "decode_seq": lambda: case_decode_seq(mesh8, mesh24),
            "prefill_heads": lambda: case_prefill_heads(mesh8, mesh24),
            "grads_heads": lambda: case_grads_heads(mesh24),

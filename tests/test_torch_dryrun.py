@@ -50,9 +50,18 @@ Held, with each tolerance's reason:
     :data:`SPLIT_COLLECTIVES` times the reference's: the sequence-split
     cache is read from per-shard softmax partials, not gathered (20x
     before), and FLOPs within FLOPS_BAND;
-  * on the ``dp`` train cell, all-reduce plus reduce-scatter bytes a rank
-    of at least the model's parameter bytes: a data-parallel step must
-    reduce every gradient;
+  * on the ``dp`` train cell, the bytes its reductions sum (an
+    all-reduce's output, a reduce-scatter's input) at least the model's
+    parameter bytes: a data-parallel step must reduce every gradient;
+    and no all-reduce outputs a weight's shape (each weight's gradient
+    is reduce-scattered back to its split);
+  * smoke dbrx's ``2d`` train cell on the (2, 4) mesh (2 KV heads on
+    ``model=4``): no all-reduce of k's or v's heads' gradient (each is
+    reduce-scattered back to the projection's split of the columns);
+  * smoke Mamba2 (at d_model 48: 6 heads) and zamba2 in prefill on the
+    (2, 4) mesh: each SSD op call runs on the traced rank's range of the
+    heads, the FLOPs at most FLOPS_REL above the reference's, and no
+    all-gather outputs ``in_proj``'s width;
   * smoke gemma3 (its output projection tied to the embedding table) and
     zamba2 in train on the (2, 4) mesh under ``dp`` (16 sequences, two a
     rank, the table's vocab over the whole mesh too): no collective
@@ -139,6 +148,15 @@ DP_ARCHS = ("gemma3-1b", "zamba2-2.7b")
 #: their collective bytes a device over the reference's, at most
 DP_COLLECTIVES = 2.0
 
+#: the Mamba2 blocks cut over ``model`` by heads in prefill
+#: (``ssm._mamba_heads``), on the (2, 4) mesh: smoke Mamba2 at d_model 48
+#: (6 heads: 2 a rank on ranks 0-2, none on rank 3; ``in_proj`` 230
+#: wide, whole over ``model``, as Mamba2-130M's 3352 on ``model=16``) and
+#: smoke zamba2 (8 heads, 2 a rank; ``in_proj`` 296 wide, split over
+#: ``model``, as zamba2-2.7b's 10448)
+HEADS_ARCHS = ("mamba2-130m", "zamba2-2.7b")
+HEADS_WIDTHS = {"mamba2-130m": {"d_model": 48}}
+
 _REFERENCE = textwrap.dedent("""
     import dataclasses, json, re, sys
     from repro.launch import dryrun, hlo_analysis
@@ -147,11 +165,13 @@ _REFERENCE = textwrap.dedent("""
     from repro.models.config import ShapeConfig, smoke_config
 """) + _SHAPES_CODE + textwrap.dedent("""
     mesh = tuple(int(n) for n in sys.argv[3].split(","))
+    widths = json.loads(sys.argv[4]) if len(sys.argv) > 4 else {}
     dryrun.make_production_mesh = lambda multi_pod=False: make_mesh(
         mesh, ("data", "model"))
     chunk = 1024 if SHAPES[sys.argv[2]].mode == "train" else 64
     dryrun.get_config = lambda a: dataclasses.replace(
-        smoke_config(get_config(a)), attn_chunk_q=chunk, attn_chunk_kv=chunk)
+        smoke_config(get_config(a)), attn_chunk_q=chunk, attn_chunk_kv=chunk,
+        **widths)
     dryrun.SHAPES = SHAPES if mesh == (4, 2) else \
         {**SPLIT_SHAPES, "train_4k": SHAPES["train_4k"]}
     texts = []
@@ -190,7 +210,7 @@ _REFERENCE = textwrap.dedent("""
 """)
 
 _PORT = textwrap.dedent("""
-    import json
+    import dataclasses, json
     import torch, torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.configs import get_config
@@ -224,7 +244,9 @@ _PORT = textwrap.dedent("""
 
     def spy(graphs, chips):
         kernel = 0.0
+        reduced = 0.0
         shapes = set()
+        scans = []
         for g in hlo_analysis._graphs(graphs):
             for node in g.nodes:
                 if node.op != "call_function":
@@ -234,12 +256,24 @@ _PORT = textwrap.dedent("""
                         node.target, hlo_analysis._vals(node.args),
                         hlo_analysis._vals(node.kwargs),
                         node.meta.get("val"))[0]
+                    if "ssd" in str(node.target):
+                        scans.append(list(hlo_analysis._vals(
+                            node.args)[0].shape))
                 cls = hlo_analysis.collective_class(node.target)
                 if cls:
                     shapes.add((cls, tuple(getattr(node.meta.get("val"),
                                                    "shape", ()))))
+                # the bytes each reduction sums: an all-reduce's output,
+                # a reduce-scatter's input (its output is a shard of it)
+                if cls == "all-reduce":
+                    reduced += hlo_analysis._nbytes(node.meta.get("val"))
+                elif cls == "reduce-scatter":
+                    reduced += hlo_analysis._nbytes(
+                        hlo_analysis._vals(node.args)[0])
         seen["kernel_flops"] = kernel
         seen["collective_shapes"] = sorted(shapes)
+        seen["scan_shapes"] = scans
+        seen["reduced_bytes"] = reduced
         return analyze(graphs, chips)
     tfm._lookup, hlo_analysis._Recorder._record = looking, noting
     hlo_analysis.analyze = spy
@@ -251,11 +285,15 @@ _PORT = textwrap.dedent("""
         cell["lookup_collectives"] = seen["lookup"]
         cell["kernel_flops"] = seen.get("kernel_flops", 0.0)
         cell["collective_shapes"] = seen.get("collective_shapes", [])
+        cell["scan_shapes"] = seen.get("scan_shapes", [])
+        cell["reduced_bytes"] = seen.get("reduced_bytes", 0.0)
         return cell
     dryrun.run_cell = run_and_spy
     dryrun.make_production_mesh = lambda multi_pod=False, device=None: \\
         make_mesh(mesh[0], ("data", "model"), device=device)
-    dryrun.get_config = lambda a: smoke_config(get_config(a))
+    widths = {}
+    dryrun.get_config = lambda a: dataclasses.replace(
+        smoke_config(get_config(a)), **widths.get(a, {}))
     dryrun.SHAPES = SHAPES
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=8)
@@ -275,6 +313,11 @@ _PORT = textwrap.dedent("""
     for s in SPLIT_SHAPES:
         out["split"][s] = dryrun.run_cell("qwen3-0.6b", s, verbose=False,
                                           device="cpu")
+    widths.update(%(heads_widths)r)
+    out["heads"] = {arch: dryrun.run_cell(arch, "prefill_32k",
+                                          verbose=False, device="cpu")
+                    for arch in %(heads_archs)r}
+    widths.clear()
     mesh[0] = %(zigzag_mesh)r
     out["zigzag"] = dryrun.run_cell("qwen3-0.6b", "prefill_32k",
                                     verbose=False, device="cpu")
@@ -283,6 +326,8 @@ _PORT = textwrap.dedent("""
     out["dp"] = {arch: dryrun.run_cell(arch, "train_4k", verbose=False,
                                        device="cpu")
                  for arch in %(dp_archs)r}
+    out["kv_2d"] = dryrun.run_cell("dbrx-132b", "train_4k", verbose=False,
+                                   device="cpu")
     dist.destroy_process_group()
 
     # one rank: the dry run against the tracker on the same eager step
@@ -320,7 +365,8 @@ _PORT = textwrap.dedent("""
     dist.destroy_process_group()
     print(json.dumps(out))
 """ % {"archs": ARCHS, "decode_extra": DECODE_EXTRA,
-       "split_mesh": SPLIT_MESH,
+       "split_mesh": SPLIT_MESH, "heads_widths": HEADS_WIDTHS,
+       "heads_archs": HEADS_ARCHS,
        "zigzag_mesh": ZIGZAG_MESH, "dp_archs": DP_ARCHS})
 
 
@@ -355,6 +401,9 @@ def runs(tmp_path_factory):
                  for s in SPLIT_CELLS})
     refs.update({("dp", a): _start(["-c", _REFERENCE, a, "train_4k", split],
                                    ref_env) for a in DP_ARCHS})
+    refs.update({("heads", a): _start(
+        ["-c", _REFERENCE, a, "prefill_32k", split,
+         json.dumps(HEADS_WIDTHS.get(a, {}))], ref_env) for a in HEADS_ARCHS})
     refs["zigzag", "prefill_32k"] = _start(
         ["-c", _REFERENCE, "qwen3-0.6b", "prefill_32k",
          ",".join(str(n) for n in ZIGZAG_MESH)], ref_env)
@@ -440,6 +489,104 @@ def test_zigzag_prefill_cell_matches_the_reference(runs):
           f"collective bytes {coll:.3f}")
     assert ratio == pytest.approx(1.0, rel=FLOPS_REL), ratio
     assert coll <= SPLIT_COLLECTIVES, coll
+
+
+def _config(arch, widths=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    return dataclasses.replace(smoke_config(get_config(arch)),
+                               **(widths or {}))
+
+
+@pytest.mark.parametrize("arch", HEADS_ARCHS)
+def test_mamba2_prefill_scans_the_rank_heads(runs, arch):
+    """A Mamba2 prefill on the (2, 4) mesh (``2d``): every SSD op call of
+    the traced rank 0 runs on its own sequence and its range of the heads
+    (2 of 6, or of 8: ``torch.chunk``'s sizes over ``model=4``), not on
+    every head (every ``model`` rank ran all of them while the op's
+    DTensor rule planned the scan on a CUDA mesh); the FLOPs a device
+    within FLOPS_REL of the reference's, or below them (rank 0 holds 2
+    heads where the 6 average 1.5 a rank)."""
+    from repro_torch.models.ssm import chunk_ranges
+    port, ref = runs["port"]["heads"][arch], runs["ref"]["heads", arch]
+    assert port["status"] == ref["status"] == "ok"
+    assert port["mesh"] == ref["mesh"] == {"data": 2, "model": 4}
+    cfg = _config(arch, HEADS_WIDTHS.get(arch))
+    h0, h1 = chunk_ranges(cfg.ssm_heads, 4)[0]
+    want = [1, h1 - h0, 512, cfg.ssm_head_dim]
+    layers = cfg.n_layers
+    assert port["scan_shapes"] == [want] * layers, port["scan_shapes"]
+    ratio = port["flops_per_device"] / ref["flops_per_device"]
+    print(f"{arch} (2, 4) prefill_32k: port/reference FLOPs a device "
+          f"{ratio:.3f}")
+    assert ratio <= 1.0 + FLOPS_REL, ratio
+
+
+@pytest.mark.parametrize("arch", HEADS_ARCHS)
+def test_no_collective_gathers_in_proj_width(runs, arch):
+    """The same cells: no all-gather outputs ``in_proj``'s width as an
+    activation (each rank computes only its heads' columns, and the
+    decode states' columns go to the cache's split by a reduce-scatter),
+    and where ``in_proj`` is split over ``model`` (zamba2), none outputs
+    it at all: each rank's columns come from the others' shards by one
+    all-to-all of just those columns, not the weight gathered whole."""
+    port = runs["port"]["heads"][arch]
+    cfg = _config(arch, HEADS_WIDTHS.get(arch))
+    width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.ssm_heads
+    split = width % 4 == 0
+    gathered = [(c, shape) for c, shape in port["collective_shapes"]
+                if c == "all-gather" and shape and shape[-1] == width
+                and (len(shape) >= 3 or split)]
+    assert port["collective_shapes"] and gathered == [], gathered
+
+
+def test_dp_train_reduces_no_whole_weight_gradient(runs):
+    """Smoke qwen3's ``dp`` train cell on the (4, 2) mesh (the batch over
+    the whole mesh, every weight split over it): no all-reduce outputs a
+    weight's shape.  The attention projections run per shard
+    (``ctx.product``: each weight gathered for the microbatch, its
+    gradient reduce-scattered back), as the FFN's did; left to DTensor,
+    ``wq``/``wo`` and ``wk``/``wv`` gradients were all-reduced whole
+    (minitron-4b's ``(3072, 3072)`` and ``(3072, 1024)``, 12.9 GB a
+    device)."""
+    cell = runs["port"]["cells"]["qwen3-0.6b/train_4k"]
+    assert cell["profile"] == "dp"
+    p = tfm_params("qwen3-0.6b")
+    weights = {tuple(t.shape) for t in p.parameters() if t.ndim >= 2}
+    whole = [(c, shape) for c, shape in cell["collective_shapes"]
+             if c == "all-reduce" and tuple(shape) in weights]
+    assert cell["collective_shapes"] and whole == [], whole
+
+
+def test_2d_train_scatters_the_kv_heads_gradient(runs):
+    """Smoke dbrx's ``2d`` train cell on the (2, 4) mesh: its 2 KV heads
+    do not divide ``model=4``, so k's and v's columns, split over
+    ``model`` by the projection, are gathered into whole heads for the
+    head-split attention (``ctx.gather_heads``).  Their gradient, a
+    partial sum over the ranks that read a head, is reduce-scattered
+    straight back to the columns' split: no all-reduce outputs k's or
+    v's heads (dbrx-132b's ``(2, 4096, 8, 128)``, 640 of them and 10.7
+    GB a device on the card before)."""
+    cell = runs["port"]["kv_2d"]
+    assert cell["status"] == "ok" and cell["profile"] == "2d", cell
+    cfg = _config("dbrx-132b")
+    heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    reduced = [(c, shape) for c, shape in cell["collective_shapes"]
+               if c == "all-reduce" and len(shape) == 4
+               and tuple(shape[2:]) == heads]
+    assert cell["collective_shapes"] and reduced == [], reduced
+    width = cfg.n_kv_heads * cfg.resolved_head_dim // 4
+    assert any(c == "reduce-scatter" and shape[-1] == width
+               for c, shape in cell["collective_shapes"]), \
+        cell["collective_shapes"]
+
+
+def tfm_params(arch):
+    from repro_torch.models import transformer as tfm
+    return tfm.init_params(_config(arch), 0, device="meta")
 
 
 @pytest.mark.parametrize("arch", DP_ARCHS)
@@ -656,8 +803,9 @@ def test_data_parallel_step_reduces_every_gradient(runs):
     assert cell["profile"] == "dp"
     cfg = smoke_config(get_config("qwen3-0.6b"))
     param_bytes = cfg.n_params() * 4        # fp32 smoke parameters
-    reduced = (cell["collective_detail"]["all-reduce"]
-               + cell["collective_detail"]["reduce-scatter"])
+    # the bytes the step's reductions sum (a reduce-scatter's input, as
+    # each rank keeps only its shard of what it sums)
+    reduced = cell["reduced_bytes"]
     assert reduced >= param_bytes, (reduced, param_bytes)
 
 

@@ -25,8 +25,12 @@ with the batch over the whole mesh, as the dry run places it: the MoE
 router's gradient (its dispatch groups over both mesh dims), the output
 projection tied to the embedding table, and zamba2's Mamba2 layers run
 per shard, with the collectives the ranks issue read from a dispatch
-mode.  ``chip_smoke.py`` runs the ``guard`` set of these cases on the
-card's torch release and holds it to :func:`sharding_ranks.failures`.
+mode.  Under ``2d`` the Mamba2 block runs on each ``model`` rank's range
+of the heads (smoke Mamba2 with heads that do not divide ``model=4``,
+and zamba2 with ``in_proj`` split over it): prefill, decode and the
+loss's gradients.  ``chip_smoke.py`` runs the ``guard`` set of these
+cases on the card's torch release and holds it to
+:func:`sharding_ranks.failures`.
 """
 
 import json
@@ -201,6 +205,54 @@ def test_prefill_and_decode_on_the_mesh(runs):
     assert got["mamba2-130m/uneven"]["uneven"] == [230, 250], got
     assert 250 in got["internvl2-2b/uneven"]["uneven"], got
     assert 126 in got["internvl2-2b/uneven"]["uneven"], got
+
+
+@pytest.mark.parametrize("tag", sorted(sharding_ranks.MAMBA_2D))
+def test_mamba2_heads_split_on_the_2d_mesh(runs, tag):
+    """The Mamba2 block on each ``model`` rank's range of the heads on the
+    2x4 mesh under ``2d`` (``ssm._mamba_heads``): smoke Mamba2 with 6
+    heads (2 a rank on ranks 0-2, none on rank 3) and ``in_proj`` whole
+    over ``model``, and smoke zamba2 with ``in_proj`` split over it.  A
+    prefill and 3 decode ticks against plain tensors (logits and the
+    decode states, at the prefill/decode tolerance above), every SSD op
+    call of rank 0 on its plain 2 heads, no product repeated on a mesh
+    dim's ranks."""
+    got = _case(runs, "mamba_2d")[tag]
+    assert got["scan_heads"] and all(c == [False, 2]
+                                     for c in got["scan_heads"]), got
+    assert got["logit_gap"] < 1e-4, got
+    assert got["state_gap"] < 1e-4, got
+    assert got["repeated"] == [], got
+
+
+@pytest.mark.parametrize("tag", sorted(sharding_ranks.MAMBA_2D))
+def test_mamba2_heads_split_gradients_match(runs, tag):
+    """The same blocks in a training step's loss under ``2d``: every
+    parameter's gradient (the B and C columns' partial sums over
+    ``model``, the norm's sum of squares, the columns each rank took from
+    another's shard) against plain tensors at the parameter tolerance."""
+    got = _case(runs, "mamba_2d")[tag]["grads"]
+    assert got["scan_heads"] and all(c == [False, 2]
+                                     for c in got["scan_heads"]), got
+    assert got["logit_gap"] < LOSS_TOL, got
+    assert got["grad_scale"] > 0
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
+
+
+def test_dp_kv_heads_gradients_match(runs):
+    """A ``dp`` step's gradients of smoke qwen3, whose 2 KV heads do not
+    divide ``model=4``, with the batch over the whole 2x4 mesh: every
+    gradient at the parameter tolerance, and no attention projection's
+    gradient all-reduced whole (each gathered per shard for the
+    microbatch, its gradient reduce-scattered back)."""
+    got = _case(runs, "dp_kv")
+    assert got["kv_heads"] == 2, got
+    assert got["whole_reduced"] == [], got["whole_reduced"]
+    assert got["logit_gap"] < LOSS_TOL, got
+    assert got["grad_scale"] > 0
+    for name, gap in got["grad_gap"].items():
+        assert gap < PARAM_TOL, (name, got)
 
 
 @pytest.mark.parametrize("split, placements", [
