@@ -279,8 +279,11 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     zamba2's Mamba2 layers under ``dp``, decode with its products
     per shard, Mamba2's and internvl2's at widths that do not divide
     ``model``, the Mamba2 block on each ``model`` rank's heads under
-    ``2d`` in prefill, decode and training, and the ``dp`` step's
-    attention gradients with KV heads that do not divide ``model``) on
+    ``2d`` in prefill, decode and training, the ``dp`` step's
+    attention gradients with KV heads that do not divide ``model``,
+    one slot's products fed the rank's range of x, moved from the
+    ``model`` rank that holds it, and the ``2d`` step, whose loss
+    normalizes the vocab-split logits per shard) on
     ``GUARD_RANKS`` gloo CPU ranks within
     ``GUARD_TIMEOUT_S``, held to the test file's tolerances
     (``sharding_ranks.failures``).
@@ -302,9 +305,13 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     Mamba2's 3352-wide ``in_proj`` split unevenly over ``model=16``),
     and Mamba2-130M and zamba2-2.7b at ``prefill_32k`` (their Mamba2
     blocks on each ``model`` rank's range of the heads,
-    ``ssm._mamba_heads``), all at once within ``DRYRUN_TIMEOUT_S``.  Every
+    ``ssm._mamba_heads``), and internvl2-2b at ``prefill_32k`` (its
+    lookup's rows returned by DTensor's all-to-all) and zamba2-2.7b at
+    ``long_500k`` (one slot, x's slices moved to ``in_proj``'s K split),
+    all at once within ``DRYRUN_TIMEOUT_S``.  Every
     cell ``ok``; each cell's compute, memory and collective terms,
-    bound, useful-FLOPs ratio and peak GiB a device logged.  Gates: the
+    bound, useful-FLOPs ratio and peak GiB a device logged, and its peak
+    over the reference's (``DRYRUN_REFERENCE_PEAK_BYTES``).  Gates: the
     prefill cell's useful-FLOPs ratio at least ``DRYRUN_PREFILL_USEFUL``
     (each head run once); both decode cells' collective bytes a device
     below ``DRYRUN_DECODE_COLLECTIVE_BYTES`` (the cache read from
@@ -313,10 +320,14 @@ restores its checkpoint onto a fresh mesh and serves on the mesh.
     most ``DRYRUN_FLOPS_OVER_REFERENCE`` times the reference's count
     (``DRYRUN_REFERENCE_FLOPS``), and so the Mamba2 and internvl2
     decode cells' and the Mamba2 prefill cell's; those two decode
-    cells', the gemma3 and zamba2 ``train_4k`` cells' and the zamba2
-    prefill cell's collective bytes a device at most
-    ``DRYRUN_COLLECTIVES_OVER_REFERENCE`` times the reference's
-    (``DRYRUN_REFERENCE_COLLECTIVE_BYTES``); and on the 1-rank cell,
+    cells', the gemma3 and zamba2 ``train_4k`` cells', the zamba2
+    prefill cell's and its ``long_500k`` cell's collective bytes a
+    device at most ``DRYRUN_COLLECTIVES_OVER_REFERENCE`` times the
+    reference's (``DRYRUN_REFERENCE_COLLECTIVE_BYTES``; both the dry
+    run's count, each collective's output bytes); the Qwen3, gemma3 and
+    internvl2 prefill cells' peaks at most
+    ``DRYRUN_PEAK_OVER_REFERENCE`` times the reference's; and on the
+    1-rank cell,
     its roofline step below phase 18's measured ms a step, and its
     FLOPs within ``DRYRUN_TRACKER_REL`` of the FLOPs phase 18 (c)'s
     tracker summed over that step.
@@ -4099,7 +4110,9 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("mamba2-130m", "decode_32k", False),
                 ("internvl2-2b", "decode_32k", False),
                 ("mamba2-130m", "prefill_32k", False),
-                ("zamba2-2.7b", "prefill_32k", False))
+                ("zamba2-2.7b", "prefill_32k", False),
+                ("internvl2-2b", "prefill_32k", False),
+                ("zamba2-2.7b", "long_500k", False))
 #: the phase's limit: every process is killed past it
 DRYRUN_TIMEOUT_S = 110
 #: the 1-rank cell: phase 18 (c)'s step (Qwen3-0.6B, TRAIN_BATCH x
@@ -4178,8 +4191,8 @@ DRYRUN_FLOPS_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
                                # model rank of a CUDA mesh
                                "mamba2-130m_prefill_32k_1pod": 1.0}
 #: the reference's collective bytes a device of the ``dp`` train cells,
-#: the Mamba2 and internvl2 decode cells and zamba2's prefill on 256
-#: devices
+#: the Mamba2 and internvl2 decode cells, zamba2's prefill and its
+#: ``long_500k`` on 256 devices
 #: (``collective_bytes_per_device`` of ``python -m repro.launch.dryrun
 #: --arch ARCH --shape SHAPE`` on a CPU host)
 DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
@@ -4187,9 +4200,15 @@ DRYRUN_REFERENCE_COLLECTIVE_BYTES = {
     "zamba2-2.7b_train_4k_1pod": 43750168920.0,
     "mamba2-130m_decode_32k_1pod": 3.4355e7,
     "internvl2-2b_decode_32k_1pod": 3.2791e8,
-    "zamba2-2.7b_prefill_32k_1pod": 166005999624.0}
+    "zamba2-2.7b_prefill_32k_1pod": 166005999624.0,
+    "zamba2-2.7b_long_500k_1pod": 844548.0}
 #: the port's collective bytes a device of those cells over the
-#: reference's, at most: the tied output projection gathered as FSDP
+#: reference's, at most.  Both sides hold one count, the dry run's: each
+#: collective's output bytes a device, as the reference's
+#: ``hlo_analysis`` counts them (``repro_torch.launch.hlo_analysis``'s
+#: docstring; not ``parallel.ctx.product_cost``'s elements a rank
+#: receives, by which the port plans its products).  The tied output
+#: projection gathered as FSDP
 #: gathers a weight (gemma3 read 3.51x while every rank gathered 16
 #: sequences' logits), and zamba2's Mamba2 layers per shard, their
 #: weights gathered and their gradients reduce-scattered back (34.1x
@@ -4209,15 +4228,57 @@ DRYRUN_COLLECTIVES_OVER_REFERENCE = {"gemma3-1b_train_4k_1pod": 1.2,
                                      # while in_proj's output was gathered
                                      # for each of z, xBC and dt (and, on
                                      # a CUDA mesh, over the whole batch)
-                                     "zamba2-2.7b_prefill_32k_1pod": 1.1}
+                                     "zamba2-2.7b_prefill_32k_1pod": 1.1,
+                                     # one slot: x, split over model by
+                                     # the norm's scale, reaches in_proj's
+                                     # K split over data as the rank's
+                                     # 160 columns from the model rank
+                                     # that holds them (ctx.slice_holder):
+                                     # 1.08x while all 2560 were gathered
+                                     "zamba2-2.7b_long_500k_1pod": 1.0}
+#: the reference's peak bytes a device (XLA's ``memory_analysis``: temp +
+#: arguments + outputs - aliases, ``python -m repro.launch.dryrun --arch
+#: ARCH --shape SHAPE [--multi-pod]`` on a CPU host) of every cell of
+#: DRYRUN_CELLS the reference runs, each cell's peak logged over it
+DRYRUN_REFERENCE_PEAK_BYTES = {
+    "qwen3-0.6b_train_4k_1pod": 8630836728.0,
+    "mamba2-130m_train_4k_1pod": 2960950450.0,
+    "qwen3-0.6b_prefill_32k_1pod": 1648134920.0,
+    "qwen3-0.6b_decode_32k_1pod": 6763275656.0,
+    "mamba2-130m_long_500k_1pod": 21738656.0,
+    "qwen3-0.6b_decode_32k_2pod": 3407695464.0,
+    "gemma3-1b_train_4k_1pod": 15885154368.0,
+    "gemma3-1b_prefill_32k_1pod": 1443895024.0,
+    "zamba2-2.7b_train_4k_1pod": 6956637148.0,
+    "mamba2-130m_decode_32k_1pod": 58625424.0,
+    "internvl2-2b_decode_32k_1pod": 5911923208.0,
+    "mamba2-130m_prefill_32k_1pod": 1118616080.0,
+    "zamba2-2.7b_prefill_32k_1pod": 3193341768.0,
+    "internvl2-2b_prefill_32k_1pod": 2767748676.0,
+    "zamba2-2.7b_long_500k_1pod": 792414848.0}
+#: the port's peak bytes a device of these prefill cells over the
+#: reference's, at most
+DRYRUN_PEAK_OVER_REFERENCE = {
+    # the rotary tables made for one row (1, S) and broadcast over the
+    # rank's rows (transformer._positions): 1.44x (1.94 GiB) while every
+    # rank made the cos and sin of the global batch's 32 x 32768 x 128
+    "gemma3-1b_prefill_32k_1pod": 1.0,
+    # the same tables: 1.19x (1.83 GiB)
+    "qwen3-0.6b_prefill_32k_1pod": 1.0,
+    # the lookup's rows returned by DTensor's all-to-all charged at their
+    # own 256 MiB (hlo_analysis._live_ranges), as the card's op allocates
+    # them: 1.67x (4.31 GiB) while the fake kernel's view charged its
+    # 4 GiB storage of the data group's 32 sequences
+    "internvl2-2b_prefill_32k_1pod": 1.0}
 
 
 def dry_run(trained) -> None:
     """Phase 20: the dry run's cells at once, then the gates of the
     sharded attention (the Qwen3 prefill cell's useful-FLOPs ratio, the
     decode cells' collective bytes), the gemma3 and the Mamba2 and
-    internvl2 decode cells' FLOPs and the dp train and those decode
-    cells' collective bytes against the reference's, and the two
+    internvl2 decode cells' FLOPs, the dp train, those decode cells' and
+    zamba2's prefill and ``long_500k`` cells' collective bytes and the
+    three prefill cells' peaks against the reference's, and the two
     of the 1-rank cell: its
     roofline step below phase 18's measured ms a step (a bound above the
     measurement would mean the count is wrong) and its FLOPs within
@@ -4303,6 +4364,16 @@ def dry_run(trained) -> None:
             fail(f"{tag} reads {ratio:.3f}x the reference's collective "
                  f"bytes a device, above {limit}x: a rank gathers what "
                  f"the reference's partitioned program does not")
+    for tag, ref in DRYRUN_REFERENCE_PEAK_BYTES.items():
+        peak = cells[tag]["peak_bytes_per_device"]
+        limit = DRYRUN_PEAK_OVER_REFERENCE.get(tag)
+        log(f"  {tag}: peak {peak:.6e} bytes a device, {peak / ref:.3f}x "
+            f"the reference's {ref:.6e}"
+            + (f" (at most {limit}x)" if limit else ""))
+        if limit and not peak / ref <= limit:
+            fail(f"{tag}'s peak reads {peak / ref:.3f}x the reference's, "
+                 f"above {limit}x: a rank holds what the reference's "
+                 f"partitioned program does not")
     for tag in ("qwen3-0.6b_decode_32k_1pod", "qwen3-0.6b_decode_32k_2pod"):
         coll = cells[tag]["collective_bytes_per_device"]
         log(f"  {tag}: {coll:.4e} collective bytes a device "

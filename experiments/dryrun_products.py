@@ -11,7 +11,9 @@ operand shapes, largest first, beside the cell's totals; then its
 collectives' output bytes a device, grouped by op and output shape; then
 the storage live at the rank's peak (``hlo_analysis.live_at_peak``),
 grouped by the op that made it and its shape, largest first (the step's
-state reads as ``placeholder``).  With ``--out`` it also writes the cell
+state reads as ``placeholder``), with the output's own bytes beside the
+storage's where the output is a view of a larger storage (a collective's
+is charged at its own bytes, an ordinary op's view at its storage's).  With ``--out`` it also writes the cell
 file into GRID as the dry run does.  Use it to find the products that
 read above the reference's dots in a cell, and what holds its peak.
 """
@@ -66,13 +68,16 @@ def collectives(graphs) -> dict:
 
 
 def peak(graphs) -> tuple:
-    """(the peak bytes, {(op, shape): [storages, bytes]} live at it)."""
+    """(the peak bytes, {(op, shape): [storages, bytes charged, the
+    outputs' own bytes, the storages' bytes]} live at it)."""
     top, live = hlo_analysis.live_at_peak(graphs)
-    out: dict = collections.defaultdict(lambda: [0, 0.0])
-    for nbytes, op, shape in live:
+    out: dict = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0])
+    for nbytes, op, shape, own, storage in live:
         row = out[(op, shape)]
         row[0] += 1
         row[1] += nbytes
+        row[2] += own
+        row[3] += storage
     return top, out
 
 
@@ -111,9 +116,12 @@ def main(argv=None) -> None:
     top, live = peak(graphs[0])
     rows = sorted(live.items(), key=lambda kv: -kv[1][1])
     print(f"  peak: {top / 2**30:.2f} GiB a device live at once")
-    for (op, shape), (count, nbytes) in rows[:args.top]:
+    for (op, shape), (count, nbytes, own, storage) in rows[:args.top]:
+        view = "" if own >= storage else \
+            f" [a view: its own {own / 2**30:.3f} GiB of a " \
+            f"{storage / 2**30:.3f} GiB storage]"
         print(f"  {nbytes / 2**30:.3f} GiB ({nbytes / max(top, 1.0):.1%}) "
-              f"{count} x {op} -> {shape}")
+              f"{count} x {op} -> {shape}{view}")
     if args.out:
         tag = f"{args.arch}_{args.shape}_{'2pod' if args.multi_pod else '1pod'}"
         Path(args.out).mkdir(parents=True, exist_ok=True)

@@ -47,8 +47,21 @@ The walker:
   * peak bytes a device: the high-water mark of live storage over the
     graph, each storage live from the node that makes it to the last node
     that reads it, the step's inputs (the state) and outputs live
-    throughout.  Python may hold a tensor past its last read, so this is
-    a floor of what the eager step holds.
+    throughout, a collective's output at its own bytes (the card's op
+    allocates its own; a fake kernel may return a view of more), and its
+    wait's and autograd wrapper's outputs as that same storage (the
+    card's ops allocate nothing; their fakes return new tensors).  Python
+    may hold a tensor past its last read, so this is a floor of what the
+    eager step holds.
+
+Which count a gate holds.  Every gate on a dry-run cell (``chip_smoke.py``
+phase 20, ``tests/test_torch_dryrun.py``) holds the count above: each
+collective's output bytes a device, by class, as the reference's
+``hlo_analysis`` counts them (an all-reduce and a reduce-scatter once
+each, at their output's bytes).  The product planner
+(``parallel.ctx.product_cost``) prices another quantity, the elements a
+rank receives; the two may rank two plans differently, and only this
+count is compared with the reference's.
 """
 
 from __future__ import annotations
@@ -89,7 +102,8 @@ _FREE_OPS = {
     "view", "_unsafe_view", "t", "transpose", "permute", "expand",
     "detach", "alias", "split", "split_with_sizes", "unbind", "squeeze",
     "unsqueeze", "select", "slice", "as_strided", "diagonal",
-    "lift_fresh", "wait_tensor", "empty", "empty_like", "empty_strided",
+    "lift_fresh", "wait_tensor", "_wrap_tensor_autograd", "empty",
+    "empty_like", "empty_strided",
     "new_empty", "new_empty_strided", "_local_scalar_dense",
 }
 
@@ -331,6 +345,14 @@ def _graphs(graphs) -> List[torch.fx.Graph]:
             for g in graphs]
 
 
+#: ops whose real kernel returns its first input, or a wrapper of it,
+#: while their fake (meta) kernel returns a new tensor: a collective's
+#: wait, and the wrapper that gives a functional collective's output to
+#: autograd (``_c10d_functional._wrap_tensor_autograd``, whose fake is
+#: ``empty_like``)
+_ALIAS_OPS = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
 def _storage(t: torch.Tensor) -> Tuple[int, float]:
     st = t.untyped_storage()
     return st._cdata, float(st.nbytes())
@@ -341,28 +363,57 @@ def _live_ranges(graphs):
     bytes, the node that first holds it), by storage key, and the node
     count: a storage is live from the node that first holds it through
     the last node that reads it (so a node's inputs and output are live
-    together); placeholders and outputs live throughout."""
+    together); placeholders and outputs live throughout.
+
+    A storage that a collective makes is charged at its outputs' own
+    bytes (numel times element size), not the storage's: the card's op
+    returns a tensor of its own, but the fake kernel that a traced step
+    runs may return a view of a larger one (torch's
+    ``_dtensor::shard_dim_alltoall`` fake concatenates the group's
+    copies of its input and narrows them, so its output's storage is
+    ``group_size`` times the output).  An ordinary view still shares,
+    and is charged with, its base; so does the output of an op of
+    :data:`_ALIAS_OPS`, which the card's kernel returns without
+    allocating (their fakes make a new storage, so every functional
+    collective's output was held two or three times)."""
     first: Dict[int, int] = {}
     last: Dict[int, int] = {}
     size: Dict[int, float] = {}
     made: Dict[int, torch.fx.Node] = {}
+    alias: Dict[int, int] = {}
+
+    def key_of(t):
+        key = _storage(t)[0]
+        return alias.get(key, key)
     nodes: List[torch.fx.Node] = [n for g in _graphs(graphs)
                                   for n in g.nodes]
     end = len(nodes)
     for pos, node in enumerate(nodes):
         if node.op == "output":
             for t in _tensors(_vals(node.args)):
-                last[_storage(t)[0]] = end
+                last[key_of(t)] = end
             continue
+        own = node.op == "call_function" and \
+            collective_class(node.target) is not None
+        if node.op == "call_function" and getattr(
+                node.target, "namespace", None) in _COLLECTIVE_NAMESPACES \
+                and _base_name(node.target) in _ALIAS_OPS:
+            src = _tensors(_vals(node.args))
+            if src:
+                for t in _tensors(node.meta.get("val")):
+                    if _storage(t)[0] not in first:
+                        alias[_storage(t)[0]] = key_of(src[0])
         for t in _tensors(node.meta.get("val")):
-            key, n = _storage(t)
+            key, n = key_of(t), _storage(t)[1]
             if key not in first:
                 first[key] = 0 if node.op == "placeholder" else pos
-                size[key] = n
+                size[key] = 0.0 if own else n
                 made[key] = node
                 last[key] = end if node.op == "placeholder" else pos
+            if own and made[key] is node:
+                size[key] = min(size[key] + _nbytes(t), n)
         for t in _tensors(_vals(node.args)) + _tensors(_vals(node.kwargs)):
-            key = _storage(t)[0]
+            key = key_of(t)
             if key in last:
                 last[key] = max(last[key], pos)
     return {k: (first[k], last[k], size[k], made[k]) for k in first}, end
@@ -389,20 +440,25 @@ def peak_bytes(graphs) -> float:
     return _peak(*_live_ranges(graphs))[0]
 
 
-def live_at_peak(graphs) -> Tuple[float, List[Tuple[float, str, tuple]]]:
-    """(the peak of :func:`peak_bytes`, the storages live at it as (bytes,
-    the op that made it, its shape), largest first): what holds the
-    peak.  The step's inputs (the state) read as ``placeholder``."""
+def live_at_peak(graphs) -> Tuple[float, List[tuple]]:
+    """(the peak of :func:`peak_bytes`, the storages live at it as (bytes
+    charged, the op that made it, its output's shape, that output's own
+    bytes, the storage's bytes), largest first): what holds the peak.
+    The step's inputs (the state) read as ``placeholder``; an output
+    whose own bytes are fewer than its storage's is a view of a larger
+    storage (charged whole, unless a collective made it)."""
     ranges, end = _live_ranges(graphs)
     peak, at = _peak(ranges, end)
     live = []
-    for start, stop, n, node in ranges.values():
+    for key, (start, stop, n, node) in ranges.items():
         if start <= at <= stop:
-            val = _tensors(node.meta.get("val"))
+            val = [t for t in _tensors(node.meta.get("val"))
+                   if _storage(t)[0] == key]
             shape = tuple(val[0].shape) if val else ()
             op = "placeholder" if node.op == "placeholder" else \
                 str(node.target)
-            live.append((n, op, shape))
+            live.append((n, op, shape, _nbytes(val),
+                         _storage(val[0])[1] if val else n))
     return peak, sorted(live, key=lambda r: -r[0])
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.models.layers import init_dense, rms_norm
 from repro_torch.parallel import ctx
+from repro_torch.parallel.ctx import chunk_ranges, take_ranges
 
 
 def ssd_reference(x, dt, a, b, c, d_skip=None):
@@ -199,15 +200,6 @@ def _heads_dim(x):
     return dim
 
 
-def chunk_ranges(n: int, ways: int) -> list:
-    """The ``[start, end)`` of each of ``ways`` pieces of ``n`` as
-    ``torch.chunk`` (and DTensor's ``Shard``) cuts it: ``ceil(n / ways)``
-    each, the last ones shorter or empty (24 heads on 16 ranks: 2 each on
-    ranks 0-11, none on 12-15)."""
-    c = -(-n // ways)
-    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(ways)]
-
-
 #: the dim of each Mamba2 parameter that a ``model`` rank cuts by heads
 #: (:func:`_needs`)
 _HEAD_AXIS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "dt_bias": 0,
@@ -235,47 +227,6 @@ def _needs(cfg, heads) -> Dict[str, list]:
             "conv_w": conv, "conv_b": conv, "dt_bias": ranges((h0, h1)),
             "a_log": ranges((h0, h1)), "d_skip": ranges((h0, h1)),
             "norm": ranges(hx), "out_proj": ranges(hx)}
-
-
-def take_ranges(t: torch.Tensor, axis: int, size: int, split: bool,
-                needs: list, rank: int, group) -> torch.Tensor:
-    """The ``[start, end)`` ranges ``needs[rank]`` of dim ``axis`` of a
-    tensor of ``size`` there, concatenated in order, inside a per-shard
-    body on the ranks of ``group`` (one mesh dim), each rank's own
-    ranges in ``needs``.  Where ``t`` is the whole tensor (not
-    ``split``), cut locally (``narrow``); where it is this rank's
-    ``Shard(axis)`` over the group (``torch.chunk``'s sizes), each rank
-    sends each other rank the part of its shard that rank needs, one
-    all-to-all of only the ranges (and nothing moves where every rank's
-    ranges lie in its own shard).  Autograd carries the gradient back the
-    same way, so a split ``t``'s gradient is whole over the group."""
-    mine = needs[rank]
-    if not split:
-        lo = 0
-    else:
-        own = chunk_ranges(size, len(needs))
-        local = all(own[r][0] <= a and b <= own[r][1]
-                    for r, rs in enumerate(needs) for a, b in rs)
-        lo = own[rank][0]
-        if not local:
-            import torch.distributed._functional_collectives as funcol
-            hi = own[rank][1]
-            tt = t.movedim(axis, 0)
-            sends, sizes_in = [], []
-            for rs in needs:
-                cut = [(max(a, lo), min(b, hi)) for a, b in rs
-                       if max(a, lo) < min(b, hi)]
-                sends += [tt.narrow(0, a - lo, b - a) for a, b in cut]
-                sizes_in.append(sum(b - a for a, b in cut))
-            sizes_out = [sum(max(0, min(b, o1) - max(a, o0)) for a, b in mine)
-                         for o0, o1 in own]
-            got = funcol.all_to_all_single_autograd(
-                torch.cat(sends, 0) if sends else tt.narrow(0, 0, 0),
-                sizes_out, sizes_in, group)
-            return funcol.wait_tensor(got).movedim(0, axis)
-    if not mine:
-        return t.narrow(axis, 0, 0)
-    return torch.cat([t.narrow(axis, a - lo, b - a) for a, b in mine], axis)
 
 
 class _SumOver(torch.autograd.Function):

@@ -712,8 +712,20 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return ctx.product(x, head, out="P")
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+def _positions(s: int, device) -> torch.Tensor:
+    """The positions ``0 .. s-1`` of a forward's or a prefill's rows, (1,
+    s): every row has the same, so they carry no batch dim, and the
+    rotary tables (``layers.apply_rope``) broadcast over the batch.  On a
+    mesh they are a plain tensor that implicit replication hands to
+    DTensor whole, and each op cuts them to the rank's own rows: a
+    sequence split over a mesh dim takes its range of them, and the
+    zig-zag prefill's query chunks, cut from q after the rotary
+    embedding, theirs.  Where they held the batch, ``(B, S)`` made every
+    rank build the angles, cos and sin of the global batch (gemma3's 32
+    x 32768 x 128 fp32, 1.5 of its 1.94 GiB prefill peak) before cutting
+    its rows; a DTensor placed as the activation's tokens would cut
+    them, but a (1, s) table is already no larger than one row."""
+    return torch.arange(s, device=device)[None, :]
 
 
 def _layer_groups(params: LMParams, cfg: ModelConfig):
@@ -752,8 +764,7 @@ def forward(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     aux loss: the MoE layers' load-balancing terms summed, else 0)."""
     _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens, prefix_embeds)
-    b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = _positions(x.shape[1], x.device)
     auxs = []
     if cfg.family == "ssm":
         body = _remat(lambda layer, h: _mamba_layer(layer, h, cfg), cfg)
@@ -849,7 +860,7 @@ def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
     if s > max_seq:
         raise ValueError(f"prompt of {s} positions exceeds max_seq "
                          f"{max_seq}")
-    positions = _positions(b, s, x.device)
+    positions = _positions(s, x.device)
     mesh = ctx.current_mesh()
     if mesh is None:
         state = init_decode_state(cfg, b, max_seq, device=x.device)

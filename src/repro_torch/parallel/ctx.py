@@ -233,6 +233,56 @@ class _HeadsInGrad(torch.autograd.Function):
         return grad, None, None
 
 
+def chunk_ranges(n: int, ways: int) -> list:
+    """The ``[start, end)`` of each of ``ways`` pieces of ``n`` as
+    ``torch.chunk`` (and DTensor's ``Shard``) cuts it: ``ceil(n / ways)``
+    each, the last ones shorter or empty (24 heads on 16 ranks: 2 each on
+    ranks 0-11, none on 12-15)."""
+    c = -(-n // ways)
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(ways)]
+
+
+def take_ranges(t: torch.Tensor, axis: int, size: int, split: bool,
+                needs: list, rank: int, group) -> torch.Tensor:
+    """The ``[start, end)`` ranges ``needs[rank]`` of dim ``axis`` of a
+    tensor of ``size`` there, concatenated in order, inside a per-shard
+    body on the ranks of ``group`` (one mesh dim), each rank's own
+    ranges in ``needs``.  Where ``t`` is the whole tensor (not
+    ``split``), cut locally (``narrow``); where it is this rank's
+    ``Shard(axis)`` over the group (``torch.chunk``'s sizes), each rank
+    sends each other rank the part of its shard that rank needs, one
+    all-to-all of only the ranges (and nothing moves where every rank's
+    ranges lie in its own shard).  Autograd carries the gradient back the
+    same way, so a split ``t``'s gradient is whole over the group."""
+    mine = needs[rank]
+    if not split:
+        lo = 0
+    else:
+        own = chunk_ranges(size, len(needs))
+        local = all(own[r][0] <= a and b <= own[r][1]
+                    for r, rs in enumerate(needs) for a, b in rs)
+        lo = own[rank][0]
+        if not local:
+            import torch.distributed._functional_collectives as funcol
+            hi = own[rank][1]
+            tt = t.movedim(axis, 0)
+            sends, sizes_in = [], []
+            for rs in needs:
+                cut = [(max(a, lo), min(b, hi)) for a, b in rs
+                       if max(a, lo) < min(b, hi)]
+                sends += [tt.narrow(0, a - lo, b - a) for a, b in cut]
+                sizes_in.append(sum(b - a for a, b in cut))
+            sizes_out = [sum(max(0, min(b, o1) - max(a, o0)) for a, b in mine)
+                         for o0, o1 in own]
+            got = funcol.all_to_all_single_autograd(
+                torch.cat(sends, 0) if sends else tt.narrow(0, 0, 0),
+                sizes_out, sizes_in, group)
+            return funcol.wait_tensor(got).movedim(0, axis)
+    if not mine:
+        return t.narrow(axis, 0, 0)
+    return torch.cat([t.narrow(axis, a - lo, b - a) for a, b in mine], axis)
+
+
 # ---------------------------------------------------------------------------
 # Per-shard products: one plan, priced by the bytes a rank receives
 # ---------------------------------------------------------------------------
@@ -255,11 +305,49 @@ def _kind(p, lead: int, last: int, w: bool = False) -> str:
     return "K" if p.dim == last else "T"
 
 
+def slice_holder(plan, sizes, xk, k: float) -> Optional[int]:
+    """The mesh dim ``i`` that splits x's K where, under ``plan``, each
+    rank takes just its K range from the rank of its dim-``i`` group that
+    holds it, by one all-to-all of that range (:func:`product`), rather
+    than gather x's K whole first; else None.  That is where x's K is
+    split over ``i`` alone, the plan splits w's N there (so x's gradient
+    is a partial sum over ``i``, which the all-to-all's backward sums at
+    the holder) and keeps w's K split over one other dim on which x is
+    whole, each of whose ranges lies inside one of ``i``'s: a one-slot
+    decode's x, split over ``model`` by the norm's scale, beside a
+    weight whose K splits over ``data`` (zamba2's ``in_proj``: 160 of
+    2560 columns moved, where a gather moved 2400)."""
+    split = [i for i, kind in enumerate(xk) if kind == "K"]
+    keep = [j for j, c in enumerate(plan) if c == KEEP_K]
+    if len(split) != 1 or len(keep) != 1:
+        return None
+    i, j = split[0], keep[0]
+    if plan[i] != KEEP_N or xk[j] != "R":
+        return None
+    held = chunk_ranges(int(k), sizes[i])
+    if all(any(a <= lo and hi <= b for a, b in held)
+           for lo, hi in chunk_ranges(int(k), sizes[j])):
+        return i
+    return None
+
+
 def product_cost(plan, sizes, xk, wk, xd, t: float, k: float, n: float,
                  e: float = 1.0, x_width: float = 1.0, out=None):
     """(elements a rank receives, the factor by which the product is
     repeated) of ``x @ w`` run per shard by ``plan`` (one choice a mesh
     dim), or None where the operands do not allow the plan.
+
+    This is the planner's own price, not the count the dry run reports
+    and its gates hold (``launch.hlo_analysis``: each collective's
+    output bytes, as the reference counts them).  The two differ by
+    class: the dry run counts a reduce-scatter and an all-reduce once
+    each, at their output's bytes, where a rank receives as much in a
+    reduce-scatter as in the all-gather of its input, and twice that in
+    an all-reduce (a reduce-scatter and an all-gather), so the planner
+    prices them so.  Two plans may therefore rank one way by the bytes
+    received and the other by the dry run's count (a CPU mesh read
+    minitron's and glm4's prefill up to x1.2 of an earlier count for
+    fewer bytes received).
 
     ``sizes`` are the mesh dims' ranks; ``xk`` and ``wk`` each operand's
     kind on each (:func:`_kind`); ``xd`` the tensor dim x splits there
@@ -292,7 +380,9 @@ def product_cost(plan, sizes, xk, wk, xd, t: float, k: float, n: float,
         parallelism).
 
     The moves are priced in the order :func:`product` makes them: x's D
-    split gathered on the rank's own tokens before its tokens move; the
+    split gathered on the rank's own tokens before its tokens move (or,
+    where :func:`slice_holder` names the dim, only the rank's K range
+    moved there, ``f`` of it); the
     output's partial sums reduced to the tokens' ranks first (so a later
     move carries the rank's own tokens), then the other reductions (into
     ``out``'s split of N only where no other dim splits N, else whole),
@@ -330,6 +420,7 @@ def product_cost(plan, sizes, xk, wk, xd, t: float, k: float, n: float,
                           plan[i] in (KEEP_K, KEEP_N))
     k_loc = k / ranks(lambda i: plan[i] == KEEP_K)
     n_loc = n / ranks(lambda i: plan[i] == KEEP_N)
+    held = slice_holder(plan, sizes, xk, k)
     cost, repeat = 0.0, 1
     for i, c in enumerate(plan):
         s = sizes[i]
@@ -342,6 +433,8 @@ def product_cost(plan, sizes, xk, wk, xd, t: float, k: float, n: float,
             cost += f * e_loc * t_loc * k_loc * x_width * nested(i) ** 2
         elif c == KEEP_N and xk[i] == "T":
             cost += f * e_loc * t_loc * k_loc * x_width
+        elif i == held:
+            cost += f * e_loc * t_own * x_width * k_loc
         elif c != KEEP_K and xk[i] == "K":
             # gathered first, on the rank's own tokens
             cost += f * e_loc * t_own * x_width * k / ranks(
@@ -499,7 +592,10 @@ def product(x, w, lead: int = 0, out="R"):
         gradient a partial sum;
       * ``batch``: x and w split their lead dims alike.
 
-    The output then moves dim by dim, in the order the plan was priced:
+    Where x's K is split over a ``keep_n`` dim and w's K kept over
+    another on which x is whole (:func:`slice_holder`), each rank takes
+    only its K range, from the rank of its group that holds it, by one
+    all-to-all (:func:`take_ranges`), not x's whole K.  The output then moves dim by dim, in the order the plan was priced:
     partial sums reduce-scattered back to the tokens' ranks, the other
     partial sums reduced to ``out``, the N splits of moved tokens sent
     back by an all-to-all, and the other N splits gathered where ``out``
@@ -539,13 +635,31 @@ def product(x, w, lead: int = 0, out="R"):
                    Partial() if kinds[i] == "T" else Replicate(), keep)
         for lst, q in zip((p_x, p_w, g_x, g_w, p_y), row):
             lst.append(q)
-    # x's D split gathered first, on the rank's own tokens
-    first = [Replicate() if kinds[i] == "K" and p_x[i] == Replicate()
-             else p for i, p in enumerate(x.placements)]
-    x_l = x.redistribute(mesh, first).redistribute(mesh, p_x).to_local(
-        grad_placements=g_x)
     m = mesh.ndim
     keep_k = [i for i in range(m) if plan[i] == KEEP_K]
+    held = slice_holder(plan, tuple(mesh.size(i) for i in range(m)),
+                        tuple(kinds), x.shape[-1])
+    if held is None:
+        # x's D split gathered first, on the rank's own tokens
+        first = [Replicate() if kinds[i] == "K" and p_x[i] == Replicate()
+                 else p for i, p in enumerate(x.placements)]
+        x_l = x.redistribute(mesh, first).redistribute(mesh, p_x).to_local(
+            grad_placements=g_x)
+    else:
+        # the rank's K range of the kept split, from the rank of its
+        # ``held`` group whose shard of x holds it; the other ranks along
+        # the kept dim took theirs, so each rank's gradient of its own
+        # shard is a partial sum over that dim
+        j, k = keep_k[0], x.shape[-1]
+        pre = [p if i in (held, j) else p_x[i]
+               for i, p in enumerate(x.placements)]
+        g_pre = [Shard(last) if i == held else Partial() if i == j
+                 else g_x[i] for i in range(m)]
+        own = x.redistribute(mesh, pre).to_local(grad_placements=g_pre)
+        lo, hi = chunk_ranges(k, mesh.size(j))[mesh.get_local_rank(j)]
+        x_l = take_ranges(own, last, k, True,
+                          [[(lo, hi)] if hi > lo else []] * mesh.size(held),
+                          mesh.get_local_rank(held), (mesh, held))
     keep_n = [i for i in range(m) if plan[i] == KEEP_N]
     # the output's moves, in order: (mesh dim, the placement it takes)
     moves = [(i, x.placements[i]) for i in reversed(keep_k)

@@ -480,13 +480,14 @@ def case_grads_heads(mesh24):
 
 
 def _grad_gaps(cfg, mesh, profile="2d", seq_axes=(),
-               batch_axes=("pod", "data"), around=contextlib.nullcontext):
-    """Every parameter's gradient of ``cfg``'s loss on 8 x 16 tokens with
-    the parameters and the batch on ``mesh`` (``profile``) against plain
-    tensors (the mesh's forward and backward inside ``around()``): the
-    largest gap by name, the largest gradient, the flash op's calls and
-    the logits' gap."""
-    batch = _batch(cfg)
+               batch_axes=("pod", "data"), around=contextlib.nullcontext,
+               b=8):
+    """Every parameter's gradient of ``cfg``'s loss on ``b`` x 16 tokens
+    with the parameters and the batch on ``mesh`` (``profile``) against
+    plain tensors (the mesh's forward and backward inside ``around()``):
+    the largest gap by name, the largest gradient, the flash op's calls
+    and the logits' gap."""
+    batch = _batch(cfg, b)
     params = init_state(cfg, SEED, adamw(), device="cpu").params
 
     def grads(ps, b):
@@ -730,6 +731,49 @@ def case_decode_seq(mesh8, mesh24):
                                          index=lengths)}
 
 
+class _SliceMoves:
+    """Counts the per-shard products whose x reached the weight's kept K
+    split by moving only the rank's range (``ctx.take_ranges`` called
+    from ``ctx.product``: x's K split over ``model``, w's K kept over
+    ``data``, the tokens whole on both)."""
+
+    def __init__(self):
+        self.n = 0
+        self._take = ctx.take_ranges
+
+    def __enter__(self):
+        def take(*args, **kwargs):
+            self.n += 1
+            return self._take(*args, **kwargs)
+        ctx.take_ranges = take
+        return self
+
+    def __exit__(self, *exc):
+        ctx.take_ranges = self._take
+
+
+def case_one_slot(mesh8):
+    """One slot (``long_500k``'s batch) on the 4x2 mesh, where x, split
+    over ``model`` by the norm's scale, meets weights whose K splits over
+    ``data``: each product takes the rank's range of x from the ``model``
+    rank that holds it (``ctx.slice_holder``), not x's whole D.  A
+    12-token prefill and 3 decode ticks of smoke zamba2 (Mamba2's decode
+    ``in_proj`` and the shared attention block) and gemma3, and every
+    parameter's gradient of a one-sequence loss, against plain tensors,
+    with the number of such moves (``slice_moves``)."""
+    out = {}
+    for arch in ("zamba2-2.7b", "gemma3-1b"):
+        cfg = smoke_config(get_config(arch))
+        with _SliceMoves() as rec:
+            got = _serve_gaps(cfg, mesh8, b=1)
+        got["slice_moves"] = rec.n
+        with _SliceMoves() as rec:
+            got["grads"] = _grad_gaps(cfg, mesh8, b=1)
+        got["grads"]["slice_moves"] = rec.n
+        out[arch] = got
+    return out
+
+
 def case_constrain(mesh8):
     x = torch.ones(8, 4)
     outside = ctx.constrain(x, "batch", None) is x
@@ -798,12 +842,14 @@ def case_elastic(mesh4, out_dir):
 #: the cases that ``chip_smoke.py`` runs on the card's torch release (the
 #: ``guard`` set): the steps, gradients and lookups that differ by
 #: release, decode's per-shard products (uneven splits included), the
-#: Mamba2 block on each ``model`` rank's heads under ``2d``, and the
+#: Mamba2 block on each ``model`` rank's heads under ``2d``, the
 #: attention projections' gradients under ``dp`` with KV heads that do
-#: not divide ``model``
+#: not divide ``model``, one slot's products fed the rank's range of x
+#: (``one_slot``), and the ``2d`` step, whose loss normalizes the
+#: vocab-split logits per shard
 GUARD_CASES = ("sp", "dp", "gqa", "ep", "ep_dp", "tied_dp", "zamba2_dp",
                "grads_heads", "zigzag", "lookup", "decode", "mamba_2d",
-               "dp_kv")
+               "dp_kv", "one_slot", "2d")
 
 
 def _cases(cases, out_dir) -> list:
@@ -826,6 +872,7 @@ def _cases(cases, out_dir) -> list:
            "mamba_2d": lambda: case_mamba_2d(mesh24),
            "dp_kv": lambda: case_dp_kv(mesh24),
            "decode_seq": lambda: case_decode_seq(mesh8, mesh24),
+           "one_slot": lambda: case_one_slot(mesh8),
            "prefill_heads": lambda: case_prefill_heads(mesh8, mesh24),
            "grads_heads": lambda: case_grads_heads(mesh24),
            "zigzag": lambda: case_zigzag(mesh24),

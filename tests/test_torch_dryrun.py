@@ -225,10 +225,32 @@ _PORT = textwrap.dedent("""
     # the cell they were read for
     from repro_torch.launch import hlo_analysis
     from repro_torch.models import transformer as tfm
-    seen = {"lookup": []}
+    from repro_torch.parallel import ctx
+    seen = {"lookup": [], "x_gathers": [], "products": 0, "loss": []}
     inside = []
+    losing = []
+    # the per-shard products entered and not yet at their product
+    products = []
     lookup, record, analyze = (tfm._lookup, hlo_analysis._Recorder._record,
                                hlo_analysis.analyze)
+    product = ctx.product
+    mms = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+    loss = tfm.cross_entropy
+
+    def losing_(*args):
+        losing.append(True)
+        try:
+            return loss(*args)
+        finally:
+            losing.pop()
+
+    def producing(*args, **kwargs):
+        products.append(True)
+        seen["products"] += 1
+        try:
+            return product(*args, **kwargs)
+        finally:
+            products.pop()
 
     def looking(*args):
         inside.append(True)
@@ -240,6 +262,17 @@ _PORT = textwrap.dedent("""
     def noting(self, func, args, kwargs, out):
         if inside and hlo_analysis.collective_class(func):
             seen["lookup"].append(list(getattr(out, "shape", ())))
+        if losing and hlo_analysis.collective_class(func):
+            seen["loss"].append([hlo_analysis.collective_class(func),
+                                 list(getattr(out, "shape", ()))])
+        if products and products[-1]:
+            # before a product's matmul: x's moves (an activation, 3-D
+            # here) and its weights' (2-D)
+            if func in mms:
+                products[-1] = False
+            elif hlo_analysis.collective_class(func) == "all-gather" and \
+                    getattr(out, "ndim", 0) >= 3:
+                seen["x_gathers"].append(list(out.shape))
         return record(self, func, args, kwargs, out)
 
     def spy(graphs, chips):
@@ -247,10 +280,14 @@ _PORT = textwrap.dedent("""
         reduced = 0.0
         shapes = set()
         scans = []
+        rope = []
         for g in hlo_analysis._graphs(graphs):
             for node in g.nodes:
                 if node.op != "call_function":
                     continue
+                if node.target in (torch.ops.aten.cos.default,
+                                   torch.ops.aten.sin.default):
+                    rope.append(list(node.meta.get("val").shape))
                 if getattr(node.target, "namespace", "") == "repro_torch":
                     kernel += hlo_analysis.node_flops(
                         node.target, hlo_analysis._vals(node.args),
@@ -274,14 +311,21 @@ _PORT = textwrap.dedent("""
         seen["collective_shapes"] = sorted(shapes)
         seen["scan_shapes"] = scans
         seen["reduced_bytes"] = reduced
+        seen["rope_shapes"] = rope
         return analyze(graphs, chips)
     tfm._lookup, hlo_analysis._Recorder._record = looking, noting
+    ctx.product = producing
+    tfm.cross_entropy = losing_
     hlo_analysis.analyze = spy
     run_cell = dryrun.run_cell
 
     def run_and_spy(*args, **kwargs):
-        seen["lookup"] = []
+        seen.update(lookup=[], x_gathers=[], products=0, loss=[])
         cell = run_cell(*args, **kwargs)
+        cell["loss_collectives"] = seen["loss"]
+        cell["x_gathers"] = seen["x_gathers"]
+        cell["products"] = seen["products"]
+        cell["rope_shapes"] = seen.get("rope_shapes", [])
         cell["lookup_collectives"] = seen["lookup"]
         cell["kernel_flops"] = seen.get("kernel_flops", 0.0)
         cell["collective_shapes"] = seen.get("collective_shapes", [])
@@ -308,6 +352,8 @@ _PORT = textwrap.dedent("""
                                              "decode")
     out["skipped"] = dryrun.run_cell("qwen3-0.6b", "long_500k",
                                      device="cpu")
+    out["long"] = dryrun.run_cell("zamba2-2.7b", "long_500k", verbose=False,
+                                  device="cpu")
     mesh[0] = %(split_mesh)r
     dryrun.SHAPES = SPLIT_SHAPES
     for s in SPLIT_SHAPES:
@@ -840,6 +886,102 @@ def test_cli_writes_a_production_cell(runs, tag, chips):
 
 def test_long_context_skips_full_attention(runs):
     assert runs["port"]["skipped"]["status"] == "skipped"
+
+
+@pytest.mark.parametrize("cell", ["qwen3-0.6b/prefill_32k",
+                                  "qwen3-0.6b/train_4k", "dp/gemma3-1b",
+                                  "dp/zamba2-2.7b"])
+def test_rotary_tables_hold_one_row_not_the_batch(runs, cell):
+    """A prefill (8 sequences, 2 a rank) and ``dp`` train cells (16, 2 a
+    rank): every cos and sin the traced rank computes is the rotary table
+    of one row, (1, S, hd / 2), broadcast over the rank's rows
+    (``transformer._positions``); with (B, S) positions each rank made
+    the tables of the global batch, 1.5 of gemma3-1b's 1.94 GiB
+    ``prefill_32k`` peak."""
+    got = runs["port"]["dp"][cell[3:]] if cell.startswith("dp/") else \
+        runs["port"]["cells"][cell]
+    assert got["status"] == "ok"
+    assert got["rope_shapes"], "no rotary table traced"
+    assert all(shape[0] == 1 for shape in got["rope_shapes"]), \
+        got["rope_shapes"]
+
+
+def test_one_slot_decode_moves_only_the_ranks_slice_of_x(runs):
+    """Smoke zamba2's ``long_500k`` (one slot, 1024 deep) on the (4, 2)
+    mesh: x, split over ``model`` by the norm's scale, reaches each
+    product without an all-gather of its D; where a weight keeps its K
+    split over ``data`` the rank's range comes from the ``model`` rank
+    that holds it, by one all-to-all (``ctx.slice_holder``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    cell = runs["port"]["long"]
+    assert cell["status"] == "ok", cell.get("error")
+    assert cell["products"] > 0
+    assert cell["x_gathers"] == [], cell["x_gathers"]
+    d = smoke_config(get_config("zamba2-2.7b")).d_model
+    assert ["all-to-all", [d // 4, 1, 1]] in cell["collective_shapes"], \
+        cell["collective_shapes"]
+
+
+def test_2d_train_loss_gathers_no_logits(runs):
+    """Smoke dbrx's ``2d`` train cell on the (2, 4) mesh, whose logits
+    split their vocab over ``model``: the loss's collectives are
+    all-reduces of a number or two a row (the max, the sum of
+    exponentials and the label's logit, ``layers._logsumexp``), none
+    with a vocab dim; DTensor's ``logsumexp`` gathered the data group's
+    rows of the rank's vocab slice (dbrx-132b: (32, 4096, 6272) fp32 a
+    microbatch)."""
+    cell = runs["port"]["kv_2d"]
+    assert cell["status"] == "ok", cell.get("error")
+    got = cell["loss_collectives"]
+    assert got, "no collective in the loss"
+    for cls, shape in got:
+        assert cls == "all-reduce", got
+        assert len(shape) == 2 or shape[-1] == 1, got
+
+
+def _collective_graph(target, args, out):
+    import torch
+    import torch.fx
+    g = torch.fx.Graph()
+    node = g.call_function(target, tuple(g.placeholder(f"in{i}")
+                                         for i in range(len(args))))
+    for ph, val in zip(g.nodes, args):
+        ph.meta["val"] = val
+    node.meta["val"] = out
+    g.output((node,))
+    return g
+
+
+#: one collective each on a group of 4, x (8, 16) fp32: (class, op, the
+#: op's input, its output); the dry run counts the output's bytes, as
+#: the reference's ``hlo_analysis`` counts each collective's
+COUNTS = {
+    "all-gather": ("all_gather_into_tensor", (8, 16), (32, 16)),
+    "reduce-scatter": ("reduce_scatter_tensor", (8, 16), (2, 16)),
+    "all-reduce": ("all_reduce", (8, 16), (8, 16)),
+    "all-to-all": ("all_to_all_single", (8, 16), (8, 16)),
+}
+
+
+@pytest.mark.parametrize("cls", sorted(COUNTS))
+def test_a_collective_counts_its_output_bytes(cls):
+    """The count every dry-run gate holds (``hlo_analysis``'s docstring):
+    a collective's output bytes, once (an all-reduce once, not twice; a
+    reduce-scatter at its output, not its input), and nothing else."""
+    import torch
+    import torch.distributed  # noqa: F401  (registers the c10d ops)
+    from repro_torch.launch import hlo_analysis
+    name, shape_in, shape_out = COUNTS[cls]
+    target = getattr(torch.ops._c10d_functional, name).default
+    assert hlo_analysis.collective_class(target) == cls
+    x = torch.empty(shape_in, device="meta")
+    out = torch.empty(shape_out, device="meta")
+    cost = hlo_analysis.graph_cost(_collective_graph(target, [x], out))
+    assert cost.coll == {c: (out.numel() * 4 if c == cls else 0.0)
+                         for c in hlo_analysis.COLLECTIVES}
+    assert cost.coll_counts[cls] == 1
+    assert cost.flops == 0
 
 
 def test_refuses_a_real_process_group(runs):

@@ -114,6 +114,125 @@ def test_peak_bytes_hold_inputs_and_the_widest_step():
     assert hlo_analysis.peak_bytes(graph) == 4 * 2 ** 20
 
 
+def _all_to_all_view(target):
+    """A graph of x (4, 3, 8) fp32 -> ``target``'s node, whose output (2,
+    3, 16) is a view of a (4, 3, 16) storage, as the fake kernel of
+    ``_dtensor::shard_dim_alltoall`` makes it on a group of 2 (the
+    group's copies of x concatenated on dim 2, dim 0 narrowed) -> its
+    negation, the graph's output: the node's storage, and a read of it."""
+    g = torch.fx.Graph()
+    x = g.placeholder("x")
+    x.meta["val"] = meta(4, 3, 8)
+    node = g.call_function(target, (x,))
+    node.meta["val"] = meta(4, 3, 16).narrow(0, 0, 2)
+    neg = g.call_function(torch.ops.aten.neg.default, (node,))
+    neg.meta["val"] = meta(2, 3, 16)
+    g.output((neg,))
+    return g
+
+
+@pytest.mark.parametrize("collective", [True, False],
+                         ids=["collective", "view_of_an_op"])
+def test_a_collectives_output_is_charged_at_its_own_bytes(collective):
+    """A collective's output that is a view of a larger storage (the fake
+    all-to-all's) is charged at its own 384 bytes, as the card's op
+    allocates it; an ordinary op's view shares, and is charged with,
+    its whole 768-byte storage.  x and the negation are 384 bytes each,
+    live beside it at the negation."""
+    import torch.distributed.tensor  # noqa: F401  (registers _dtensor)
+    target = torch.ops._dtensor.shard_dim_alltoall.default if collective \
+        else torch.ops.aten.cat.default
+    graph = _all_to_all_view(target)
+    held = 384 if collective else 768
+    assert hlo_analysis.peak_bytes(graph) == 384 + held + 384
+    peak, live = hlo_analysis.live_at_peak(graph)
+    assert (held, str(target), (2, 3, 16), 384, 768) in live
+
+
+def test_a_collectives_wait_and_autograd_wrapper_share_its_storage():
+    """x (4, 16) fp32 -> an all-gather (32, 16) -> the wrapper that gives
+    it to autograd -> its wait -> the sum of the wait's output and the
+    gather's: the wrapper's and the wait's fakes each return a new
+    tensor, but the card's ops return the gather's own (or a wrapper of
+    it), so three storages (x, the gather, the sum) and a peak of 256 +
+    2048 + 2048 bytes, not the two or three copies of the gather that
+    the fakes' storages would hold at the sum."""
+    import torch.distributed._functional_collectives  # noqa: F401
+    ops = torch.ops._c10d_functional
+    chain = [ops.all_gather_into_tensor.default]
+    if hasattr(ops, "_wrap_tensor_autograd"):
+        chain.append(ops._wrap_tensor_autograd.default)
+    chain.append(ops.wait_tensor.default)
+    g = torch.fx.Graph()
+    node = g.placeholder("x")
+    node.meta["val"] = meta(4, 16)
+    made = []
+    for target in chain:
+        node = g.call_function(target, (node,))
+        node.meta["val"] = meta(32, 16)
+        made.append(node)
+    add = g.call_function(torch.ops.aten.add.Tensor, (node, made[0]))
+    add.meta["val"] = meta(32, 16)
+    g.output((add,))
+    assert len(hlo_analysis._live_ranges(g)[0]) == 3
+    assert hlo_analysis.peak_bytes(g) == 256 + 2048 + 2048
+    # and they move no bytes of their own: the gather's and the sum's
+    # operands and outputs
+    assert hlo_analysis.graph_cost(g).bytes == (256 + 2048) + 3 * 2048
+
+
+#: two gloo ranks: the real ``_dtensor::shard_dim_alltoall`` (x (4, 3, 8)
+#: split on dim 2, out split on dim 0), then its fake on the same input
+_ALLTOALL_RANK = textwrap.dedent("""
+    import json, sys
+    import torch, torch.distributed as dist
+    import torch.distributed.tensor  # registers the _dtensor ops
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rank, where = int(sys.argv[1]), sys.argv[2]
+    dist.init_process_group("gloo", store=dist.FileStore(where, 2),
+                            rank=rank, world_size=2)
+    group = dist.group.WORLD.group_name
+    x = torch.arange(96, dtype=torch.float32).reshape(4, 3, 8) + 100 * rank
+    out = torch.ops._dtensor.shard_dim_alltoall(x, 2, 0, group)
+    want = torch.cat([torch.arange(96, dtype=torch.float32).reshape(4, 3, 8)
+                      [2 * rank:2 * rank + 2] + 100 * r for r in range(2)],
+                     2)
+    with FakeTensorMode() as mode:
+        fake = torch.ops._dtensor.shard_dim_alltoall(mode.from_tensor(x), 2,
+                                                     0, group)
+    print(json.dumps({
+        "shape": list(out.shape), "right": bool(out.equal(want)),
+        "own": out.numel() * out.element_size(),
+        "storage": out.untyped_storage().nbytes(),
+        "fake_shape": list(fake.shape),
+        "fake_storage": fake.untyped_storage().nbytes()}))
+    dist.destroy_process_group()
+""")
+
+
+def test_the_real_all_to_all_returns_its_own_storage(tmp_path):
+    """On 2 gloo ranks the real ``shard_dim_alltoall`` returns a tensor of
+    its own, 384 bytes, where its fake returns a view of a 768-byte
+    storage: so the dry run charges a collective's output at its own
+    bytes (:func:`hlo_analysis._live_ranges`).  Fails if torch's real op
+    comes to return a view of the group's rows."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _ALLTOALL_RANK, str(r),
+         str(tmp_path / "store")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    for out, _ in outs:
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["shape"] == got["fake_shape"] == [2, 3, 16]
+        assert got["right"]
+        assert got["storage"] == got["own"] == 384
+        assert got["fake_storage"] == 768
+
+
 #: the fake-mesh cases, each printing one JSON line
 _MESH_CASES = textwrap.dedent("""
     import json, sys

@@ -79,6 +79,27 @@ def test_rope_frequencies_match_reference(head_dim, theta):
         layers.rope_frequencies(head_dim, theta).numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_on_one_row_of_positions(dtype):
+    """``apply_rope`` on the forward's and the prefill's positions, (1, S)
+    broadcast over the batch (``transformer._positions``), is bitwise the
+    rope of the same positions given a row a sequence, (B, S), and in
+    fp32 within the LM tolerance of the reference's rope on (B, S)."""
+    b, s, h, hd, theta = 3, 37, 4, 16, 1e4
+    x = np.random.default_rng(0).standard_normal((b, s, h, hd)).astype(
+        np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    one = tfm._positions(s, "cpu")
+    assert tuple(one.shape) == (1, s)
+    got = layers.apply_rope(xt, one, theta)
+    rows = torch.arange(s)[None, :].expand(b, s)
+    assert torch.equal(got, layers.apply_rope(xt, rows, theta))
+    if dtype == "float32":
+        _close(got, ref_layers.apply_rope(
+            jnp.asarray(x), jnp.broadcast_to(jnp.arange(s)[None, :],
+                                             (b, s)), theta))
+
+
 def test_forward_matches_reference(pair):
     ref_cfg, ref_params, cfg, params = pair
     toks = _tokens(0, (2, 13), cfg.vocab_size)

@@ -207,6 +207,29 @@ def test_prefill_and_decode_on_the_mesh(runs):
     assert 126 in got["internvl2-2b/uneven"]["uneven"], got
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-1b"])
+def test_one_slot_takes_the_ranks_slice_of_x(runs, arch):
+    """One slot on the 4x2 mesh (``long_500k``'s batch): x split over
+    ``model`` by the norm's scale reaches the weights whose K splits over
+    ``data`` as the rank's range, moved from the ``model`` rank that
+    holds it (``ctx.slice_holder``), in decode (zamba2's Mamba2
+    ``in_proj`` among them) and, for gemma3, in a one-sequence training
+    step too: logits, caches, states and every gradient as on plain
+    tensors (fp32)."""
+    got = _case(runs, "one_slot")[arch]
+    assert got["slice_moves"] > 0, got
+    assert got["logit_gap"] < 1e-4, got
+    for k in ("k_gap", "v_gap", "state_gap"):
+        if k in got:
+            assert got[k] < 1e-4, (k, got)
+    assert got["repeated"] == [], got
+    grads = got["grads"]
+    assert max(grads["grad_gap"].values()) < PARAM_TOL, grads
+    assert grads["logit_gap"] < 1e-4, grads
+    if arch == "gemma3-1b":
+        assert grads["slice_moves"] > 0, grads
+
+
 @pytest.mark.parametrize("tag", sorted(sharding_ranks.MAMBA_2D))
 def test_mamba2_heads_split_on_the_2d_mesh(runs, tag):
     """The Mamba2 block on each ``model`` rank's range of the heads on the
